@@ -1,0 +1,168 @@
+"""Static-shape batched graph container.
+
+Variable-size molecular graphs are packed into one fixed-shape
+:class:`GraphBatch`, the layout of the JAX package's ``data/graph.py``:
+
+  * one extra graph slot (the last one) owns all padding nodes and edges;
+  * padded edges point from the last node to the last node and carry
+    zero edge features, so segment reductions over ``node_graph`` /
+    ``receivers`` need no masking.
+
+On top of that layout the batch carries a receiver-sorted CSR of the
+real edges only (``csr_rowptr``, ``csr_snd``, ``csr_eid``), built on the
+host.  The triplet-attention kernel walks it one receiver row at a time.
+Padded edges are left out of it: their edge features are zero, so their
+messages are zero and leaving them out changes no output.
+
+Index dtypes: the padded edge and node index arrays are int64 (what torch
+indexing takes); the CSR arrays are int32 (what the kernel takes).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+
+class GraphArrays(NamedTuple):
+    """A single un-padded graph as host numpy arrays (featurizer output)."""
+
+    nodes: np.ndarray        # [n, Fn] float32
+    edges: np.ndarray        # [e, Fe] float32
+    senders: np.ndarray      # [e] int32
+    receivers: np.ndarray    # [e] int32
+    y: np.ndarray            # [T] float32
+    smi: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """A batch of graphs padded to static shapes.
+
+    N = padded node count, E = padded edge count, G = padded graph count
+    (last slot = padding graph), E_real = real edge count.
+    """
+
+    nodes: torch.Tensor        # [N, Fn] float32
+    edges: torch.Tensor        # [E, Fe] float32
+    senders: torch.Tensor      # [E] int64
+    receivers: torch.Tensor    # [E] int64
+    node_graph: torch.Tensor   # [N] int64 graph id of each node
+    node_pos: torch.Tensor     # [N] int64 position of node within its graph
+    n_node: torch.Tensor       # [G] int64 node count per graph (incl. pad)
+    node_mask: torch.Tensor    # [N] bool
+    edge_mask: torch.Tensor    # [E] bool
+    graph_mask: torch.Tensor   # [G] bool
+    y: torch.Tensor            # [G, T] float32
+    csr_rowptr: torch.Tensor   # [N + 1] int32 row starts into csr_snd
+    csr_snd: torch.Tensor      # [E_real] int32 sender of each sorted edge
+    csr_eid: torch.Tensor      # [E_real] int32 original edge id
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def num_graphs(self) -> int:
+        return self.n_node.shape[0]
+
+    @property
+    def num_real_edges(self) -> int:
+        return self.csr_snd.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.nodes.device
+
+    def to(self, device) -> "GraphBatch":
+        return GraphBatch(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+
+def receiver_csr(senders: np.ndarray, receivers: np.ndarray,
+                 num_nodes: int):
+    """Receiver-sorted CSR of an edge list: (rowptr [N+1], snd [E],
+    eid [E]), all int32.  Edges of one receiver keep their input order."""
+    order = np.argsort(receivers, kind="stable")
+    counts = np.bincount(receivers, minlength=num_nodes)
+    rowptr = np.zeros((num_nodes + 1,), np.int32)
+    np.cumsum(counts, out=rowptr[1:])
+    return (rowptr, senders[order].astype(np.int32),
+            order.astype(np.int32))
+
+
+def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
+               num_nodes: int, num_edges: int,
+               num_tasks: int | None = None) -> GraphBatch:
+    """Pack ``graphs`` into one static-shape :class:`GraphBatch` on the
+    CPU.
+
+    ``num_graphs`` counts only real graph slots; one extra padding-graph
+    slot is appended, so the result has ``G = num_graphs + 1`` graphs.
+    Raises if the batch does not fit the requested budget.
+    """
+    if not graphs:
+        raise ValueError("pad_graphs needs at least one graph")
+    g_real = len(graphs)
+    if g_real > num_graphs:
+        raise ValueError(f"{g_real} graphs > budget {num_graphs}")
+    tot_n = sum(g.nodes.shape[0] for g in graphs)
+    tot_e = sum(g.senders.shape[0] for g in graphs)
+    if tot_n > num_nodes or tot_e > num_edges:
+        raise ValueError(
+            f"batch needs ({tot_n} nodes, {tot_e} edges) > budget "
+            f"({num_nodes}, {num_edges})")
+    fn = graphs[0].nodes.shape[1]
+    fe = graphs[0].edges.shape[1] if graphs[0].edges.ndim == 2 else 0
+    nt = num_tasks if num_tasks is not None else graphs[0].y.shape[-1]
+    G = num_graphs + 1
+
+    nodes = np.zeros((num_nodes, fn), np.float32)
+    edges = np.zeros((num_edges, fe), np.float32)
+    senders = np.full((num_edges,), num_nodes - 1, np.int64)
+    receivers = np.full((num_edges,), num_nodes - 1, np.int64)
+    node_graph = np.full((num_nodes,), G - 1, np.int64)
+    node_pos = np.zeros((num_nodes,), np.int64)
+    n_off = e_off = 0
+    for gi, g in enumerate(graphs):
+        n, e = g.nodes.shape[0], g.senders.shape[0]
+        nodes[n_off:n_off + n] = g.nodes
+        if e:
+            edges[e_off:e_off + e] = g.edges
+            senders[e_off:e_off + e] = g.senders + n_off
+            receivers[e_off:e_off + e] = g.receivers + n_off
+        node_graph[n_off:n_off + n] = gi
+        node_pos[n_off:n_off + n] = np.arange(n)
+        n_off += n
+        e_off += e
+    # padding nodes belong to the padding graph; positions restart
+    node_pos[n_off:] = np.arange(num_nodes - n_off)
+    node_mask = np.zeros((num_nodes,), bool)
+    node_mask[:n_off] = True
+    edge_mask = np.zeros((num_edges,), bool)
+    edge_mask[:e_off] = True
+
+    n_node = np.zeros((G,), np.int64)
+    y = np.full((G, nt), -1.0, np.float32)
+    for gi, g in enumerate(graphs):
+        n_node[gi] = g.nodes.shape[0]
+        y[gi] = np.asarray(g.y, np.float32).reshape(-1)[:nt]
+    n_node[G - 1] = num_nodes - n_off
+    graph_mask = np.zeros((G,), bool)
+    graph_mask[:g_real] = True
+
+    rowptr, csr_snd, csr_eid = receiver_csr(senders[:e_off],
+                                            receivers[:e_off], num_nodes)
+    t = torch.from_numpy
+    return GraphBatch(
+        nodes=t(nodes), edges=t(edges), senders=t(senders),
+        receivers=t(receivers), node_graph=t(node_graph),
+        node_pos=t(node_pos), n_node=t(n_node), node_mask=t(node_mask),
+        edge_mask=t(edge_mask), graph_mask=t(graph_mask), y=t(y),
+        csr_rowptr=t(rowptr), csr_snd=t(csr_snd), csr_eid=t(csr_eid))

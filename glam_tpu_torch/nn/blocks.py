@@ -1,0 +1,105 @@
+"""Composite blocks: LinearBlock, GRUCell and MessageBlock, with the JAX
+package's semantics (``nn/blocks.py``).
+
+  LinearBlock   norm -> dropout -> Linear -> activation
+  MessageBlock  norm -> dropout -> conv -> CELU -> GRU (state threaded
+                across message steps; h = x on the first step) ->
+                optional residual -> activation
+"""
+from __future__ import annotations
+
+import re
+
+import torch
+
+from ..data.graph import GraphBatch
+from .activations import Activation, celu
+from .cells import gru_cell
+from .convs import NO_GRU_CONVS, get_conv
+from .init import rnn_bound, torch_linear_bound
+from .norms import get_norm
+
+_DROPOUT_RE = re.compile(r"^Dropout\(\s*(?:p\s*=\s*)?([0-9.]+)\s*\)$")
+
+
+def parse_dropout(spec: str) -> float:
+    """'_None()' -> 0.0, 'Dropout(0.2)' -> 0.2."""
+    s = spec.strip()
+    if s in ("_None()", "_None", "", "None"):
+        return 0.0
+    m = _DROPOUT_RE.match(s)
+    if not m:
+        raise ValueError(f"cannot parse dropout spec {spec!r}")
+    return float(m.group(1))
+
+
+def _dropout(spec: str) -> torch.nn.Module:
+    rate = parse_dropout(spec)
+    return torch.nn.Dropout(rate) if rate > 0.0 else torch.nn.Identity()
+
+
+class LinearBlock(torch.nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, norm: str = "_None",
+                 dropout: str = "_None()", act: str = "ReLU()"):
+        super().__init__()
+        self.in_dim = in_dim
+        self.norm = get_norm(norm, in_dim)
+        self.dropout = _dropout(dropout)
+        self.linear = torch.nn.Linear(in_dim, out_dim)
+        self.act = Activation(act)
+
+    def param_bounds(self):
+        b = torch_linear_bound(self.in_dim)
+        return {"linear.weight": b, "linear.bias": b}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.linear(self.dropout(self.norm(x))))
+
+
+class GRUCell(torch.nn.Module):
+    """torch GRU (sequence length 1) cell: gate order (r, z, n), both
+    biases, torch weight layout."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = torch.nn.Parameter(torch.empty(3 * hidden, in_dim))
+        self.weight_hh = torch.nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih = torch.nn.Parameter(torch.empty(3 * hidden))
+        self.bias_hh = torch.nn.Parameter(torch.empty(3 * hidden))
+
+    def param_bounds(self):
+        b = rnn_bound(self.hidden)
+        return {"weight_ih": b, "weight_hh": b, "bias_ih": b, "bias_hh": b}
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return gru_cell(x, h, self.weight_ih, self.weight_hh, self.bias_ih,
+                        self.bias_hh)
+
+
+class MessageBlock(torch.nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, edge_dim: int,
+                 norm: str = "_None", dropout: str = "Dropout(0.2)",
+                 conv: str = "_NNConv", act: str = "ReLU()",
+                 res: bool = True):
+        super().__init__()
+        self.res = res
+        self.norm = get_norm(norm, in_dim)
+        self.dropout = _dropout(dropout)
+        self.conv = get_conv(conv, in_dim, out_dim, edge_dim)
+        self.gru = (GRUCell(in_dim, out_dim)
+                    if conv.strip() not in NO_GRU_CONVS else None)
+        self.act = Activation(act)
+
+    def forward(self, x: torch.Tensor, g: GraphBatch, h=None):
+        identity = x
+        if h is None:
+            h = x
+        y = self.dropout(self.norm(x))
+        y = self.conv(y, g.edges, g.csr_rowptr, g.csr_snd, g.csr_eid)
+        if self.gru is not None:
+            y = self.gru(celu(y), h)
+            h = y
+        if self.res:
+            y = y + identity
+        return self.act(y), h
