@@ -25,6 +25,15 @@ _LEAVES = {"kernel": ("weight", True),
 _MODULES = {"TripletMessage_0": "conv"}
 
 
+def transposed_from_jax(name: str) -> bool:
+    """Whether the port stores the ``state_dict`` entry ``name``
+    transposed from the JAX layout (torch's [out, in] for JAX's
+    [in, out]), as ``state_dict_from_jax`` converts it."""
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf in {port for port, transpose in _LEAVES.values()
+                    if transpose}
+
+
 def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
     for k, v in tree.items():
         if isinstance(v, Mapping):

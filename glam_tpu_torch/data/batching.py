@@ -3,16 +3,47 @@
 The single-device ``GraphLoader`` of the JAX package's
 ``data/batching.py``: one static (num_nodes, num_edges) budget per
 (dataset, batch_size), rounded up to a multiple of 8, and the final
-partial batch padded with empty graph slots.
+partial batch padded with empty graph slots; and ``prefetch``, which
+assembles batches on a background thread.
 """
 from __future__ import annotations
 
 import math
+import queue
+import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
 from .graph import GraphArrays, GraphBatch, pad_graphs
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """Run ``iterator`` in a background thread with a bounded queue, so
+    that host-side batch assembly overlaps the device's work.  An
+    exception in the thread is raised in the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+
+    def worker():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as exc:  # surface errors in the consumer
+            q.put((sentinel, exc))
+            return
+        q.put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, tuple) and len(item) == 2 and \
+                item[0] is sentinel:
+            raise item[1]
+        yield item
 
 
 def _round_up(x: int, m: int = 8) -> int:

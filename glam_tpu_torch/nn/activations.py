@@ -1,11 +1,15 @@
 """Activation registry with the JAX package's semantics
 (``nn/activations.py``).
 
-RReLU uses the mean slope (1/8 + 1/3) / 2 = 11/48 in eval mode, as torch
-does.  Its training-mode noise comes with the training slice; a module in
-training mode raises rather than run without it.
+RReLU: in training mode each element's negative slope is drawn from
+U(1/8, 1/3) with the caller's ``torch.Generator`` (``activations.py:24-28``
+of the JAX package draws it from the dropout key); in eval mode it is the
+mean slope (1/8 + 1/3) / 2 = 11/48, as torch does.  The draws differ from
+JAX's for the same seed; the distribution is the same.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -16,12 +20,32 @@ RRELU_EVAL_SLOPE = (RRELU_LOWER + RRELU_UPPER) / 2.0
 
 
 def celu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
-    """Branch-safe CELU: expm1 only ever sees x <= 0."""
-    return x.clamp(min=0.0) + alpha * torch.expm1(x.clamp(max=0.0) / alpha)
+    """Branch-safe CELU: expm1 only ever sees x <= 0.  One branch per
+    element, so the derivative at x = 0 is 1 (a sum of the two clamps
+    would pass the gradient through both there and give 2)."""
+    return torch.where(x > 0, x,
+                       alpha * torch.expm1(x.clamp(max=0.0) / alpha))
 
 
 def _leaky(slope: float):
     return lambda x: torch.where(x >= 0, x, x * slope)
+
+
+def need_generator(generator: Optional[torch.Generator],
+                   what: str) -> torch.Generator:
+    """``generator``, or a ValueError: training-mode noise is drawn from
+    an explicit generator only."""
+    if generator is None:
+        raise ValueError(f"training-mode {what} needs a torch.Generator "
+                         "(pass generator=...), or call .eval()")
+    return generator
+
+
+def rrelu_train(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """RReLU with a slope per element drawn from U(1/8, 1/3)."""
+    slope = torch.empty_like(x).uniform_(RRELU_LOWER, RRELU_UPPER,
+                                         generator=generator)
+    return torch.where(x >= 0, x, x * slope)
 
 
 _ACTS = {
@@ -50,11 +74,10 @@ class Activation(torch.nn.Module):
         self.key = activation_key(name)
         self.fn = _ACTS[self.key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.training and self.key == "RReLU":
-            raise NotImplementedError(
-                "training-mode RReLU noise is not ported yet (ROADMAP "
-                "queue A, training slice); call .eval() to serve")
+            return rrelu_train(x, need_generator(generator, "RReLU"))
         return self.fn(x)
 
     def extra_repr(self) -> str:

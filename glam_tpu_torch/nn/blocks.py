@@ -5,15 +5,21 @@ package's semantics (``nn/blocks.py``).
   MessageBlock  norm -> dropout -> conv -> CELU -> GRU (state threaded
                 across message steps; h = x on the first step) ->
                 optional residual -> activation
+
+Noise (dropout masks, RReLU slopes) is drawn only in ``train()`` mode,
+from the ``torch.Generator`` the caller passes.  Node-level blocks hand
+their norm the batch's ``node_graph``, ``n_node`` and ``node_mask``, as
+the JAX package's ``blocks.py:55-58,115-118`` do.
 """
 from __future__ import annotations
 
 import re
+from typing import Optional
 
 import torch
 
 from ..data.graph import GraphBatch
-from .activations import Activation, celu
+from .activations import Activation, celu, need_generator
 from .cells import gru_cell
 from .convs import NO_GRU_CONVS, get_conv
 from .init import rnn_bound, torch_linear_bound
@@ -33,9 +39,26 @@ def parse_dropout(spec: str) -> float:
     return float(m.group(1))
 
 
-def _dropout(spec: str) -> torch.nn.Module:
-    rate = parse_dropout(spec)
-    return torch.nn.Dropout(rate) if rate > 0.0 else torch.nn.Identity()
+class Dropout(torch.nn.Module):
+    """Inverted dropout whose mask is drawn from the caller's generator;
+    the identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        u = torch.rand(x.shape, generator=need_generator(generator,
+                                                         "dropout"),
+                       device=x.device, dtype=x.dtype)
+        return torch.where(u >= self.rate, x / (1.0 - self.rate),
+                           torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 class LinearBlock(torch.nn.Module):
@@ -44,7 +67,7 @@ class LinearBlock(torch.nn.Module):
         super().__init__()
         self.in_dim = in_dim
         self.norm = get_norm(norm, in_dim)
-        self.dropout = _dropout(dropout)
+        self.dropout = Dropout(parse_dropout(dropout))
         self.linear = torch.nn.Linear(in_dim, out_dim)
         self.act = Activation(act)
 
@@ -52,8 +75,11 @@ class LinearBlock(torch.nn.Module):
         b = torch_linear_bound(self.in_dim)
         return {"linear.weight": b, "linear.bias": b}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.linear(self.dropout(self.norm(x))))
+    def forward(self, x: torch.Tensor, generator=None, node_graph=None,
+                n_node=None, node_mask=None) -> torch.Tensor:
+        x = self.norm(x, node_graph=node_graph, n_node=n_node,
+                      node_mask=node_mask)
+        return self.act(self.linear(self.dropout(x, generator)), generator)
 
 
 class GRUCell(torch.nn.Module):
@@ -85,21 +111,24 @@ class MessageBlock(torch.nn.Module):
         super().__init__()
         self.res = res
         self.norm = get_norm(norm, in_dim)
-        self.dropout = _dropout(dropout)
+        self.dropout = Dropout(parse_dropout(dropout))
         self.conv = get_conv(conv, in_dim, out_dim, edge_dim)
         self.gru = (GRUCell(in_dim, out_dim)
                     if conv.strip() not in NO_GRU_CONVS else None)
         self.act = Activation(act)
 
-    def forward(self, x: torch.Tensor, g: GraphBatch, h=None):
+    def forward(self, x: torch.Tensor, g: GraphBatch, h=None,
+                generator=None):
         identity = x
         if h is None:
             h = x
-        y = self.dropout(self.norm(x))
+        y = self.norm(x, node_graph=g.node_graph, n_node=g.n_node,
+                      node_mask=g.node_mask)
+        y = self.dropout(y, generator)
         y = self.conv(y, g.edges, g.csr_rowptr, g.csr_snd, g.csr_eid)
         if self.gru is not None:
             y = self.gru(celu(y), h)
             h = y
         if self.res:
             y = y + identity
-        return self.act(y), h
+        return self.act(y, generator), h

@@ -76,20 +76,28 @@ class _Tower(torch.nn.Module):
         self.flat = LinearBlock(mult * hid_dim, flat_out, norm=c.flat_norm,
                                 dropout=c.flat_do, act=c.flat_act)
 
-    def forward(self, g: GraphBatch, return_nodes: bool = False):
-        x = self.lin0(g.nodes)
+    def forward(self, g: GraphBatch, return_nodes: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = self.lin0(g.nodes, generator, node_graph=g.node_graph,
+                      n_node=g.n_node, node_mask=g.node_mask)
         h = None
         xs = []
         for _ in range(self.message_steps):
-            x, h = self.conv(x, g, h)
+            x, h = self.conv(x, g, h, generator)
             xs.append(x)
-        out = self.flat(self.readout(x, g.node_graph, g.node_pos, g.n_node))
+        out = self.flat(self.readout(x, g.node_graph, g.node_pos, g.n_node),
+                        generator)
         return (out, xs) if return_nodes else out
 
 
 class Architecture(torch.nn.Module):
     """Single-graph model.  Parameters are drawn from ``generator``
-    (a fresh one seeded with 0 when None), on the CPU."""
+    (a fresh one seeded with 0 when None), on the CPU.
+
+    ``forward(g, return_nodes=False, generator=None)``: in ``train()``
+    mode the dropout masks and RReLU slopes are drawn from ``generator``
+    (on the model's device), which is then required if the config has
+    noise; in ``eval()`` mode the forward is deterministic."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
@@ -104,9 +112,10 @@ class Architecture(torch.nn.Module):
             generator = torch.Generator().manual_seed(0)
         reset_parameters(self, generator)
 
-    def forward(self, g: GraphBatch, return_nodes: bool = False):
-        res = self.mol(g, return_nodes=return_nodes)
-        out = self.lin_out1(res[0] if return_nodes else res)
+    def forward(self, g: GraphBatch, return_nodes: bool = False,
+                generator: Optional[torch.Generator] = None):
+        res = self.mol(g, return_nodes=return_nodes, generator=generator)
+        out = self.lin_out1(res[0] if return_nodes else res, generator)
         return (out, res[1]) if return_nodes else out
 
 

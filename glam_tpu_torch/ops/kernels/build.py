@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("triplet_fused",)
+SOURCES = ("triplet_fused", "triplet_fused_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -56,10 +56,11 @@ def segment_topk_by_channel(x: torch.Tensor, segment_ids: torch.Tensor,
     [G, k*C]; graphs with fewer than k nodes are zero-padded (PyG
     ``global_sort_pool``).
 
-    Ties in the key may come out in another order than on the JAX side
-    (``torch.topk`` on CUDA orders ties arbitrarily).  In a molecule tied
-    keys come from symmetric atoms whose rows are identical, so the
-    output is the same."""
+    Tied keys go lowest position first, as ``jax.lax.top_k`` orders them
+    (a stable descending sort; ``torch.topk`` orders ties arbitrarily).
+    In a molecule tied keys come from symmetric atoms whose rows are
+    identical, so the output is the same either way, but the gradient
+    reaches the atoms picked."""
     C = x.shape[-1]
     dense = scatter_nodes_to_dense(x, segment_ids, node_pos, num_segments,
                                    max_nodes)                   # [G, M, C]
@@ -68,7 +69,8 @@ def segment_topk_by_channel(x: torch.Tensor, segment_ids: torch.Tensor,
         max_nodes)[..., 0] > 0                                  # [G, M]
     keys = torch.where(occupied, dense[..., -1],
                        torch.full_like(dense[..., -1], -torch.inf))
-    idx = torch.topk(keys, k, dim=1).indices                    # [G, k]
+    idx = torch.sort(keys, dim=1, descending=True,
+                     stable=True).indices[:, :k]                # [G, k]
     rows = torch.gather(dense, 1, idx[..., None].expand(-1, -1, C))
     valid = torch.gather(occupied, 1, idx)
     rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))

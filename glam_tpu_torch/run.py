@@ -1,0 +1,136 @@
+"""Single-trial training CLI, with the JAX package's flags
+(``glam_tpu/run.py``), so that AutoML-generated commands parse:
+
+    python -m glam_tpu_torch.run --dataset demo --dataset_root datasets/demo \\
+        --epochs 2 --loss bcel --mol_block _TripletMessage
+
+It trains on the CUDA card ``--gpu`` (default 0); ``--platform cpu``
+trains on the host CPU instead.  ``--pallas``, ``--probe_compile``,
+``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
+kernels always run on the card, and eager PyTorch compiles nothing.
+``--dtype bfloat16``, ``--n_devices > 1``, ``--pro_shards > 1`` and the
+pair datasets raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--dataset_root", default="./dataset", type=str)
+    p.add_argument("--dataset", type=str, default="esol")
+    p.add_argument("--split", type=str, default="random",
+                   help="random, scaffold")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--split_seed", type=int, default=1234)
+    p.add_argument("--gpu", default=0, type=int, help="CUDA device index")
+    p.add_argument("--note", default="None2", type=str)
+
+    p.add_argument("--hid_dim_alpha", default=4, type=int)
+    p.add_argument("--mol_block", type=str, default="_NNConv")
+    p.add_argument("--pro_block", type=str, default="_GCNConv",
+                   help="protein-tower conv for DTI datasets")
+    p.add_argument("--e_dim", default=1024, type=int)
+    p.add_argument("--out_dim", default=1, type=int)
+    p.add_argument("--message_steps", default=3, type=int)
+    p.add_argument("--mol_readout", default="GlobalPool5", type=str)
+    p.add_argument("--pro_readout", default="GlobalPool5", type=str,
+                   help="protein-tower readout for DTI datasets")
+
+    p.add_argument("--pre_norm", default="_None", type=str)
+    p.add_argument("--graph_norm", default="_PairNorm", type=str)
+    p.add_argument("--flat_norm", default="_None", type=str)
+    p.add_argument("--end_norm", default="_None", type=str)
+    p.add_argument("--pre_do", default="_None()", type=str)
+    p.add_argument("--graph_do", default="_None()", type=str)
+    p.add_argument("--flat_do", default="Dropout(0.2)", type=str)
+    p.add_argument("--end_do", default="Dropout(0.2)", type=str)
+    p.add_argument("--pre_act", default="RReLU", type=str)
+    p.add_argument("--graph_act", default="RReLU", type=str)
+    p.add_argument("--flat_act", default="RReLU", type=str)
+    p.add_argument("--end_act", default="RReLU", type=str,
+                   help="pair-head activation")
+    p.add_argument("--graph_res", default=1, type=int)
+
+    p.add_argument("--batch_size", default=32, type=int)
+    p.add_argument("--epochs", default=800, type=int)
+    p.add_argument("--loss", default="mse", type=str)
+    p.add_argument("--optim", default="Adam", type=str)
+    p.add_argument("--k", default=6, type=int, help="lookahead steps")
+    p.add_argument("--lr", default=0.001, type=float)
+    p.add_argument("--lr_reduce_rate", default=0.7, type=float)
+    p.add_argument("--lr_reduce_patience", default=20, type=int)
+    p.add_argument("--early_stop_patience", default=50, type=int)
+    p.add_argument("--verbose_patience", default=500, type=int)
+    p.add_argument("--scan_steps", default=8, type=int,
+                   help="accepted for the JAX package's commands; no "
+                        "effect (one optimizer step per batch)")
+    p.add_argument("--work_dir", default=None, type=str,
+                   help="where log_{dataset}/ run dirs are created")
+    p.add_argument("--platform", default=None, type=str,
+                   help="'cpu' trains on the host CPU; default the CUDA "
+                        "card --gpu")
+    p.add_argument("--resume", default=None, type=str,
+                   help="run dir (or last_save.pt) to resume "
+                        "mid-training from")
+    p.add_argument("--dtype", default="float32", type=str,
+                   help="compute dtype; only float32 is ported")
+    p.add_argument("--compile_cache", default=None, type=str,
+                   help="accepted for the JAX package's commands; no "
+                        "effect")
+    p.add_argument("--pallas", default="auto", type=str,
+                   help="accepted for the JAX package's commands; no "
+                        "effect (the CUDA kernels always run on the card)")
+    p.add_argument("--probe_compile", default=0.0, type=float,
+                   help="accepted for the JAX package's commands; no "
+                        "effect")
+    p.add_argument("--n_devices", default=1, type=int,
+                   help="data-parallel training; only 1 is ported")
+    p.add_argument("--halo", default="a2a", type=str,
+                   help="halo plan for --pro_shards (not ported)")
+    p.add_argument("--pro_shards", default=1, type=int,
+                   help="node-sharded DTI protein tower; only 1 is ported")
+    p.add_argument("--pair_batch", default=1, type=int,
+                   help="pairs per optimizer step with --pro_shards")
+    return p
+
+
+def resolve_run_device(args) -> str:
+    """``cpu`` for ``--platform cpu``, else ``cuda:<gpu>``."""
+    platform = (args.get("platform") or "cuda").strip().lower()
+    if platform == "cpu":
+        return "cpu"
+    if platform not in ("cuda", "gpu"):
+        raise ValueError(f"--platform {platform!r}: use 'cpu', or leave it "
+                         "unset for the CUDA card")
+    return f"cuda:{int(args.get('gpu') or 0)}"
+
+
+def main(argv=None):
+    args = vars(build_parser().parse_args(argv))
+    device = resolve_run_device(args)
+    from .data.datasets import auto_dataset
+    from .train.trainer import check_supported, make_trainer
+    from .utils.seed import seed_everything
+
+    check_supported(args)
+    if int(args.get("pair_batch", 1)) > 1:
+        raise ValueError("--pair_batch applies to --pro_shards runs "
+                         "only (dense trainers batch via --batch_size)")
+    args.pop("compile_cache", None)
+    seed_everything(args["seed"])
+    print("Loading dataset...")
+    args, dataset, trainer_kind = auto_dataset(args)
+    print("Training init...")
+    resume = args.pop("resume", None)
+    trainer = make_trainer(args, dataset, trainer_kind,
+                           work_dir=args.get("work_dir"), device=device)
+    if resume:
+        trainer.resume(resume)
+    trainer.train_and_test()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

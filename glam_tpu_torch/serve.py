@@ -10,9 +10,10 @@ SMILES that cannot be featurized yield NaN rows.  Loading runs no forward
 pass.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with ``cuda`` and no card they raise.
 
-Checkpoints are ``best_save.pt`` files written by :func:`save_checkpoint`:
-``{"args": json string, "state_dict": {name: tensor}}``, read with
-``torch.load(weights_only=True)``.
+Checkpoints are ``best_save.pt`` files written by :func:`save_checkpoint`
+(the trainer writes them so too): ``{"args": json string, "state_dict":
+{name: tensor}}``, plus the trainer's ``"records"`` (json string), read
+with ``torch.load(weights_only=True)``.
 """
 from __future__ import annotations
 
@@ -54,15 +55,20 @@ def pinned_budgets(batch_size: int, max_nodes: int):
 
 
 def save_checkpoint(run_dir, model: Architecture, args: Dict,
-                    which: str = "best_save.pt") -> Path:
+                    which: str = "best_save.pt",
+                    records: Optional[Dict] = None) -> Path:
     """Write ``run_dir/which``; ``args`` gains the model's ``model_cfg``
-    when it lacks one, so the checkpoint describes its model."""
+    when it lacks one, so the checkpoint describes its model.
+    ``records`` (the trainer's) are stored beside the weights."""
     args = dict(args)
     args.setdefault("model_cfg", dataclasses.asdict(model.cfg))
     path = Path(run_dir) / which
     path.parent.mkdir(parents=True, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"args": json.dumps(args), "state_dict": state}, path)
+    payload = {"args": json.dumps(args), "state_dict": state}
+    if records is not None:
+        payload["records"] = json.dumps(records)
+    torch.save(payload, path)
     return path
 
 

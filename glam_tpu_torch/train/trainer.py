@@ -1,0 +1,423 @@
+"""Training engine for the single-graph model: train and eval steps, the
+epoch loop with early stop, ReduceLROnPlateau, best checkpoints, resume,
+and the parseable result line.  The port of the JAX package's
+``train/trainer.py`` (``Trainer``, ``make_trainer``).
+
+Each optimizer step is one forward, one backward and one update, on the
+trainer's device (``cuda`` unless the caller passes ``device="cpu"``).
+Dropout masks and RReLU slopes are drawn from the trainer's
+``torch.Generator``, which lives on that device and is seeded from
+``seed``.  Checkpoints are torch files in the run directory:
+
+  best_save.pt   {"args", "state_dict", "records"}, the format of
+                 ``serve.save_checkpoint``, so ``Predictor`` serves it
+  final_save.pt  the same, after the last epoch
+  last_save.pt   the whole training state, for ``resume``
+
+Each run appends to ``log.txt``, whose last line is the
+``{loss_info}|{test_result}|{val_result}`` triple of the JAX package
+(``trainer.py:682``), and writes ``result.json``.
+
+Task trainers (one class, behaviour keyed by ``task``):
+  regression       out [G,1]; criterion(out, y); RMSE/R2/CI metrics
+  binary_nan       out [G,T*2] -> (G,T,2) softmax CE path
+  binary_nan_bce   out [G,T] logits; masked BCEWithLogits (y >= 0)
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import shutil
+import time
+from datetime import datetime, timezone
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data.batching import GraphLoader, max_graph_nodes, prefetch
+from ..data.graph import GraphBatch
+from ..nn.model import Architecture, model_config_from_args
+from ..serve import resolve_device, save_checkpoint
+from .losses import get_loss
+from .metrics import binary_metrics_multi_target_nan, regression_metrics
+from .optim import (ReduceLROnPlateau, get_learning_rate, make_optimizer,
+                    set_learning_rate)
+
+# a trial has diverged when its loss or outputs are non-finite or absurdly
+# large but finite (an lr=1e8 run reaches ~1e27 without a NaN)
+_DIVERGE_LIMIT = 1e15
+
+
+def _diverged(*values) -> bool:
+    return any(not np.isfinite(v) or abs(float(v)) > _DIVERGE_LIMIT
+               for v in values)
+
+
+def _utc_run_id(seed: int) -> str:
+    ts = datetime.now(timezone.utc).strftime("%Y-%m-%d_%H:%M:%S.%f")[:-3]
+    return f"{ts}_seed_{seed}"
+
+
+def check_supported(args: Dict) -> None:
+    """Raise for the options whose code is not ported yet."""
+    if str(args.get("dtype", "float32")) != "float32":
+        raise NotImplementedError(
+            f"--dtype {args['dtype']} is not ported yet (ROADMAP queue A, "
+            "training slice leftovers: bf16)")
+    if int(args.get("n_devices", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--n_devices > 1 is not ported yet (ROADMAP queue A, 'Data "
+            "parallelism')")
+    if int(args.get("pro_shards", 1) or 1) > 1:
+        raise NotImplementedError(
+            "--pro_shards > 1 is not ported yet (ROADMAP queue A, "
+            "'Node-sharded giant-graph tower')")
+
+
+def make_loss_fn(task: str, loss_name: str, num_tasks: int):
+    """``loss(outputs [G, D], y [G, T], graph_mask) -> scalar``."""
+    criterion = get_loss(loss_name)
+
+    if task == "regression":
+        def loss_fn(out, y, gmask):
+            pred = out.reshape(-1)
+            return criterion(pred, y[:, 0], weight=gmask.to(pred.dtype))
+    elif task == "binary_nan_bce":
+        def loss_fn(out, y, gmask):
+            mask = (y >= 0) & gmask[:, None]
+            return criterion(out, y.clamp(min=0.0),
+                             weight=mask.to(out.dtype))
+    elif task == "binary_nan":
+        def loss_fn(out, y, gmask):
+            logits = out.reshape(y.shape[0], num_tasks, 2)
+            mask = (y >= 0) & gmask[:, None]
+            return criterion(logits, y.clamp(min=0.0),
+                             weight=mask.to(out.dtype))
+    else:
+        raise ValueError(f"unknown task {task!r}")
+    return loss_fn
+
+
+class Trainer:
+    """Single-graph trainer; see the module docstring."""
+
+    TASK = "regression"
+
+    def __init__(self, args: Dict, model: Architecture, train_graphs,
+                 valid_graphs, test_graphs=None, print_log: bool = True,
+                 work_dir: Optional[str] = None, device="cuda"):
+        check_supported(args)
+        self.args = dict(args)
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.print_log = print_log
+        self.start = time.time()
+        self.task = self.args.get("task", self.TASK)
+        self.num_tasks = int(self.args.get("num_tasks", 1))
+        seed = int(self.args.get("seed", 1234))
+
+        nt = self.num_tasks
+        self.train_loader = GraphLoader(
+            train_graphs, int(self.args.get("batch_size", 32)), nt,
+            shuffle=True, seed=seed)
+        self.valid_loader = GraphLoader(valid_graphs, 32, nt)
+        self.test_loader = (GraphLoader(test_graphs, 32, nt)
+                            if test_graphs else None)
+
+        self.loss_fn = make_loss_fn(self.task, self.args.get("loss", "mse"),
+                                    nt)
+        self.optimizer = make_optimizer(
+            self.args.get("optim", "Adam"), self.model.named_parameters(),
+            float(self.args.get("lr", 1e-3)), k=int(self.args.get("k", 6)))
+        self.scheduler = ReduceLROnPlateau(
+            factor=float(self.args.get("lr_reduce_rate", 0.7)),
+            patience=int(self.args.get("lr_reduce_patience", 20)),
+            min_lr=1e-6)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.records: Dict[str, List] = {"val_losses": []}
+        # per epoch: optimizer steps, molecules and seconds of training
+        self.epoch_stats: List[Dict] = []
+        self._start_epoch = 0
+        self._early_stop_cnt = 0
+
+        base = Path(work_dir) if work_dir else Path.cwd()
+        self.run_id = _utc_run_id(seed)
+        self.log_save_dir = (base / f"log_{self.args.get('dataset', 'run')}"
+                             / self.run_id)
+        self.log_save_dir.mkdir(parents=True, exist_ok=True)
+
+        n_params = sum(p.numel() for p in self.model.parameters())
+        device_name = (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu")
+        self.log(msgs=[f"\t{k}:{v}\n" for k, v in self.args.items()])
+        self.log(f"save id: {self.run_id}")
+        self.log(f"run device: {self.device} ({device_name})")
+        self.log("train set num:{}    valid set num:{}    test set num: {}"
+                 .format(len(train_graphs), len(valid_graphs),
+                         len(test_graphs) if test_graphs else 0))
+        self.log("total parameters:" + str(n_params))
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch: GraphBatch) -> torch.Tensor:
+        """One optimizer step on a batch already on the device; returns
+        the loss, still on the device."""
+        out = self.model(batch, generator=self.generator)
+        loss = self.loss_fn(out, batch.y, batch.graph_mask)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def train_iterations(self) -> float:
+        self.model.train()
+        losses, n_mol = [], 0
+        t0 = time.perf_counter()
+        for batch in prefetch(iter(self.train_loader)):
+            losses.append(self.train_step(batch.to(self.device)))
+            n_mol += int(batch.graph_mask.sum())
+        values = torch.stack(losses).tolist() if losses else []
+        dt = time.perf_counter() - t0
+        self.epoch_stats.append({"steps": len(values), "molecules": n_mol,
+                                 "seconds": dt})
+        if values:
+            self.log("\tbatch 0 training loss: {:.5f}".format(values[0]),
+                     with_time=True)
+            self.log(f"\ttrain stats: {n_mol} molecules in {dt:.3f} s = "
+                     f"{n_mol / max(dt, 1e-9):.1f} molecules/s",
+                     with_time=True)
+        return float(np.mean(values)) if values else 0.0
+
+    def _gather(self, mode: str):
+        loader = self.valid_loader if mode == "valid" else self.test_loader
+        self.model.eval()
+        outs, losses, ys, masks = [], [], [], []
+        with torch.inference_mode():
+            for batch in prefetch(iter(loader)):
+                b = batch.to(self.device)
+                out = self.model(b)
+                outs.append(out)
+                losses.append(self.loss_fn(out, b.y, b.graph_mask))
+                ys.append(batch.y.numpy())
+                masks.append(batch.graph_mask.numpy())
+            out = torch.cat(outs).float().cpu().numpy()
+            loss = torch.stack(losses).double().cpu().numpy()
+        m = np.concatenate(masks)
+        return out[m], np.concatenate(ys)[m], float(np.mean(loss))
+
+    def valid_iterations(self, mode: str = "valid"):
+        out, y, mean_loss = self._gather(
+            "valid" if mode == "valid" else
+            ("test" if self.test_loader else "valid"))
+        if mode != "inference" and (not np.isfinite(out).all()
+                                    or np.abs(out).max() > _DIVERGE_LIMIT):
+            # diverged parameters: report an inf-loss sentinel
+            return float("inf"), {"diverged": 1.0}
+        if self.task == "regression":
+            pred = out.reshape(-1)
+            tgt = y[:, 0]
+            if mode == "inference":
+                return tgt, pred
+            return mean_loss, regression_metrics(tgt, pred)
+        if self.task == "binary_nan_bce":
+            score = 1.0 / (1.0 + np.exp(-out))
+            if mode == "inference":
+                return score, y
+            return mean_loss, binary_metrics_multi_target_nan(y, score)
+        # binary_nan (2-logit-per-task)
+        logits = out.reshape(out.shape[0], self.num_tasks, 2)
+        ex = np.exp(logits - logits.max(-1, keepdims=True))
+        score = (ex / ex.sum(-1, keepdims=True))[..., 1]
+        pred = logits.argmax(-1)
+        if mode == "inference":
+            return y, score, pred
+        return mean_loss, binary_metrics_multi_target_nan(y, score, pred)
+
+    # ------------------------------------------------------------------
+    def train(self):
+        self.log("Training start...")
+        early_stop_cnt = self._early_stop_cnt
+        start_epoch = self._start_epoch
+        epochs = int(self.args.get("epochs", 30))
+        patience = int(self.args.get("early_stop_patience", 50))
+        epoch = start_epoch
+        # replay the shuffle sequence: a resumed run sees the batch order
+        # a straight-through run would have at this epoch
+        self.train_loader.set_epoch(start_epoch)
+        for epoch in range(start_epoch, epochs):
+            trn_loss = self.train_iterations()
+            val_loss, result = self.valid_iterations()
+            if _diverged(trn_loss, val_loss):
+                self.log(f"Epoch:{epoch} diverged "
+                         f"(trn_loss:{trn_loss} val_loss:{val_loss}); "
+                         "stopping training early.", with_time=True)
+                break
+            lr = get_learning_rate(self.optimizer)
+            new_lr = self.scheduler.step(val_loss, lr)
+            if new_lr != lr:
+                set_learning_rate(self.optimizer, new_lr)
+            self.log("Epoch:{} trn_loss:{:.5f} val_loss:{:.5f} "
+                     "val_result:{} lr_cur:{:.7f}".format(
+                         epoch, trn_loss, val_loss, result, new_lr),
+                     with_time=True)
+            self.records["val_losses"].append(val_loss)
+            if val_loss == min(self.records["val_losses"]):
+                self.save_ckpt(epoch)
+                early_stop_cnt = 0
+            else:
+                early_stop_cnt += 1
+            self.save_resume_ckpt(epoch, early_stop_cnt)
+            if 0 < patience < early_stop_cnt:
+                self.log("Early stop hitted!")
+                break
+        self.save_ckpt(epoch, final_save=True)
+
+    def train_and_test(self):
+        self.train()
+        self.log("Testing...")
+        self.load_best_ckpt()
+        val_loss, val_result = self.valid_iterations(mode="valid")
+        test_loss, test_result = self.valid_iterations(mode="test")
+        self.log(msg=str(self.args))
+        loss_info = {"testloss": float(test_loss), "valloss": float(val_loss)}
+        val_new = {"val" + k: v for k, v in val_result.items()}
+        self.log(f"{loss_info}|{test_result}|{val_new}")
+        self._write_structured_result(loss_info, test_result, val_new)
+        return loss_info, test_result, val_new
+
+    def _write_structured_result(self, loss_info, test_result, val_new):
+        """result.json in the run dir and a record appended to
+        <work_dir>/results.jsonl."""
+        record = {
+            "run_id": self.run_id,
+            "dataset": self.args.get("dataset"),
+            "note": self.args.get("note"),
+            "seed": self.args.get("seed"),
+            "config": {k: v for k, v in self.args.items()
+                       if k != "model_cfg"},
+            "loss": loss_info,
+            "test": test_result,
+            "val": val_new,
+            "epochs_run": len(self.records["val_losses"]),
+        }
+        try:
+            with open(self.log_save_dir / "result.json", "w") as f:
+                json.dump(record, f, indent=1)
+            with open(self.log_save_dir.parent / "results.jsonl", "a") as f:
+                f.write(json.dumps(record) + "\n")
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------------
+    def save_ckpt(self, epoch: int, final_save: bool = False):
+        name = "final_save.pt" if final_save else "best_save.pt"
+        save_checkpoint(self.log_save_dir, self.model, self.args, which=name,
+                        records=self.records)
+        self.log(f"Model saved at epoch {epoch}")
+
+    def save_resume_ckpt(self, epoch: int, early_stop_cnt: int):
+        """The whole training state, so that ``resume()`` continues as a
+        straight-through run would: weights, optimizer state (learning
+        rate included), scheduler, noise generator, early-stop counter
+        and epoch."""
+        payload = {
+            "args": json.dumps(self.args),
+            "records": json.dumps(self.records),
+            "state_dict": {k: v.detach().cpu()
+                           for k, v in self.model.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": json.dumps(self.scheduler.state_dict()),
+            "generator": self.generator.get_state(),
+            "epoch": epoch,
+            "early_stop_cnt": early_stop_cnt,
+        }
+        torch.save(payload, self.log_save_dir / "last_save.pt")
+
+    def resume(self, run_dir) -> int:
+        """Restore the training state from ``<run_dir>/last_save.pt`` (or
+        a direct path) and continue that run's directory.  Returns the
+        next epoch, where ``train()`` continues."""
+        path = Path(run_dir)
+        if path.is_dir():
+            path = path / "last_save.pt"
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        saved_args = json.loads(payload["args"])
+        for key in ("dataset", "batch_size", "seed", "model_cfg", "e_dim",
+                    "hid_dim_alpha", "mol_block", "mol_readout",
+                    "message_steps", "optim", "task"):
+            if key in saved_args and key in self.args \
+                    and saved_args[key] != self.args[key]:
+                raise ValueError(
+                    f"resume mismatch on {key!r}: checkpoint has "
+                    f"{saved_args[key]!r}, this run has {self.args[key]!r}")
+        self.records = json.loads(payload["records"])
+        self.scheduler.load_state_dict(json.loads(payload["scheduler"]))
+        self.model.load_state_dict(payload["state_dict"])
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.generator.set_state(payload["generator"])
+        self._early_stop_cnt = int(payload["early_stop_cnt"])
+        self._start_epoch = int(payload["epoch"]) + 1
+        fresh = self.log_save_dir
+        self.log_save_dir = path.parent
+        if fresh != self.log_save_dir:
+            shutil.rmtree(fresh, ignore_errors=True)
+        self.run_id = self.log_save_dir.name
+        self.log(f"Resumed from {path} at epoch {self._start_epoch}")
+        return self._start_epoch
+
+    def load_best_ckpt(self):
+        path = self.log_save_dir / "best_save.pt"
+        if not path.exists():
+            # a run that diverged before its first finite val loss saved
+            # no best checkpoint; keep the current weights
+            self.log("No best checkpoint saved (diverged run?); "
+                     "keeping current params")
+            return
+        self.log(f"The best ckpt is {path}")
+        self.load_ckpt(path)
+
+    def load_ckpt(self, path):
+        self.log(f"Ckpt loading: {path}")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        self.args.update(json.loads(payload["args"]))
+        self.records = json.loads(payload["records"])
+        self.model.load_state_dict(payload["state_dict"])
+
+    # ------------------------------------------------------------------
+    def log(self, msg=None, msgs=None, with_time=False):
+        if not self.print_log:
+            return
+        if with_time and msg is not None:
+            el = time.time() - self.start
+            msg = msg + " time elapsed {:.2f} hrs ({:.1f} mins)".format(
+                el / 3600.0, el / 60.0)
+        with open(self.log_save_dir / "log.txt", "a+") as f:
+            if msgs:
+                f.writelines([m if m.endswith("\n") else m + "\n"
+                              for m in msgs])
+            if msg is not None:
+                f.write(str(msg) + "\n")
+                print(msg)
+
+
+def make_trainer(args: Dict, dataset, trainer_kind: str,
+                 work_dir: Optional[str] = None,
+                 model_overrides: Optional[Dict] = None,
+                 device="cuda") -> Trainer:
+    """Model and trainer from a flat config dict and a MolDataset; the
+    weights are drawn from a generator seeded with ``seed``."""
+    args = dict(args)
+    args["task"] = trainer_kind
+    args["num_tasks"] = dataset.num_tasks
+    overrides = dict(model_overrides or {})
+    overrides.setdefault("max_nodes", max_graph_nodes(dataset.graphs))
+    overrides.setdefault("mol_in_dim", dataset.num_node_features)
+    overrides.setdefault("mol_edge_in_dim", dataset.num_edge_features)
+    overrides.setdefault("out_dim", args.get("out_dim", 1))
+    cfg = model_config_from_args(args, **overrides)
+    args["model_cfg"] = dataclasses.asdict(cfg)  # self-describing ckpts
+    model = Architecture(cfg, torch.Generator().manual_seed(
+        int(args.get("seed", 1234))))
+    return Trainer(args, model, dataset.train, dataset.val, dataset.test,
+                   work_dir=work_dir, device=device)

@@ -1,4 +1,5 @@
-"""The triplet-attention CUDA kernel against its plain torch version, on
+"""The triplet-attention CUDA kernels (A, the forward; B, the backward)
+against their plain torch versions, and a training step of the model on
 the card.  Every test here is marked ``cuda`` and skips without a CUDA
 device.
 
@@ -6,9 +7,11 @@ This file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Tolerance: rtol 1e-4, atol 1e-4 in float32.  The kernel sums each row's
-edges in CSR order with an online softmax; the plain version sums with
-atomics in another order, and its softmax divides after the sum.
+Tolerance: rtol 1e-4, atol 1e-4 in float32.  The kernels sum each row's
+edges in CSR order with an online softmax; the plain versions sum with
+atomics in another order, and their softmax divides after the sum.
+Kernel B sums d_xp over senders with float atomics, in another order on
+every call.
 """
 import numpy as np
 import pytest
@@ -17,7 +20,8 @@ import torch
 from chip_smoke import demo_csr, kernel_inputs, random_csr, read_demo
 from glam_tpu_torch.data.graph import receiver_csr
 from glam_tpu_torch.ops.kernels.triplet_fused import (
-    triplet_attention, triplet_attention_plain)
+    triplet_attention, triplet_attention_bwd, triplet_attention_bwd_plain,
+    triplet_attention_fwd, triplet_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,27 +41,32 @@ def _random_csr(rng, n_graphs=40):
     return random_csr(rng, n_graphs=n_graphs, max_n=30, tail=64, hub=300)
 
 
-@pytest.mark.parametrize("case,heads,channels", [
+CASES = [
     ("demo128", 3, 60),       # the flagship serving shapes
     ("random", 3, 60),        # empty rows and a 300-edge receiver
     ("random", 5, 54),        # H*C = 270, the search space's widest
     ("random", 1, 8),
-    ("random", 8, 64),        # H*C = 512, the kernel's maximum
+    ("random", 8, 64),        # H*C = 512, the kernels' maximum
     ("no_edges", 3, 60),      # E_real = 0 (a batch of methane)
-])
+]
+
+
+def _case_csr(rng, case):
+    if case == "demo128":
+        return demo_csr(read_demo())
+    if case == "random":
+        return _random_csr(rng)
+    empty = np.zeros(0, np.int32)
+    return receiver_csr(empty, empty, 9) + (np.zeros((4, 4), np.float32),)
+
+
+@pytest.mark.parametrize("case,heads,channels", CASES)
 def test_kernel_matches_plain(cuda, case, heads, channels):
     rng = np.random.RandomState(0)
-    if case == "demo128":
-        csr = demo_csr(read_demo())
-    elif case == "random":
-        csr = _random_csr(rng)
-    else:
-        empty = np.zeros(0, np.int32)
-        csr = receiver_csr(empty, empty, 9) + (
-            np.zeros((4, 4), np.float32),)
+    csr = _case_csr(rng, case)
     args = kernel_inputs(rng, *csr, heads, channels, cuda)
     before = triplet_attention.launches
-    got = triplet_attention(*args, heads, channels)
+    got = triplet_attention_fwd(*args, heads, channels)
     want = triplet_attention_plain(*args, heads, channels)
     torch.cuda.synchronize()
     assert triplet_attention.launches == before + 1
@@ -86,3 +95,95 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     bad[1] = bad[1].cpu()                           # mixed devices
     with pytest.raises(ValueError, match="a_i is on cpu"):
         triplet_attention(*bad, 3, 60)
+
+
+@pytest.mark.parametrize("case,heads,channels", CASES)
+def test_backward_kernel_matches_plain(cuda, case, heads, channels):
+    rng = np.random.RandomState(0)
+    csr = _case_csr(rng, case)
+    args = kernel_inputs(rng, *csr, heads, channels, cuda)
+    N = args[0].shape[0]
+    g = torch.from_numpy(rng.randn(N, heads * channels).astype(
+        np.float32)).to(cuda)
+    before = triplet_attention_bwd.launches
+    got = triplet_attention_bwd(*args, g, heads, channels)
+    want = triplet_attention_bwd_plain(*args, g, heads, channels)
+    torch.cuda.synchronize()
+    assert triplet_attention_bwd.launches == before + 1
+    for name, a, b in zip(("d_xp", "d_eh", "d_pre", "d_a_i"), got, want):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    # padded edges (outside the CSR) and empty rows keep zeros
+    in_csr = torch.zeros(args[3].shape[0], dtype=torch.bool, device=cuda)
+    in_csr[args[8].long()] = True
+    assert (got[1][~in_csr] == 0).all() and (got[2][~in_csr] == 0).all()
+    empty_rows = torch.from_numpy(np.diff(csr[0]) == 0).to(cuda)
+    assert (got[3][empty_rows] == 0).all()
+
+
+def test_backward_kernel_rejects_what_it_cannot_take(cuda):
+    rng = np.random.RandomState(1)
+    csr = _random_csr(rng, n_graphs=3)
+    args = kernel_inputs(rng, *csr, 6, 90, cuda)   # H*C = 540 > 512
+    g = torch.zeros_like(args[0])
+    with pytest.raises(ValueError, match="exceeds its maximum"):
+        triplet_attention_bwd(*args, g, 6, 90)
+    args = kernel_inputs(rng, *csr, 3, 60, cuda)
+    g = torch.zeros_like(args[0]).T.contiguous().T  # not contiguous
+    with pytest.raises(ValueError, match="g must be contiguous"):
+        triplet_attention_bwd(*args, g, 3, 60)
+
+
+def test_function_gradients_match_cpu(cuda):
+    """The autograd Function on the card (kernels A and B) against the
+    same Function on the CPU (the plain versions)."""
+    rng = np.random.RandomState(2)
+    csr = _random_csr(rng, n_graphs=20)
+    H, C = 3, 60
+    host = kernel_inputs(rng, *csr, H, C, "cpu")
+    g = torch.from_numpy(rng.randn(host[0].shape[0], H * C).astype(
+        np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        t = [a.detach().clone().to(dev) for a in host]
+        for a in t[:6]:
+            a.requires_grad_(True)
+        triplet_attention(*t, H, C).backward(g.to(dev))
+        grads[str(dev)] = [a.grad.cpu() for a in t[:6]]
+    for name, a, b in zip(("xp", "a_i", "a_j", "edge_attr", "we", "wemat"),
+                          grads["cuda"], grads["cpu"]):
+        scale = max(float(b.abs().max()), 1.0)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=name)
+
+
+def test_model_step_trains_the_attention_on_the_card(cuda):
+    """A training step of the flagship model on the card gives nonzero
+    gradients to the attention's weights, which reach them only through
+    kernel B."""
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.nn.model import Architecture, ModelConfig
+
+    cfg = ModelConfig(mol_block="_TripletMessage", e_dim=64,
+                      graph_norm="_PairNorm", graph_do="_None()",
+                      end_do="_None()", pre_act="CELU", graph_act="CELU",
+                      flat_act="CELU")
+    model = Architecture(cfg, torch.Generator().manual_seed(0)).to(cuda)
+    graphs = []
+    for smi in read_demo()[:32]:
+        x, snd, rcv, e = smiles_to_arrays(smi)
+        graphs.append(GraphArrays(x, e, snd, rcv, np.zeros(1, np.float32)))
+    batch = next(iter(GraphLoader(graphs, 32, 1))).to(cuda)
+    before = triplet_attention_bwd.launches
+    model.train()
+    (model(batch) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert triplet_attention_bwd.launches == before + cfg.message_steps
+    conv = model.mol.conv.conv
+    for name in ("weight_node", "weight_edge", "weight_triplet_att"):
+        grad = getattr(conv, name).grad
+        assert grad is not None and torch.isfinite(grad).all(), name
+        assert grad.abs().max() > 0, name
+    assert model.mol.lin0.linear.weight.grad.abs().max() > 0

@@ -76,9 +76,17 @@ class TestForwardParity:
                                    rtol=1e-5, atol=2e-5)
 
     def test_training_mode_rrelu_raises(self):
+        """Training-mode RReLU raises without a generator; with one it
+        draws a slope per element from U(1/8, 1/3), reproducibly."""
         act = Activation("RReLU")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="Generator"):
             act(torch.ones(2))
+        x = -torch.ones(20000)
+        y = act(x, torch.Generator().manual_seed(0))
+        assert ((-y >= 1 / 8) & (-y <= 1 / 3)).all()
+        assert torch.equal(y, act(x, torch.Generator().manual_seed(0)))
+        pos = torch.arange(1.0, 5.0)
+        assert torch.equal(act(pos, torch.Generator()), pos)
         assert act.eval()(torch.tensor([-48.0])).item() == pytest.approx(
             -11.0)
 
@@ -178,7 +186,7 @@ class TestConfig:
 
     @pytest.mark.parametrize("field,name", [
         ("mol_block", "_NNConv"), ("mol_block", "_GATConv"),
-        ("graph_norm", "_BatchNorm"), ("pre_norm", "_PairNorm"),
+        ("graph_norm", "_BatchNorm"), ("pre_norm", "_LayerNorm"),
         ("mol_readout", "Set2Set"), ("mol_readout", "GlobalLAPool")])
     def test_unported_names_raise(self, field, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
