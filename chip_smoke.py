@@ -7,33 +7,52 @@ Needs one CUDA card, ``nvcc`` (``CUDA_HOME`` or ``PATH``) and this
 checkout; it imports nothing of JAX or of the JAX package.  In order:
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. builds every CUDA kernel of the port from ``glam_tpu_torch/csrc``;
+  2. builds every CUDA kernel of the port from ``glam_tpu_torch/csrc``
+     (one ``nvcc`` per source, all started together);
   3. kernel phase: each kernel against its plain torch version on the
      card, device times (median of CUDA-event timings) beside the bound:
      kernel A (the triplet-attention forward) at the serving path's
-     shapes (a padded 128-molecule demo batch), and kernels A and B (its
+     shapes (a padded 128-molecule demo batch), kernels A and B (its
      backward) on a random batch with empty rows and a receiver of
-     in-degree 500;
+     in-degree 500; kernel C (segment softmax + SpMM, forward and
+     backward, held against its plain version in float64) at the
+     serving path's TripletMessageLight and Set2Set calls (the last
+     node's padded edges and the padding graph are rows of ~44,000 and
+     ~13,800 entries) and on random CSRs with empty rows and a
+     5,000-entry row at (H, C) = (3, 16) and H*C = 512;
   4. serving phase: the flagship model (TripletMessage H=3 C=60, 3 steps,
      GlobalPool5, e_dim 1024, random weights from seed 0) saved and
      served by ``Predictor(device="cuda")`` for three requests (the whole
      demo corpus, 37 molecules, and one with invalid SMILES); outputs are
      held against ``Predictor(device="cpu")`` on the same checkpoint and
      kernel A's launch count against the batches served;
-  5. training phase: ``glam_tpu_torch.run.main`` trains the flagship
-     model on the demo dataset for 2 epochs on the card (the CLI's
-     defaults: _PairNorm, Dropout(0.2), RReLU, Adam, batch 32); the final
-     line must parse and be finite, kernel B must launch 3 times per
-     optimizer step and kernel A 3 times per forward, the trained
-     ``best_save.pt`` must serve on the card as on the CPU; kernels A
-     and B against their plain versions, and the differentiable op on
-     the card against the CPU, on a batch of the trainer's own loader
-     (32 molecules padded to its budgets); one step's gradients must
-     agree between the card and the CPU; then the step time,
-     molecules/s per epoch and a profile of one step;
-  6. a JSON line of the kernels (times at the shapes of the path that
-     launches each most, every path's under ``by_path``), the card's
-     line, then the final line.
+  5. training phases, each through ``glam_tpu_torch.run.main`` on the
+     demo dataset at full width (the CLI's defaults otherwise: Adam,
+     batch 32, Dropout(0.2) and RReLU), each final line parsed and
+     finite, each kernel's launches counted around each run alone:
+     - the flagship (TripletMessage, _PairNorm), 2 epochs: kernel B 3
+       times per optimizer step, kernel A 3 times per forward; the
+       trained ``best_save.pt`` serves on the card as on the CPU;
+       kernels A and B and their Function against the CPU on a batch of
+       the trainer's own loader; one step's gradients card vs CPU; step
+       time and a profile;
+     - TripletMessageLight + Set2Set with _BatchNorm (graph, flat) and
+       _LayerNorm (end), 2 epochs: kernel C 6 times per forward and per
+       step, A and B never; one training-mode step's gradients card vs
+       CPU; kernel C at the trainer's batch (the conv's and Set2Set's
+       calls); step time and a profile; the trained checkpoint, running
+       statistics included, serves the whole corpus in batches of 128 on
+       the card as on the CPU, kernel C 6 times per batch;
+     - GATConv + GlobalLAPool with _LayerNorm and _GraphSizeNorm, 1
+       epoch: kernel C 4 times per forward and per step; gradients card
+       vs CPU; kernel C at the trainer's batch (GAT's edges and
+       self-loops, GlobalLAPool's graphs at width 120);
+     - the CLI's default (_NNConv, GlobalPool5, _PairNorm), 1 epoch: no
+       kernel; then one step of a _GCNConv model's gradients card vs CPU;
+  6. a JSON line of the kernels (times per launch on the path that
+     launches each most; every path's launches, per-launch means and
+     each call's numbers at its own shapes under ``by_path``), the
+     card's line, then the final line.
 
 Exits non-zero, without the final line, if anything fails.
 """
@@ -56,10 +75,21 @@ DEMO_CSV = ROOT / "datasets" / "demo" / "raw" / "demo.csv"
 TOL = 1e-4
 # card against CPU, one step's parameter gradients: each tensor within
 # GRAD_RTOL relative plus GRAD_ATOL times its largest entry (float32 sums
-# in other orders, atomics in kernel B and in index_add_)
-GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
-TRAIN_ARGS = ["--dataset", "demo", "--epochs", "2", "--loss", "bcel",
-              "--mol_block", "_TripletMessage"]
+# in other orders, atomics in kernel B and in index_add_).  A tensor whose
+# largest CPU entry is under GRAD_ZERO times the tree's largest is zero in
+# exact arithmetic, rounding noise of terms that cancel (GlobalLAPool's
+# gate bias: a softmax does not move when every logit does; 4.5e-9 of the
+# tree on the CPU, against 3.7e-5 for the smallest gradient that is not
+# zero); on the card it must be noise too, under GRAD_ZERO times the tree's
+# largest.
+GRAD_RTOL, GRAD_ATOL, GRAD_ZERO = 1e-3, 1e-4, 1e-5
+TRAIN_ARGS = ["--epochs", "2", "--mol_block", "_TripletMessage"]
+LIBRARY_ARGS = ["--epochs", "2", "--mol_block", "_TripletMessageLight",
+                "--mol_readout", "Set2Set", "--graph_norm", "_BatchNorm",
+                "--flat_norm", "_BatchNorm", "--end_norm", "_LayerNorm"]
+GAT_ARGS = ["--epochs", "1", "--mol_block", "_GATConv", "--mol_readout",
+            "GlobalLAPool", "--pre_norm", "_LayerNorm", "--graph_norm",
+            "_GraphSizeNorm"]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside tensor cores
 
@@ -103,10 +133,10 @@ def batch_csr(b):
             b.edges.numpy())
 
 
-def demo_csr(demo, n_mol=128):
-    """The CSR of a padded batch of the first ``n_mol`` demo molecules
-    that featurize, at the pinned budgets of
-    ``Predictor(batch_size=n_mol)``: the serving path's batch."""
+def demo_batch(demo, n_mol=128):
+    """A padded batch of the first ``n_mol`` demo molecules that
+    featurize, at the pinned budgets of ``Predictor(batch_size=n_mol)``:
+    the serving path's batch."""
     import numpy as np
     from glam_tpu_torch.chem.featurize import smiles_to_arrays
     from glam_tpu_torch.data.batching import GraphLoader
@@ -122,9 +152,13 @@ def demo_csr(demo, n_mol=128):
         if len(graphs) == n_mol:
             break
     node_budget, edge_budget = pinned_budgets(n_mol, 132)
-    return batch_csr(next(iter(GraphLoader(
-        graphs, n_mol, 1, node_budget=node_budget,
-        edge_budget=edge_budget))))
+    return next(iter(GraphLoader(graphs, n_mol, 1, node_budget=node_budget,
+                                 edge_budget=edge_budget)))
+
+
+def demo_csr(demo, n_mol=128):
+    """The edge CSR of :func:`demo_batch`."""
+    return batch_csr(demo_batch(demo, n_mol))
 
 
 def kernel_inputs(rng, rowptr, csr_snd, csr_eid, edge_attr, H, C, dev):
@@ -166,6 +200,54 @@ def random_csr(rng, n_graphs=640, max_n=40, tail=2048, hub=500, fe=4):
     rowptr, csr_snd, csr_eid = receiver_csr(snd, rcv, off + tail)
     return rowptr, csr_snd, csr_eid, rng.randn(len(snd), fe).astype(
         np.float32)
+
+
+def random_segments(rng, n_rows=3000, long_row=5000, empty_tail=200,
+                    unlisted=0):
+    """A random CSR for kernel C: rows of 0-40 entries, one row of
+    ``long_row`` entries, ``empty_tail`` empty rows at the end, entries in
+    shuffled order, ``unlisted`` entries that no slot lists.  Returns
+    (rowptr [R+1], idx [S]) int32 and the entry count M."""
+    import numpy as np
+    lens = rng.randint(0, 41, n_rows)
+    lens[n_rows // 3] = long_row
+    lens = np.concatenate([lens, np.zeros(empty_tail, lens.dtype)])
+    rowptr = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=rowptr[1:])
+    S = int(rowptr[-1])
+    idx = rng.permutation(S + unlisted)[:S].astype(np.int32)
+    return rowptr, idx, S + unlisted
+
+
+def spmm_inputs(rng, rowptr, idx, M, H, C, dev):
+    """Kernel C's arguments on ``dev``: logits [M, H] (with a spike of 120
+    in one entry) and values [M, H*C] drawn from ``rng`` around the CSR
+    (numpy arrays or tensors)."""
+    import numpy as np
+    import torch
+    logits = (rng.randn(M, H) * 3).astype(np.float32)
+    if M:
+        logits[rng.randint(M)] = 120.0
+    values = rng.randn(M, H * C).astype(np.float32)
+    return [torch.as_tensor(a).to(dev) for a in (logits, values, rowptr, idx)]
+
+
+def spmm_bound_ms(args, which):
+    """Least time for kernel C's work, by bytes (a few flops per byte, so
+    bytes bound it): the listed entries' logits and values, the CSR and,
+    for the backward, the rows of g with entries read once; the [R, H*C]
+    output, or d_logits and d_values of the listed entries, written
+    once."""
+    logits, values, rowptr, idx = args
+    R, S = rowptr.shape[0] - 1, idx.shape[0]
+    H, hc = logits.shape[1], values.shape[1]
+    nbytes = 4 * (S * (H + hc) + R + 1 + S)
+    if which == "fwd":
+        nbytes += 4 * R * hc
+    else:
+        rows = int((rowptr[1:] > rowptr[:-1]).sum())
+        nbytes += 4 * (rows * hc + S * (H + hc))
+    return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def triplet_bound_ms(args, H, C):
@@ -272,19 +354,127 @@ def check_kernel(which, name, csr, rng, dev, H=3, C=60):
             "bound_ms": bound, "bound_by": bound_by}
 
 
-def kernel_phase(dev, demo):
+def spmm_reference(args, g=None):
+    """Kernel C's plain forward on ``args`` (logits, values, rowptr, idx),
+    or with the cotangent ``g`` its plain backward, computed in float64
+    and cast back to float32: the reference a kernel's result is held
+    against, so that its error is the kernel's own and not the float32
+    plain version's rounding (whose ``index_add_`` sums in another order
+    on every call).  Returns a list of tensors."""
+    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+        segment_softmax_spmm_bwd_plain, segment_softmax_spmm_plain)
+    logits, values, rowptr, idx = args
+    wide = (logits.double(), values.double(), rowptr, idx)
+    if g is None:
+        return [segment_softmax_spmm_plain(*wide).float()]
+    return [t.float() for t in segment_softmax_spmm_bwd_plain(
+        *wide, g.double())]
+
+
+def check_spmm(which, name, args, dev, card):
+    """Kernel C's forward (``which`` 'fwd') or backward ('bwd') on the
+    card on ``args`` (logits, values, rowptr, idx) against its plain
+    version computed in float64 (:func:`spmm_reference`): prints the
+    errors and the median device times of the kernel and of the float32
+    plain version beside the bound, and fails on disagreement.  Returns
+    that line's numbers."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+        segment_softmax_spmm_bwd, segment_softmax_spmm_bwd_plain,
+        segment_softmax_spmm_fwd, segment_softmax_spmm_plain)
+    logits, values, rowptr, idx = args
+    R, S, M = rowptr.shape[0] - 1, idx.shape[0], logits.shape[0]
+    H, hc = logits.shape[1], values.shape[1]
+    if which == "fwd":
+        kname, g = "segment_softmax_spmm_fwd", None
+        run = lambda: [segment_softmax_spmm_fwd(*args)]  # noqa: E731
+        plain = lambda: [segment_softmax_spmm_plain(*args)]  # noqa: E731
+    else:
+        kname = "segment_softmax_spmm_bwd"
+        g = torch.from_numpy(np.random.RandomState(R).randn(R, hc).astype(
+            np.float32)).to(dev)
+        run = lambda: segment_softmax_spmm_bwd(*args, g)  # noqa: E731
+        plain = lambda: segment_softmax_spmm_bwd_plain(  # noqa: E731
+            *args, g)
+    got, want = run(), spmm_reference(args, g)
+    torch.cuda.synchronize()
+    errs = [_errors(a, b) for a, b in zip(got, want)]
+    max_abs = max(e[0] for e in errs)
+    ok = all(torch.allclose(a, b, rtol=TOL, atol=TOL)
+             for a, b in zip(got, want))
+    bound = spmm_bound_ms(args, which)
+    k_ms = device_ms(run)
+    p_ms = device_ms(plain, reps=20, sleep_cycles=20_000_000)
+    longest = int((rowptr[1:] - rowptr[:-1]).max()) if R else 0
+    print(f"kernel {kname} [{name}] R={R} S={S} M={M} H={H} C={hc // H} "
+          f"longest_row={longest}: max_abs_err={max_abs:.3e} (tol {TOL}) "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound:.4f} "
+          f"(bytes) share_of_bound={bound / k_ms:.3f} ({card})")
+    if not ok:
+        fail(f"{kname} disagrees with its plain version on {name}: "
+             f"max_abs_err {max_abs}")
+    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": "bytes"}
+
+
+def check_spmm_both(name, args, dev, card):
+    return {w: check_spmm(w, name, args, dev, card) for w in ("fwd", "bwd")}
+
+
+def check_spmm_calls(prefix, batch, block, readout, hid, rng, dev, card):
+    """Kernel C forward and backward at the shapes of each of its calls
+    in a model on ``batch`` (a padded ``GraphBatch``): the conv's
+    (``block`` '_TripletMessageLight' over every edge slot, '_GATConv'
+    over edge slots and self-loops; [slots, 1] logits, [slots, hid]
+    values) and the readout's ('Set2Set' [N, 1] x [N, hid], 'GlobalLAPool'
+    [N, 1] x [N, 2 hid], rows the graphs, the padding graph the longest).
+    Returns {call name: {'fwd': numbers, 'bwd': numbers}}."""
+    from glam_tpu_torch.data.graph import graph_csr
+    conv = {"_TripletMessageLight": ("light", batch.padded_csr,
+                                     batch.num_edges),
+            "_GATConv": ("gat", batch.self_loop_csr,
+                         batch.num_edges + batch.num_nodes)}[block]
+    width = {"Set2Set": ("set2set", hid),
+             "GlobalLAPool": ("lapool", 2 * hid)}[readout]
+    name, (rowptr, idx), m = conv
+    out = {name: check_spmm_both(f"{prefix}_{name}", spmm_inputs(
+        rng, rowptr, idx, m, 1, hid, dev), dev, card)}
+    name, c = width
+    out[name] = check_spmm_both(f"{prefix}_{name}", spmm_inputs(
+        rng, *graph_csr(batch.n_node, batch.num_nodes), batch.num_nodes, 1,
+        c, dev), dev, card)
+    return out
+
+
+def kernel_phase(dev, demo, card):
     """Kernels A and B on the serving path's batch and on a random batch
-    with empty rows and an in-degree-500 hub; the training path's batch
-    is checked in :func:`training_phase`, from the trainer's loader."""
+    with empty rows and an in-degree-500 hub; kernel C at the serving
+    path's calls (TripletMessageLight over every edge slot, the last
+    node's padded edges one long row; Set2Set over the graphs of a
+    128-molecule batch at the pinned budgets, its padding graph one long
+    row) and on random CSRs with empty rows and a 5,000-entry row.  The
+    training paths' batches are checked in :func:`training_phase`,
+    :func:`library_phase` and :func:`gat_phase`, from each trainer's
+    loader."""
     import numpy as np
     rng = np.random.RandomState(0)
     hub = random_csr(rng)
-    return {"fwd": {"serve": check_kernel("fwd", "demo128", demo_csr(demo),
-                                          rng, dev),
-                    "hub": check_kernel("fwd", "random_hub_empty", hub, rng,
-                                        dev)},
-            "bwd": {"hub": check_kernel("bwd", "random_hub_empty", hub, rng,
-                                        dev)}}
+    out = {"fwd": {"serve": check_kernel("fwd", "demo128", demo_csr(demo),
+                                         rng, dev),
+                   "hub": check_kernel("fwd", "random_hub_empty", hub, rng,
+                                       dev)},
+           "bwd": {"hub": check_kernel("bwd", "random_hub_empty", hub, rng,
+                                       dev)}}
+    spmm = check_spmm_calls("serve", demo_batch(demo), "_TripletMessageLight",
+                            "Set2Set", 60, rng, dev, card)
+    for H, C in ((3, 16), (8, 64)):
+        rowptr, idx, M = random_segments(rng)
+        spmm[f"random_h{H}_c{C}"] = check_spmm_both(
+            f"random_h{H}_c{C}", spmm_inputs(rng, rowptr, idx, M, H, C, dev),
+            dev, card)
+    out["spmm"] = spmm
+    return out
 
 
 def function_on_card_vs_cpu(dev, csr, rng, H=3, C=60):
@@ -322,7 +512,6 @@ def serving_phase(dev, demo):
     import numpy as np
     import torch
     from glam_tpu_torch.nn.model import Architecture, ModelConfig
-    from glam_tpu_torch.ops.kernels.triplet_fused import triplet_attention
     from glam_tpu_torch.serve import Predictor, save_checkpoint
 
     cfg = ModelConfig(mol_block="_TripletMessage", mol_readout="GlobalPool5",
@@ -345,13 +534,13 @@ def serving_phase(dev, demo):
     pred.predict_smiles(demo[:16])                 # warm-up, not counted
     torch.cuda.synchronize()
 
-    triplet_attention.launches = 0
+    reset_counts()
     outs, secs = {}, {}
     for name, smis in requests.items():
         t0 = time.perf_counter()
         outs[name] = pred.predict_smiles(smis)
         secs[name] = time.perf_counter() - t0
-    launches = {"triplet_fused_fwd": triplet_attention.launches}
+    launches = read_counts()
 
     n_batches = 0
     for name, smis in requests.items():
@@ -376,10 +565,8 @@ def serving_phase(dev, demo):
             print(f"  batch {i}: graphs={int(b.graph_mask.sum())} "
                   f"real_nodes={int(b.node_mask.sum())}/{b.num_nodes} "
                   f"real_edges={b.num_real_edges}/{b.num_edges}")
-    want = cfg.message_steps * n_batches
-    if launches["triplet_fused_fwd"] != want:
-        fail(f"triplet_fused_fwd launched {launches['triplet_fused_fwd']} "
-             f"times; message_steps x batches = {want}")
+    check_counts("flagship serving", launches,
+                 {"triplet_fused_fwd": cfg.message_steps * n_batches})
     total = sum(len(s) for s in requests.values())
     print(f"serving: {total} SMILES in {sum(secs.values()):.4f} s "
           f"({total / sum(secs.values()):.1f} mol/s); triplet_fused_fwd "
@@ -450,99 +637,251 @@ def parse_final_line(line: str):
     return dicts
 
 
-def training_phase(dev, card):
-    """Train through the CLI, then check its counts, its checkpoint, one
-    step's gradients against the CPU, and time its steps."""
-    import numpy as np
-    import torch
-    from glam_tpu_torch import run
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+        segment_softmax_spmm, segment_softmax_spmm_bwd)
     from glam_tpu_torch.ops.kernels.triplet_fused import (
         triplet_attention, triplet_attention_bwd)
+    for counted in (triplet_attention, triplet_attention_bwd,
+                    segment_softmax_spmm, segment_softmax_spmm_bwd):
+        counted.launches = 0
+
+
+def read_counts():
+    """{kernel name: launches since the last reset_counts()}."""
+    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+        segment_softmax_spmm, segment_softmax_spmm_bwd)
+    from glam_tpu_torch.ops.kernels.triplet_fused import (
+        triplet_attention, triplet_attention_bwd)
+    return {"triplet_fused_fwd": triplet_attention.launches,
+            "triplet_fused_bwd": triplet_attention_bwd.launches,
+            "segment_softmax_spmm_fwd": segment_softmax_spmm.launches,
+            "segment_softmax_spmm_bwd": segment_softmax_spmm_bwd.launches}
+
+
+def check_counts(label, got, want):
+    """Fail unless each kernel's launches equal ``want`` (0 if absent)."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            fail(f"{label}: {name} launched {n} times; expected "
+                 f"{want.get(name, 0)}")
+
+
+def run_cli(tmp, flags, label):
+    """``glam_tpu_torch.run.main`` on the demo dataset with ``flags``, on
+    the card; the counts are read around this run alone.  Returns the
+    trainer, the launches, the wall seconds and the number of forwards
+    (steps, validation each epoch, then validation and test of the best
+    checkpoint)."""
+    import torch
+    from glam_tpu_torch import run
+    root = Path(tmp) / "demo"
+    if not root.exists():
+        shutil.copytree(DEMO_CSV.parent, root / "raw")
+    argv = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
+            str(root), "--work_dir", str(Path(tmp) / label)] + flags
+    print(f"training [{label}]: python -m glam_tpu_torch.run "
+          f"{' '.join(argv)}")
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = run.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    last = (trainer.log_save_dir / "log.txt").read_text().strip() \
+        .splitlines()[-1]
+    parse_final_line(last)
+    steps = sum(e["steps"] for e in trainer.epoch_stats)
+    forwards = (steps + len(trainer.epoch_stats) * len(trainer.valid_loader)
+                + len(trainer.valid_loader) + len(trainer.test_loader))
+    cfg = trainer.model.cfg
+    print(f"training [{label}]: block={cfg.mol_block} readout="
+          f"{cfg.mol_readout} norms pre={cfg.pre_norm} graph="
+          f"{cfg.graph_norm} flat={cfg.flat_norm} end={cfg.end_norm} "
+          f"hid={cfg.hid_dim} steps={cfg.message_steps} e_dim={cfg.e_dim} "
+          f"optimizer steps={steps} forwards={forwards} wall_s={wall:.2f}; "
+          f"launches {json.dumps(launches)}")
+    for i, e in enumerate(trainer.epoch_stats):
+        print(f"  epoch {i}: {e['steps']} steps, {e['molecules']} "
+              f"molecules in {e['seconds']:.3f} s = "
+              f"{e['molecules'] / e['seconds']:.1f} molecules/s")
+    print(f"final line [{label}]: {last}")
+    return trainer, launches, steps, forwards
+
+
+def training_phase(dev, card, tmp):
+    """Train the flagship through the CLI, then check its counts, its
+    checkpoint, one step's gradients against the CPU, and time its
+    steps."""
+    import numpy as np
     from glam_tpu_torch.serve import Predictor
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "demo"
-        shutil.copytree(DEMO_CSV.parent, root / "raw")
-        argv = TRAIN_ARGS + ["--dataset_root", str(root), "--work_dir",
-                             str(Path(tmp) / "runs")]
-        print(f"training: python -m glam_tpu_torch.run {' '.join(argv)}")
-        triplet_attention.launches = 0
-        triplet_attention_bwd.launches = 0
-        t0 = time.perf_counter()
-        trainer = run.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"triplet_fused_fwd": triplet_attention.launches,
-                    "triplet_fused_bwd": triplet_attention_bwd.launches}
-        run_dir = trainer.log_save_dir
-        last = (run_dir / "log.txt").read_text().strip().splitlines()[-1]
-        loss_info, test_result, val_result = parse_final_line(last)
+    trainer, launches, steps, forwards = run_cli(tmp, TRAIN_ARGS, "flagship")
+    cfg = trainer.model.cfg
+    check_counts("flagship training", launches, {
+        "triplet_fused_bwd": cfg.message_steps * steps,
+        "triplet_fused_fwd": cfg.message_steps * forwards})
+    print(f"training [flagship]: H={trainer.model.mol.conv.conv.heads} "
+          f"launches triplet_fused_bwd={launches['triplet_fused_bwd']} = "
+          f"{cfg.message_steps} x {steps} steps, triplet_fused_fwd="
+          f"{launches['triplet_fused_fwd']} = {cfg.message_steps} x "
+          f"{forwards} forwards ({card})")
 
-        cfg = trainer.model.cfg
-        steps = sum(e["steps"] for e in trainer.epoch_stats)
-        n_valid, n_test = len(trainer.valid_loader), len(trainer.test_loader)
-        forwards = (steps + len(trainer.epoch_stats) * n_valid + n_valid
-                    + n_test)
-        want = {"triplet_fused_bwd": cfg.message_steps * steps,
-                "triplet_fused_fwd": cfg.message_steps * forwards}
-        for name, n in want.items():
-            if launches[name] != n:
-                fail(f"{name} launched {launches[name]} times in training; "
-                     f"expected {n}")
-        print(f"training: H={trainer.model.mol.conv.conv.heads} "
-              f"hid={cfg.hid_dim} steps={cfg.message_steps} "
-              f"e_dim={cfg.e_dim} graph_norm={cfg.graph_norm} "
-              f"optimizer steps={steps} wall_s={wall:.2f}; launches "
-              f"triplet_fused_bwd={launches['triplet_fused_bwd']} = "
-              f"{cfg.message_steps} x {steps} steps, triplet_fused_fwd="
-              f"{launches['triplet_fused_fwd']} = {cfg.message_steps} x "
-              f"{forwards} forwards")
-        for i, e in enumerate(trainer.epoch_stats):
-            print(f"  epoch {i}: {e['steps']} steps, {e['molecules']} "
-                  f"molecules in {e['seconds']:.3f} s = "
-                  f"{e['molecules'] / e['seconds']:.1f} molecules/s ({card})")
-        print(f"final line: {last}")
+    # the trained checkpoint serves on the card as on the CPU
+    run_dir = trainer.log_save_dir
+    smis = read_demo()[:64]
+    on_card = Predictor.from_checkpoint(run_dir, device=dev)
+    on_cpu = Predictor.from_checkpoint(run_dir, device="cpu")
+    a, b = on_card.predict_smiles(smis), on_cpu.predict_smiles(smis)
+    if not (np.isfinite(a).all() and np.allclose(a, b, rtol=TOL,
+                                                 atol=TOL)):
+        fail(f"trained best_save.pt: card and CPU predictions differ by "
+             f"{np.abs(a - b).max()}")
+    print(f"serving the trained best_save.pt: {len(smis)} SMILES, card "
+          f"vs CPU max_abs_err={np.abs(a - b).max():.3e} (tol {TOL})")
 
-        # the trained checkpoint serves on the card as on the CPU
-        smis = read_demo()[:64]
-        on_card = Predictor.from_checkpoint(run_dir, device=dev)
-        on_cpu = Predictor.from_checkpoint(run_dir, device="cpu")
-        a, b = on_card.predict_smiles(smis), on_cpu.predict_smiles(smis)
-        if not (np.isfinite(a).all() and np.allclose(a, b, rtol=TOL,
-                                                     atol=TOL)):
-            fail(f"trained best_save.pt: card and CPU predictions differ by "
-                 f"{np.abs(a - b).max()}")
-        print(f"serving the trained best_save.pt: {len(smis)} SMILES, card "
-              f"vs CPU max_abs_err={np.abs(a - b).max():.3e} (tol {TOL})")
+    # kernels A and B at the shapes the trainer gives them: a batch of
+    # its own loader, padded to the budgets of its largest graphs
+    batch = next(iter(trainer.train_loader))
+    rng = np.random.RandomState(1)
+    csr = batch_csr(batch)
+    kern = {w: check_kernel(w, "train_batch", csr, rng, dev)
+            for w in ("fwd", "bwd")}
+    function_on_card_vs_cpu(dev, csr, rng)
+    grads_card_vs_cpu(trainer, cfg, batch, dev)
+    step_timing(trainer, batch.to(dev), card)
+    return {k: launches[k] for k in ("triplet_fused_fwd",
+                                     "triplet_fused_bwd")}, kern
 
-        # kernels A and B at the shapes the trainer gives them: a batch of
-        # its own loader, padded to the budgets of its largest graphs
-        batch = next(iter(trainer.train_loader))
-        rng = np.random.RandomState(1)
-        csr = batch_csr(batch)
-        kern = {w: check_kernel(w, "train_batch", csr, rng, dev)
-                for w in ("fwd", "bwd")}
-        function_on_card_vs_cpu(dev, csr, rng)
-        grads_card_vs_cpu(trainer, cfg, batch, dev)
-        step_timing(trainer, batch.to(dev), card)
+
+def library_phase(dev, card, tmp, demo):
+    """TripletMessageLight + Set2Set with BatchNorm and LayerNorm, trained
+    through the CLI at full width: kernel C 6 times per forward (3 convs,
+    3 Set2Set steps) and per optimizer step, kernels A and B never; one
+    step's gradients card vs CPU; kernel C at the trainer's batch; the
+    trained checkpoint, running statistics included, serves the whole
+    demo corpus on the card as on the CPU, 6 launches per batch."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.serve import Predictor
+
+    trainer, launches, steps, forwards = run_cli(tmp, LIBRARY_ARGS,
+                                                 "light_set2set")
+    check_counts("light_set2set training", launches, {
+        "segment_softmax_spmm_fwd": 6 * forwards,
+        "segment_softmax_spmm_bwd": 6 * steps})
+    cfg = trainer.model.cfg
+    batch = next(iter(trainer.train_loader))
+    grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
+                            cfg.hid_dim, np.random.RandomState(2), dev, card)
+    step_timing(trainer, batch.to(dev), card)
+
+    run_dir = trainer.log_save_dir
+    on_card = Predictor.from_checkpoint(run_dir, batch_size=128, device=dev)
+    on_cpu = Predictor.from_checkpoint(run_dir, batch_size=128,
+                                       device="cpu")
+    stats = [k for k in on_card.model.state_dict() if k.endswith(".mean")]
+    if not stats or any(float(on_card.model.state_dict()[k].abs().max())
+                        == 0 for k in stats):
+        fail("the trained checkpoint carries no moved running statistics")
+    on_card.predict_smiles(demo[:16])                 # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    a = on_card.predict_smiles(demo)
+    secs = time.perf_counter() - t0
+    served = read_counts()
+    b = on_cpu.predict_smiles(demo)
+    valid = np.isfinite(b[:, 0])
+    n_batches = len(on_card.batches([g for g in on_card.featurize(demo)
+                                     if g is not None]))
+    check_counts("light_set2set serving", served,
+                 {"segment_softmax_spmm_fwd": 6 * n_batches})
+    if not (np.isfinite(a[valid]).all() and np.allclose(
+            a, b, rtol=TOL, atol=TOL, equal_nan=True)):
+        fail(f"trained BatchNorm checkpoint: card and CPU predictions "
+             f"differ by {np.nanmax(np.abs(a - b))}")
+    print(f"serving the trained best_save.pt [light_set2set] "
+          f"({len(stats)} BatchNorms' running statistics): {len(demo)} "
+          f"SMILES in {n_batches} batches of 128 at budgets nodes="
+          f"{on_card.node_budget} edges={on_card.edge_budget}: latency_s="
+          f"{secs:.4f}, card vs CPU max_abs_err="
+          f"{np.nanmax(np.abs(a - b)):.3e} (tol {TOL}); launches "
+          f"segment_softmax_spmm_fwd={served['segment_softmax_spmm_fwd']} "
+          f"= 6 x {n_batches} batches ({card})")
+    return launches, served, kern
+
+
+def gat_phase(dev, card, tmp):
+    """GATConv + GlobalLAPool with LayerNorm and GraphSizeNorm, 1 epoch
+    through the CLI: kernel C 4 times per forward and per step; one
+    step's gradients card vs CPU; kernel C at the trainer's batch (GAT's
+    edges and self-loops, GlobalLAPool's graphs at width 2 hid)."""
+    import numpy as np
+    trainer, launches, steps, forwards = run_cli(tmp, GAT_ARGS,
+                                                 "gat_lapool")
+    check_counts("gat_lapool training", launches, {
+        "segment_softmax_spmm_fwd": 4 * forwards,
+        "segment_softmax_spmm_bwd": 4 * steps})
+    cfg = trainer.model.cfg
+    batch = next(iter(trainer.train_loader))
+    grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
+                            cfg.hid_dim, np.random.RandomState(3), dev, card)
     return launches, kern
 
 
-def grads_card_vs_cpu(trainer, cfg, batch, dev):
+def default_phase(dev, tmp):
+    """The CLI with no --mol_block (_NNConv, GlobalPool5, _PairNorm) for 1
+    epoch: no kernel launches; then one step of a full-width _GCNConv
+    model's gradients card vs CPU on a batch of that trainer."""
+    import dataclasses
+    import torch
+    from glam_tpu_torch.nn.model import Architecture
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches, _, _ = run_cli(tmp, ["--epochs", "1"], "default")
+    check_counts("default-config training", launches, {})
+    cfg = trainer.model.cfg
+    print(f"training [default]: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (NNConv's "
+          f"per-edge [E, {cfg.hid_dim}, {cfg.hid_dim}] weights at the "
+          f"trainer's {next(iter(trainer.train_loader)).num_edges} edge "
+          f"slots)")
+    if cfg.mol_block != "_NNConv":
+        fail(f"the CLI's default conv is {cfg.mol_block}, not _NNConv")
+    gcn = dataclasses.replace(cfg, mol_block="_GCNConv")
+    grads_card_vs_cpu(trainer, gcn, next(iter(trainer.train_loader)), dev,
+                      train_mode=True, state=Architecture(
+                          gcn, torch.Generator().manual_seed(0)).state_dict())
+
+
+def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
+                      state=None):
     """One Adam step from the same weights on the same batch on the card
-    and on the CPU, in eval mode (no noise, so both draw none): the
-    parameter gradients must agree."""
+    and on the CPU: the parameter gradients must agree.  In eval mode (no
+    noise, so both draw none), or with ``train_mode`` in training mode
+    (batch statistics in BatchNorm) with the config's dropout and RReLU
+    noise taken out.  The weights are ``state``, or the trainer's."""
+    import dataclasses
     import torch
     from glam_tpu_torch.nn.model import Architecture
     from glam_tpu_torch.train.optim import make_optimizer
 
-    state = {k: v.detach().cpu().clone()
-             for k, v in trainer.model.state_dict().items()}
+    if train_mode:
+        cfg = dataclasses.replace(
+            cfg, pre_do="_None()", graph_do="_None()", flat_do="_None()",
+            end_do="_None()", pre_act="CELU", graph_act="CELU",
+            flat_act="CELU")
+    if state is None:
+        state = {k: v.detach().cpu().clone()
+                 for k, v in trainer.model.state_dict().items()}
     grads, params = {}, {}
     for key, d in (("cpu", "cpu"), ("card", dev)):
         model = Architecture(cfg).to(d)
         model.load_state_dict(state)
-        model.eval()
+        model.train(train_mode)
         opt = make_optimizer("Adam", model.named_parameters(), 1e-3)
         b = batch.to(d)
         loss = trainer.loss_fn(model(b), b.y, b.graph_mask)
@@ -552,24 +891,50 @@ def grads_card_vs_cpu(trainer, cfg, batch, dev):
         grads[key] = {n: p.grad.cpu() for n, p in model.named_parameters()}
         params[key] = {n: p.detach().cpu() for n, p in
                        model.named_parameters()}
-    worst, worst_name = 0.0, ""
+    worst, worst_name, zero = 0.0, "", []
+    tree = max(float(g.abs().max()) for g in grads["cpu"].values())
     for name, gc in grads["cpu"].items():
         gg = grads["card"][name]
-        scale = float(gc.abs().max())
+        scale, card = float(gc.abs().max()), float(gg.abs().max())
+        if scale <= GRAD_ZERO * tree:
+            zero.append(f"{name} (cpu {scale:.3e}, card {card:.3e})")
+            if card > GRAD_ZERO * tree:
+                fail(f"gradient of {name}: zero to rounding on the CPU "
+                     f"({scale:.3e}) but {card:.3e} on the card (tree's "
+                     f"largest {tree:.3e})")
+            continue
         err = float((gg - gc).abs().max())
         if not torch.allclose(gg, gc, rtol=GRAD_RTOL,
-                              atol=GRAD_ATOL * max(scale, 1e-12)):
+                              atol=GRAD_ATOL * scale):
             fail(f"gradient of {name}: card and CPU differ by {err:.3e} "
                  f"(scale {scale:.3e})")
-        if scale > 0 and err / scale > worst:
+        if err / scale > worst:
             worst, worst_name = err / scale, name
     dp = max(float((params["card"][n] - params["cpu"][n]).abs().max())
              for n in params["cpu"])
-    print(f"one Adam step card vs CPU ({len(grads['cpu'])} parameter "
+    print(f"one Adam step card vs CPU [{cfg.mol_block} "
+          f"{cfg.mol_readout}, {'train' if train_mode else 'eval'} mode] "
+          f"({len(grads['cpu'])} parameter "
           f"tensors): max gradient error {worst:.3e} of the tensor's "
           f"largest entry ({worst_name}; tol rtol {GRAD_RTOL} + atol "
-          f"{GRAD_ATOL} x largest entry); max weight difference after the "
+          f"{GRAD_ATOL} x largest entry); zero to rounding, under "
+          f"{GRAD_ZERO} x the tree's largest {tree:.3e} on both: "
+          f"{', '.join(zero) or 'none'}; max weight difference after the "
           f"step {dp:.3e}")
+
+
+def per_launch(calls):
+    """The mean numbers of one launch over a path's ``calls`` ({call:
+    (launches per forward, numbers)}), each call weighted by its
+    launches; bound_by is that of the call with the largest share of the
+    bound."""
+    total = sum(w for w, _ in calls.values())
+    out = {key: sum(w * r[key] for w, r in calls.values()) / total
+           for key in ("ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = max(calls.values(),
+                          key=lambda wr: wr[0] * wr[1]["bound_ms"])[1][
+                              "bound_by"]
+    return out
 
 
 def step_timing(trainer, batch, card):
@@ -638,37 +1003,87 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
     demo = read_demo()
-    kern = kernel_phase(dev, demo)
+    kern = kernel_phase(dev, demo, card)
     served = serving_phase(dev, demo)
-    trained, kern_train = training_phase(dev, card)
-    for which, res in kern_train.items():
-        kern[which]["train"] = res
+    with tempfile.TemporaryDirectory() as tmp:
+        trained, kern_train = training_phase(dev, card, tmp)
+        lib_trained, lib_served, kern_lib = library_phase(dev, card, tmp,
+                                                          demo)
+        gat_trained, kern_gat = gat_phase(dev, card, tmp)
+        default_phase(dev, tmp)
 
-    launches = {"triplet_fused_fwd": {"serve": served["triplet_fused_fwd"],
-                                      "train": trained["triplet_fused_fwd"]},
-                "triplet_fused_bwd": {"train": trained["triplet_fused_bwd"]}}
+    # each kernel's calls on each path: {path: {call: (launches per
+    # forward, the numbers measured at that call's shapes)}}; then the
+    # checks on no path (random inputs), which count for the error only
+    spmm = kern["spmm"]
+    calls = {"triplet_fused_fwd": {
+                 "serve": {"demo128": (3, kern["fwd"]["serve"])},
+                 "train": {"train_batch": (3, kern_train["fwd"])}},
+             "triplet_fused_bwd": {
+                 "train": {"train_batch": (3, kern_train["bwd"])}}}
+    for w in ("fwd", "bwd"):
+        calls[f"segment_softmax_spmm_{w}"] = {
+            "serve_light_set2set": {"light": (3, spmm["light"][w]),
+                                    "set2set": (3, spmm["set2set"][w])},
+            "train_light_set2set": {"light": (3, kern_lib["light"][w]),
+                                    "set2set": (3, kern_lib["set2set"][w])},
+            "train_gat_lapool": {"gat": (3, kern_gat["gat"][w]),
+                                 "lapool": (1, kern_gat["lapool"][w])}}
+    del calls["segment_softmax_spmm_bwd"]["serve_light_set2set"]
+    off_path = {"triplet_fused_fwd": [kern["fwd"]["hub"]],
+                "triplet_fused_bwd": [kern["bwd"]["hub"]],
+                **{f"segment_softmax_spmm_{w}": [
+                    r[w] for case, r in spmm.items()
+                    if case.startswith("random")] for w in ("fwd", "bwd")}}
+
+    launches = {
+        "triplet_fused_fwd": {"serve": served["triplet_fused_fwd"],
+                              "train": trained["triplet_fused_fwd"]},
+        "triplet_fused_bwd": {"train": trained["triplet_fused_bwd"]},
+        "segment_softmax_spmm_fwd": {
+            "serve_light_set2set": lib_served["segment_softmax_spmm_fwd"],
+            "train_light_set2set": lib_trained["segment_softmax_spmm_fwd"],
+            "train_gat_lapool": gat_trained["segment_softmax_spmm_fwd"]},
+        "segment_softmax_spmm_bwd": {
+            "train_light_set2set": lib_trained["segment_softmax_spmm_bwd"],
+            "train_gat_lapool": gat_trained["segment_softmax_spmm_bwd"]}}
     for name, counts in launches.items():
         for path, n in counts.items():
             if n < 1:
                 fail(f"{name} never launched on the {path} path")
-    # each kernel's times are those at the shapes of the path that
-    # launches it most; by_path holds every path's
-    meta = {"triplet_fused_fwd": ("fwd", "triplet_fused.cu", 236),
-            "triplet_fused_bwd": ("bwd", "triplet_fused_bwd.cu", 296)}
+    # a kernel's times are per launch on the path that launches it most:
+    # the mean over that path's calls, each weighted by its launches per
+    # forward; by_path holds every path's launches, those means and each
+    # call's numbers at its own shapes
+    pallas = "glam_tpu/ops/pallas"
+    meta = {"triplet_fused_fwd": ("triplet_fused.cu",
+                                  f"{pallas}/triplet_fused.py:236"),
+            "triplet_fused_bwd": ("triplet_fused_bwd.cu",
+                                  f"{pallas}/triplet_fused.py:296"),
+            "segment_softmax_spmm_fwd": ("segment_softmax_spmm.cu",
+                                         f"{pallas}/segment_mxu.py:100"),
+            "segment_softmax_spmm_bwd": (
+                "segment_softmax_spmm_bwd.cu",
+                "glam_tpu/ops/segment.py:50 + glam_tpu/ops/segment.py:21 "
+                "(XLA autodiff; the TPU kernel "
+                f"{pallas}/segment_mxu.py:100 is forward-only)")}
     kernels = []
-    for name, (which, src, line) in meta.items():
+    for name, (src, replaces) in meta.items():
         counts = launches[name]
-        by_path = {path: dict(kern[which][path], launches=n)
+        by_path = {path: dict(per_launch(calls[name][path]), launches=n,
+                              calls={c: dict(r, launches_per_forward=w)
+                                     for c, (w, r) in
+                                     calls[name][path].items()})
                    for path, n in counts.items()}
-        main_path = max(counts, key=counts.get)
-        k = kern[which][main_path]
+        k = by_path[max(counts, key=counts.get)]
+        checked = [r for path in calls[name].values()
+                   for _, r in path.values()] + off_path[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"glam_tpu_torch/csrc/{src}",
-            "replaces": f"glam_tpu/ops/pallas/triplet_fused.py:{line}",
+            "replaces": replaces,
             "launches": sum(counts.values()),
-            "max_abs_err": max(r["max_abs_err"]
-                               for r in kern[which].values()),
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "by_path": by_path,

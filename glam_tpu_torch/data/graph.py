@@ -14,16 +14,27 @@ host.  The triplet-attention kernel walks it one receiver row at a time.
 Padded edges are left out of it: their edge features are zero, so their
 messages are zero and leaving them out changes no output.
 
+Other convs do see the padded edges: at the last node, softmax attention
+over them gives that node's own projection (``TripletMessageLight``) and
+``NNConv`` averages their messages.  ``padded_csr`` and ``self_loop_csr``
+are the CSRs over every edge slot (and GAT's self-loops) that the
+segment-softmax kernel walks; ``graph_csr`` groups node rows by graph for
+the readouts.  They are derived on the batch's device, without a sort
+or a host synchronisation, and kept on the batch.
+
 Index dtypes: the padded edge and node index arrays are int64 (what torch
 indexing takes); the CSR arrays are int32 (what the kernel takes).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.segment import csr_rows
 
 
 class GraphArrays(NamedTuple):
@@ -83,6 +94,45 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         return GraphBatch(**{f.name: getattr(self, f.name).to(device)
                              for f in dataclasses.fields(self)})
+
+    @functools.cached_property
+    def padded_csr(self):
+        """Receiver CSR of every edge slot, padded ones included: (rowptr
+        [N+1], idx [E]) int32.  Padded edges follow the real ones and all
+        point at the last node, so they extend its row."""
+        E = self.num_edges
+        rowptr = self.csr_rowptr.clone()
+        rowptr[-1] = E
+        pad = torch.arange(self.num_real_edges, E, dtype=torch.int32,
+                           device=self.device)
+        return rowptr, torch.cat([self.csr_eid, pad])
+
+    @functools.cached_property
+    def self_loop_csr(self):
+        """``padded_csr`` with a self-loop first in every row: (rowptr
+        [N+1], idx [E+N]) int32, where entry E + r is node r's loop (GAT
+        appends N loops to its E edges)."""
+        rowptr, idx = self.padded_csr
+        N, E = self.num_nodes, self.num_edges
+        ar = torch.arange(N + 1, dtype=torch.int32, device=self.device)
+        loop_ptr = rowptr + ar
+        out = torch.empty(E + N, dtype=torch.int32, device=self.device)
+        slots = (torch.arange(E, device=self.device) + csr_rows(rowptr, E)
+                 + 1)
+        out[slots] = idx
+        out[loop_ptr[:-1].long()] = E + ar[:-1]
+        return loop_ptr, out
+
+
+def graph_csr(n_node: torch.Tensor, num_nodes: int):
+    """Node rows grouped by graph: (rowptr [G+1] = the prefix sums of
+    ``n_node``, idx [N] = 0..N-1) int32.  ``pad_graphs`` lays out each
+    graph's nodes contiguously, in graph order."""
+    rowptr = torch.zeros(n_node.shape[0] + 1, dtype=torch.int32,
+                         device=n_node.device)
+    rowptr[1:] = torch.cumsum(n_node, 0)
+    return rowptr, torch.arange(num_nodes, dtype=torch.int32,
+                                device=n_node.device)
 
 
 def receiver_csr(senders: np.ndarray, receivers: np.ndarray,

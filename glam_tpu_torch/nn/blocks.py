@@ -7,9 +7,12 @@ package's semantics (``nn/blocks.py``).
                 optional residual -> activation
 
 Noise (dropout masks, RReLU slopes) is drawn only in ``train()`` mode,
-from the ``torch.Generator`` the caller passes.  Node-level blocks hand
-their norm the batch's ``node_graph``, ``n_node`` and ``node_mask``, as
-the JAX package's ``blocks.py:55-58,115-118`` do.
+from the ``torch.Generator`` the caller passes; a ``_BatchNorm`` takes
+batch statistics in ``train()`` mode and its running ones in ``eval()``
+mode.  Node-level blocks hand their norm the batch's ``node_graph``,
+``n_node`` and ``node_mask``, as the JAX package's
+``blocks.py:55-58,115-118`` do; the conv gets the whole batch and reads
+the edge structure it needs.
 """
 from __future__ import annotations
 
@@ -125,7 +128,7 @@ class MessageBlock(torch.nn.Module):
         y = self.norm(x, node_graph=g.node_graph, n_node=g.n_node,
                       node_mask=g.node_mask)
         y = self.dropout(y, generator)
-        y = self.conv(y, g.edges, g.csr_rowptr, g.csr_snd, g.csr_eid)
+        y = self.conv(y, g)
         if self.gru is not None:
             y = self.gru(celu(y), h)
             h = y

@@ -1,5 +1,11 @@
-"""Functional GRU cell with torch semantics: gate order (r, z, n), both
-bias vectors.  Weights are in torch layout ([3H, in], [3H, H])."""
+"""Functional recurrent cells with torch semantics.
+
+  gru_cell   torch GRU (sequence length 1): gate order (r, z, n), both
+             bias vectors; weights in torch layout ([3H, in], [3H, H]).
+  lstm_cell  torch LSTM cell: gate order (i, f, g, o), both bias
+             vectors; weights in the JAX package's input-major layout
+             ([in, 4H], [H, 4H]), as ``Set2Set`` keeps them.
+"""
 from __future__ import annotations
 
 import torch
@@ -17,3 +23,14 @@ def gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor,
     z = torch.sigmoid(i_z + h_z)
     n = torch.tanh(i_n + r * h_n)
     return (1.0 - z) * n + z * h
+
+
+def lstm_cell(inp: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
+              b_hh: torch.Tensor):
+    """-> (h', c')."""
+    z = inp @ w_ih + b_ih + h @ w_hh + b_hh
+    i, f, g, o = z.chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c2 = f * c + i * torch.tanh(g)
+    return o * torch.tanh(c2), c2

@@ -1,17 +1,45 @@
-"""Message-passing convolutions.  Only ``_TripletMessage`` is ported so
-far; the other names of the JAX package's ``nn/convs.py`` raise and name
-their ROADMAP item."""
+"""Message-passing convolutions with the JAX package's semantics
+(``nn/convs.py``).  Every conv takes ``forward(x, g)``: the node rows
+[N, C] and the padded ``GraphBatch`` whose edges it reads.
+
+  _TripletMessage       multi-head edge-conditioned attention, fused in
+                        kernels A and B (``triplet_attention``) over the
+                        real edges' CSR
+  _TripletMessageLight  single-head attention over [x_i, e, x_j]; softmax
+                        and aggregation in kernel C over every edge slot
+  _GATConv              PyG GATConv (heads=1, self-loops); kernel C over
+                        every edge slot and one loop per node
+  _NNConv               PyG NNConv: per-edge [Ci, Co] weights from an edge
+                        MLP, mean aggregation, root weight; plain torch
+  _GCNConv              PyG GCNConv: self-loops, symmetric normalisation;
+                        plain torch
+
+All but ``_TripletMessage`` (whose padded messages are zero) see the
+padded edges, as the JAX package's segment path does: they all point
+from the last node to the last node with zero features, and that node's
+row matches the JAX package's.  Weights keep
+the JAX layout ([in, out]) except those of ``torch.nn.Linear`` and the
+GCN/GAT ``weight``, which are torch's [out, in] (``convert`` transposes
+them).  Gathers go through ``index_select``, whose backward is an
+``index_add_``.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm
 from ..ops.kernels.triplet_fused import triplet_attention
-from .init import kaiming_uniform_bound
+from ..ops.segment import segment_mean, segment_sum
+from .init import (glorot_bound, kaiming_uniform_bound, pyg_uniform_bound,
+                   torch_linear_bound)
 
 # convs whose GRU state update is disabled in MessageBlock
 NO_GRU_CONVS = ("_GCNConv", "_GATConv")
-_NOT_PORTED = ("_TripletMessageLight", "_NNConv", "_GCNConv", "_GATConv")
+
+
+def _leaky_relu(x, slope):
+    return torch.where(x >= 0, x, slope * x)
 
 
 class TripletMessage(torch.nn.Module):
@@ -26,8 +54,7 @@ class TripletMessage(torch.nn.Module):
 
     The attention logit is split into node and edge terms (a dot of a
     concatenation is a sum of dots); the edge term, the softmax and the
-    aggregation run fused in :func:`triplet_attention`.  Weights keep the
-    JAX package's [in, out] layout.
+    aggregation run fused in :func:`triplet_attention`.
     """
 
     def __init__(self, channels: int, edge_channels: int, heads: int = 3,
@@ -60,7 +87,7 @@ class TripletMessage(torch.nn.Module):
                 "weight_scale": kaiming_uniform_bound(C),
                 "bias": 0.0}
 
-    def forward(self, x, edge_attr, csr_rowptr, csr_snd, csr_eid):
+    def forward(self, x, g):
         C, H = self.channels, self.heads
         xp = x @ self.weight_node                          # [N, H*C]
         w_i, w_e, w_j = self.weight_triplet_att.split(C, dim=1)
@@ -69,9 +96,150 @@ class TripletMessage(torch.nn.Module):
         a_j = torch.einsum("nhc,hc->nh", xh, w_j).contiguous()
         wemat = self.head_onehot * w_e.reshape(-1, 1)      # [H*C, H]
         aggr = triplet_attention(
-            xp, a_i, a_j, edge_attr, self.weight_edge.contiguous(), wemat,
-            csr_rowptr, csr_snd, csr_eid, H, C, self.negative_slope)
+            xp, a_i, a_j, g.edges, self.weight_edge.contiguous(), wemat,
+            g.csr_rowptr, g.csr_snd, g.csr_eid, H, C, self.negative_slope)
         return aggr @ self.weight_scale + self.bias
+
+
+class TripletMessageLight(torch.nn.Module):
+    """Single-head variant (``convs.py:130-166``): attention over
+    [x_i, e_raw, x_j], message α·x'_j, bias-only update."""
+
+    def __init__(self, channels: int, edge_channels: int,
+                 negative_slope: float = 0.2):
+        super().__init__()
+        C = self.channels = channels
+        self.edge_channels = edge_channels
+        self.negative_slope = negative_slope
+        self.weight_node = torch.nn.Parameter(torch.empty(C, C))
+        self.weight_triplet_att = torch.nn.Parameter(
+            torch.empty(2 * C + edge_channels))
+        self.bias = torch.nn.Parameter(torch.empty(C))
+
+    def param_bounds(self):
+        C = self.channels
+        return {"weight_node": kaiming_uniform_bound(C),
+                "weight_triplet_att": kaiming_uniform_bound(
+                    2 * C + self.edge_channels),
+                "bias": 0.0}
+
+    def forward(self, x, g):
+        C, Fe = self.channels, self.edge_channels
+        xp = x @ self.weight_node                          # [N, C]
+        w_i, w_e, w_j = self.weight_triplet_att.split([C, Fe, C])
+        a_i, a_j = xp @ w_i, xp @ w_j                      # [N]
+        logits = _leaky_relu(a_i.index_select(0, g.receivers)
+                             + g.edges @ w_e
+                             + a_j.index_select(0, g.senders),
+                             self.negative_slope)          # [E]
+        rowptr, idx = g.padded_csr
+        aggr = segment_softmax_spmm(logits[:, None],
+                                    xp.index_select(0, g.senders), rowptr,
+                                    idx)
+        return aggr + self.bias
+
+
+class NNConv(torch.nn.Module):
+    """Edge-conditioned conv, PyG NNConv (``convs.py:169-202``): edge MLP
+    Linear(Fe, 32)-ReLU-Linear(32, Ci*Co), message x_s @ W(e), mean
+    aggregation, root weight and bias.
+
+    The per-edge matrices are [E, Ci, Co] float32 over every edge slot, as
+    the JAX package computes them: by the shapes, 730 MB per message step
+    at serving's 50,688 slots and Ci = Co = 60."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 edge_channels: int, hidden: int = 32):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.edge_channels, self.hidden = edge_channels, hidden
+        self.edge_mlp_0 = torch.nn.Linear(edge_channels, hidden)
+        self.edge_mlp_1 = torch.nn.Linear(hidden, in_channels * out_channels)
+        self.root = torch.nn.Parameter(torch.empty(in_channels, out_channels))
+        self.bias = torch.nn.Parameter(torch.empty(out_channels))
+
+    def param_bounds(self):
+        b0 = torch_linear_bound(self.edge_channels)
+        b1 = torch_linear_bound(self.hidden)
+        b = pyg_uniform_bound(self.in_channels)
+        return {"edge_mlp_0.weight": b0, "edge_mlp_0.bias": b0,
+                "edge_mlp_1.weight": b1, "edge_mlp_1.bias": b1,
+                "root": b, "bias": b}
+
+    def forward(self, x, g):
+        ci, co = self.in_channels, self.out_channels
+        h1 = F.relu(self.edge_mlp_0(g.edges))
+        wmat = self.edge_mlp_1(h1).view(-1, ci, co)         # [E, Ci, Co]
+        msg = torch.bmm(x.index_select(0, g.senders)[:, None, :],
+                        wmat)[:, 0]                         # [E, Co]
+        aggr = segment_mean(msg, g.receivers, x.shape[0])
+        return aggr + x @ self.root + self.bias
+
+
+class GCNConv(torch.nn.Module):
+    """PyG GCNConv (``convs.py:205-238``): self-loops, symmetric
+    normalisation, bias; the edge features are not used."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.weight = torch.nn.Parameter(torch.empty(out_channels,
+                                                     in_channels))
+        self.bias = torch.nn.Parameter(torch.empty(out_channels))
+
+    def param_bounds(self):
+        return {"weight": glorot_bound(self.in_channels + self.out_channels),
+                "bias": 0.0}
+
+    def forward(self, x, g):
+        N = x.shape[0]
+        snd, rcv = g.senders, g.receivers
+        xp = F.linear(x, self.weight)
+        deg = segment_sum(xp.new_ones(snd.shape[0]), rcv, N) + 1.0
+        dinv = torch.rsqrt(deg.clamp(min=1e-12))
+        norm = dinv.index_select(0, snd) * dinv.index_select(0, rcv)
+        out = segment_sum(norm[:, None] * xp.index_select(0, snd), rcv, N)
+        return out + (dinv * dinv)[:, None] * xp + self.bias
+
+
+class GATConv(torch.nn.Module):
+    """PyG 1.7 GATConv (``convs.py:241-291``): multi-head concat, slope
+    0.2, one self-loop per node appended to the edges."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 negative_slope: float = 0.2):
+        super().__init__()
+        H, C = heads, out_channels
+        self.in_channels, self.heads, self.channels = in_channels, H, C
+        self.negative_slope = negative_slope
+        self.weight = torch.nn.Parameter(torch.empty(H * C, in_channels))
+        self.att_src = torch.nn.Parameter(torch.empty(H, C))
+        self.att_dst = torch.nn.Parameter(torch.empty(H, C))
+        self.bias = torch.nn.Parameter(torch.empty(H * C))
+
+    def param_bounds(self):
+        H, C = self.heads, self.channels
+        return {"weight": glorot_bound(self.in_channels + H * C),
+                "att_src": glorot_bound(H + 2 * C),
+                "att_dst": glorot_bound(H + 2 * C),
+                "bias": 0.0}
+
+    def forward(self, x, g):
+        N, H, C = x.shape[0], self.heads, self.channels
+        xp = F.linear(x, self.weight)                      # [N, H*C]
+        xh = xp.view(N, H, C)
+        a_src = torch.einsum("nhc,hc->nh", xh, self.att_src)
+        a_dst = torch.einsum("nhc,hc->nh", xh, self.att_dst)
+        loop = torch.arange(N, device=x.device)
+        snd = torch.cat([g.senders, loop])
+        rcv = torch.cat([g.receivers, loop])
+        logits = _leaky_relu(a_src.index_select(0, snd)
+                             + a_dst.index_select(0, rcv),
+                             self.negative_slope)          # [E+N, H]
+        rowptr, idx = g.self_loop_csr
+        out = segment_softmax_spmm(logits, xp.index_select(0, snd), rowptr,
+                                   idx)
+        return out + self.bias
 
 
 def get_conv(name: str, in_dim: int, out_dim: int,
@@ -79,8 +247,12 @@ def get_conv(name: str, in_dim: int, out_dim: int,
     key = name.strip()
     if key == "_TripletMessage":
         return TripletMessage(channels=in_dim, edge_channels=edge_dim)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"conv {key!r} is not ported yet (ROADMAP queue A, 'Rest of "
-            "the layer library')")
+    if key == "_TripletMessageLight":
+        return TripletMessageLight(channels=in_dim, edge_channels=edge_dim)
+    if key == "_NNConv":
+        return NNConv(in_dim, out_dim, edge_dim)
+    if key == "_GCNConv":
+        return GCNConv(in_dim, out_dim)
+    if key == "_GATConv":
+        return GATConv(in_dim, out_dim)
     raise KeyError(f"unknown conv {name!r}")

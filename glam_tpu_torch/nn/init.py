@@ -1,9 +1,11 @@
 """Weight initialisation with the JAX package's bounds (``nn/init.py``),
 drawn from an explicit ``torch.Generator``.
 
-Every parameter is drawn from U(-bound, bound).  Each module of the port
-that owns parameters states their bounds in ``param_bounds()`` (dotted
-names for those of a child such as an ``nn.Linear``);
+Every parameter is drawn from U(-bound, bound), or set to a constant
+where the JAX package's initializer is one (a norm's scale of ones, a
+bias of zeros).  Each module of the port that owns parameters states
+their bounds in ``param_bounds()`` (dotted names for those of a child
+such as an ``nn.Linear``);
 :func:`reset_parameters` draws a whole model and :func:`init_bounds`
 collects its bounds under the ``state_dict`` names.  The numbers differ
 from the JAX package's for the same seed (another generator); the bounds
@@ -11,8 +13,9 @@ are the same.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -32,7 +35,23 @@ def rnn_bound(hidden_size: int) -> float:
     return 1.0 / math.sqrt(hidden_size)
 
 
-def init_bounds(model: torch.nn.Module) -> Dict[str, float]:
+def glorot_bound(fan_sum: int) -> float:
+    """PyG's glorot: sqrt(6 / (fan_in + fan_out)), the summed fan given."""
+    return math.sqrt(6.0 / fan_sum)
+
+
+def pyg_uniform_bound(size: int) -> float:
+    """PyG's uniform(size, tensor): 1 / sqrt(size)."""
+    return 1.0 / math.sqrt(size)
+
+
+@dataclasses.dataclass(frozen=True)
+class Const:
+    """A bound that is no bound: the parameter is set to ``value``."""
+    value: float
+
+
+def init_bounds(model: torch.nn.Module) -> Dict[str, Union[float, Const]]:
     """``{state_dict name: bound}`` for every parameter of ``model``."""
     out = {}
     for prefix, mod in model.named_modules():
@@ -46,14 +65,16 @@ def init_bounds(model: torch.nn.Module) -> Dict[str, float]:
 def reset_parameters(model: torch.nn.Module,
                      generator: torch.Generator) -> None:
     """Draw every parameter of ``model`` from U(-bound, bound); a bound
-    of 0 means zeros."""
+    of 0 means zeros and a ``Const`` that constant."""
     bounds = init_bounds(model)
     missing = {n for n, _ in model.named_parameters()} - set(bounds)
     if missing:
         raise ValueError(f"parameters without a bound: {sorted(missing)}")
     for name, bound in bounds.items():
         p = model.get_parameter(name)
-        if bound == 0.0:
+        if isinstance(bound, Const):
+            p.fill_(bound.value)
+        elif bound == 0.0:
             p.zero_()
         else:
             p.uniform_(-bound, bound, generator=generator)

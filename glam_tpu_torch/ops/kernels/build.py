@@ -2,7 +2,8 @@
 
 Each ``glam_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``glam_tpu_torch/_build/<name>-<hash>.so``, keyed by a
-hash of the source and the flags, and loaded with ``ctypes``.  The
+hash of the source, the headers beside it and the flags, and loaded with
+``ctypes``.  The
 sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.  ``build()`` starts one ``nvcc`` per missing library,
 all at once.
@@ -21,7 +22,8 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("triplet_fused", "triplet_fused_bwd")
+SOURCES = ("triplet_fused", "triplet_fused_bwd", "segment_softmax_spmm",
+           "segment_softmax_spmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,7 +46,12 @@ def find_nvcc() -> str:
 
 
 def source_hash(name: str) -> str:
+    """A hash of ``csrc/<name>.cu``, every header in ``csrc/`` (a source
+    may include any of them) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

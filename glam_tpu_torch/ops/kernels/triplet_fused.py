@@ -22,19 +22,10 @@ import functools
 
 import torch
 
-from ..segment import segment_softmax, segment_sum
+from ..segment import csr_rows, segment_softmax, segment_sum
 from . import build
 
 _SMEM_LIMIT = 48 * 1024   # shared memory without an opt-in attribute
-
-
-def _csr_rows(csr_rowptr, n_edges: int):
-    """Receiver of each CSR edge (int64), from the row pointers."""
-    N = csr_rowptr.shape[0] - 1
-    counts = (csr_rowptr[1:] - csr_rowptr[:-1]).long()
-    return torch.repeat_interleave(
-        torch.arange(N, device=csr_rowptr.device), counts,
-        output_size=n_edges)
 
 
 def _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv, snd, eid, num_heads,
@@ -57,7 +48,7 @@ def triplet_attention_plain(xp, a_i, a_j, edge_attr, we, wemat,
     (a_e = (edge_attr @ we) @ wemat), and the receiver-sorted CSR of the
     real edges: csr_rowptr [N+1], csr_snd [E_real], csr_eid [E_real]
     (int32).  Returns [N, H*C]."""
-    rcv = _csr_rows(csr_rowptr, csr_snd.shape[0])
+    rcv = csr_rows(csr_rowptr, csr_snd.shape[0])
     snd = csr_snd.long()
     eh, _, alpha = _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv, snd,
                               csr_eid.long(), num_heads, slope)
@@ -80,7 +71,7 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
     CSR (padding)."""
     H, C = num_heads, channels
     N, E = xp.shape[0], edge_attr.shape[0]
-    rcv = _csr_rows(csr_rowptr, csr_snd.shape[0])
+    rcv = csr_rows(csr_rowptr, csr_snd.shape[0])
     snd, eid = csr_snd.long(), csr_eid.long()
     eh, pre_raw, alpha = _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv,
                                     snd, eid, H, slope)

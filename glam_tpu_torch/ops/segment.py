@@ -16,6 +16,31 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add_(0, segment_ids, data)
 
 
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """Mean with zero for empty segments (torch_scatter 'mean')."""
+    tot = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_count(segment_ids, num_segments).clamp(min=1.0)
+    return tot / cnt.reshape((-1,) + (1,) * (tot.dim() - 1)).to(tot.dtype)
+
+
+def segment_count(segment_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Entries per segment (float32)."""
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32,
+                      device=segment_ids.device)
+    return segment_sum(ones, segment_ids, num_segments)
+
+
+def csr_rows(rowptr: torch.Tensor, n_slots: int) -> torch.Tensor:
+    """Row of each CSR slot (int64), from the row pointers; no host
+    synchronisation (the slot count is given)."""
+    counts = (rowptr[1:] - rowptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(rowptr.shape[0] - 1, device=rowptr.device), counts,
+        output_size=n_slots)
+
+
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
     """Softmax within segments with PyG semantics: subtract the segment

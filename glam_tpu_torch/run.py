@@ -4,8 +4,10 @@
     python -m glam_tpu_torch.run --dataset demo --dataset_root datasets/demo \\
         --epochs 2 --loss bcel --mol_block _TripletMessage
 
-It trains on the CUDA card ``--gpu`` (default 0); ``--platform cpu``
-trains on the host CPU instead.  ``--pallas``, ``--probe_compile``,
+Every conv, norm and readout name of the JAX package is taken; with no
+``--mol_block`` it trains ``_NNConv``, the JAX CLI's default.  It trains
+on the CUDA card ``--gpu`` (default 0); ``--platform cpu`` trains on the
+host CPU instead.  ``--pallas``, ``--probe_compile``,
 ``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
 kernels always run on the card, and eager PyTorch compiles nothing.
 ``--dtype bfloat16``, ``--n_devices > 1``, ``--pro_shards > 1`` and the

@@ -13,7 +13,9 @@ pass.  Entry points run on ``cuda`` unless the caller passes
 Checkpoints are ``best_save.pt`` files written by :func:`save_checkpoint`
 (the trainer writes them so too): ``{"args": json string, "state_dict":
 {name: tensor}}``, plus the trainer's ``"records"`` (json string), read
-with ``torch.load(weights_only=True)``.
+with ``torch.load(weights_only=True)``.  The ``state_dict`` holds the
+BatchNorm running statistics, which the model (in ``eval()`` mode)
+normalises with, as the JAX ``Predictor`` does with its ``batch_stats``.
 """
 from __future__ import annotations
 

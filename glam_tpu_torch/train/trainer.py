@@ -7,7 +7,11 @@ Each optimizer step is one forward, one backward and one update, on the
 trainer's device (``cuda`` unless the caller passes ``device="cpu"``).
 Dropout masks and RReLU slopes are drawn from the trainer's
 ``torch.Generator``, which lives on that device and is seeded from
-``seed``.  Checkpoints are torch files in the run directory:
+``seed``.  Training steps run the model in ``train()`` mode (BatchNorm
+takes batch statistics and moves its running ones), evaluation in
+``eval()`` mode (running statistics), as the JAX trainer threads its
+``batch_stats``.  Checkpoints are torch files in the run directory, the
+``state_dict`` in each with the BatchNorm running statistics:
 
   best_save.pt   {"args", "state_dict", "records"}, the format of
                  ``serve.save_checkpoint``, so ``Predictor`` serves it

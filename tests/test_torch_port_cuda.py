@@ -1,7 +1,8 @@
-"""The triplet-attention CUDA kernels (A, the forward; B, the backward)
-against their plain torch versions, and a training step of the model on
-the card.  Every test here is marked ``cuda`` and skips without a CUDA
-device.
+"""The CUDA kernels against their plain torch versions: the
+triplet-attention forward and backward (A, B) and the segment-softmax
+SpMM forward and backward (kernel C); and training steps of the model on
+the card against the CPU.  Every test here is marked ``cuda`` and skips
+without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -11,14 +12,20 @@ Tolerance: rtol 1e-4, atol 1e-4 in float32.  The kernels sum each row's
 edges in CSR order with an online softmax; the plain versions sum with
 atomics in another order, and their softmax divides after the sum.
 Kernel B sums d_xp over senders with float atomics, in another order on
-every call.
+every call.  Kernel C is held against its plain versions computed in
+float64, so that the error is the kernel's own.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import demo_csr, kernel_inputs, random_csr, read_demo
+from chip_smoke import (demo_csr, kernel_inputs, random_csr,
+                        random_segments, read_demo, spmm_inputs,
+                        spmm_reference)
 from glam_tpu_torch.data.graph import receiver_csr
+from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+    segment_softmax_spmm, segment_softmax_spmm_bwd,
+    segment_softmax_spmm_fwd)
 from glam_tpu_torch.ops.kernels.triplet_fused import (
     triplet_attention, triplet_attention_bwd, triplet_attention_bwd_plain,
     triplet_attention_fwd, triplet_attention_plain)
@@ -187,3 +194,153 @@ def test_model_step_trains_the_attention_on_the_card(cuda):
         assert grad is not None and torch.isfinite(grad).all(), name
         assert grad.abs().max() > 0, name
     assert model.mol.lin0.linear.weight.grad.abs().max() > 0
+
+
+# ------------------------------------------------------------ kernel C
+SPMM_CASES = [
+    ("random", 1, 60),        # the convs' and Set2Set's width
+    ("random", 1, 120),       # GlobalLAPool's
+    ("random", 3, 16),
+    ("random", 8, 64),        # H*C = 512, the kernels' maximum
+    ("random", 1, 512),
+    ("long_row", 1, 60),      # one row of 5,000 entries
+    ("unlisted", 2, 30),      # entries that no slot lists
+    ("empty_rows", 1, 60),    # rows, no entries
+    ("no_rows", 1, 60),       # entries, no rows
+]
+
+
+def _spmm_case(rng, case):
+    if case == "random":
+        return random_segments(rng, n_rows=400, long_row=300,
+                               empty_tail=50)
+    if case == "long_row":
+        return random_segments(rng, n_rows=60, long_row=5000, empty_tail=3)
+    if case == "unlisted":
+        return random_segments(rng, n_rows=200, long_row=100,
+                               empty_tail=10, unlisted=37)
+    if case == "empty_rows":
+        return np.zeros(11, np.int32), np.zeros(0, np.int32), 0
+    return np.zeros(1, np.int32), np.zeros(0, np.int32), 5
+
+
+@pytest.mark.parametrize("case,heads,channels", SPMM_CASES)
+def test_spmm_kernels_match_plain(cuda, case, heads, channels):
+    rng = np.random.RandomState(3)
+    rowptr, idx, M = _spmm_case(rng, case)
+    args = spmm_inputs(rng, rowptr, idx, M, heads, channels, cuda)
+    R = len(rowptr) - 1
+    g = torch.from_numpy(rng.randn(R, heads * channels).astype(
+        np.float32)).to(cuda)
+    fwd, bwd = segment_softmax_spmm.launches, segment_softmax_spmm_bwd.launches
+    got = segment_softmax_spmm_fwd(*args)
+    [want] = spmm_reference(args)
+    got_b = segment_softmax_spmm_bwd(*args, g)
+    want_b = spmm_reference(args, g)
+    torch.cuda.synchronize()
+    launched = int(len(idx) > 0 and R > 0)
+    assert segment_softmax_spmm.launches == fwd + launched
+    assert segment_softmax_spmm_bwd.launches == bwd + launched
+    assert got.shape == want.shape == (R, heads * channels)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    empty_rows = torch.from_numpy(np.diff(rowptr) == 0).to(cuda)
+    assert (got[empty_rows] == 0).all()
+    for name, a, b in zip(("d_logits", "d_values"), got_b, want_b):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    listed = torch.zeros(M, dtype=torch.bool, device=cuda)
+    listed[args[3].long()] = True
+    assert (got_b[0][~listed] == 0).all() and (got_b[1][~listed] == 0).all()
+
+
+def test_spmm_function_gradients_match_cpu(cuda):
+    rng = np.random.RandomState(4)
+    rowptr, idx, M = random_segments(rng, n_rows=300, long_row=2000,
+                                     empty_tail=20)
+    host = spmm_inputs(rng, rowptr, idx, M, 3, 16, "cpu")
+    g = torch.from_numpy(rng.randn(len(rowptr) - 1, 48).astype(np.float32))
+    grads = {}
+    # the CPU's plain versions in float64, the card's kernels in float32
+    for dev, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        t = [a.detach().clone().to(dev) for a in host]
+        for i in (0, 1):
+            t[i] = t[i].to(dtype).requires_grad_(True)
+        segment_softmax_spmm(*t).backward(g.to(dev, dtype))
+        grads[str(dev)] = [a.grad.float().cpu() for a in t[:2]]
+    for name, a, b in zip(("logits", "values"), grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_spmm_kernel_rejects_what_it_cannot_take(cuda):
+    rng = np.random.RandomState(5)
+    rowptr, idx, M = random_segments(rng, n_rows=20, long_row=40,
+                                     empty_tail=2)
+    args = spmm_inputs(rng, rowptr, idx, M, 1, 513, cuda)   # H*C = 513
+    with pytest.raises(ValueError, match="exceeds its maximum"):
+        segment_softmax_spmm(*args)
+    g = torch.zeros((len(rowptr) - 1, 513), device=cuda)
+    with pytest.raises(ValueError, match="exceeds its maximum"):
+        segment_softmax_spmm_bwd(*args, g)
+    args = spmm_inputs(rng, rowptr, idx, M, 1, 60, cuda)
+    bad = list(args)
+    bad[1] = bad[1].T.contiguous().T                 # not contiguous
+    with pytest.raises(ValueError, match="values must be contiguous"):
+        segment_softmax_spmm(*bad)
+    bad = list(args)
+    bad[3] = bad[3].long()                           # int64 idx
+    with pytest.raises(TypeError, match="idx"):
+        segment_softmax_spmm(*bad)
+    bad = list(args)
+    bad[0] = bad[0].double()                         # float64 logits
+    with pytest.raises(TypeError, match="logits"):
+        segment_softmax_spmm(*bad)
+
+
+@pytest.mark.parametrize("block,readout", [
+    ("_TripletMessageLight", "Set2Set"), ("_GATConv", "GlobalLAPool"),
+    ("_NNConv", "GlobalPool5"), ("_GCNConv", "Set2Set")])
+def test_new_conv_step_matches_cpu(cuda, block, readout):
+    """One training-mode step (no noise) of a model with each new conv,
+    _BatchNorm and _LayerNorm, on the card and on the CPU from the same
+    weights: outputs, every parameter's gradient and the running
+    statistics agree."""
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.nn.model import Architecture, ModelConfig
+
+    cfg = ModelConfig(mol_block=block, mol_readout=readout, e_dim=64,
+                      graph_norm="_BatchNorm", flat_norm="_LayerNorm",
+                      end_norm="_BatchNorm", graph_do="_None()",
+                      flat_do="_None()", end_do="_None()", pre_act="CELU",
+                      graph_act="CELU", flat_act="CELU")
+    graphs = []
+    for smi in read_demo()[:32]:
+        x, snd, rcv, e = smiles_to_arrays(smi)
+        graphs.append(GraphArrays(x, e, snd, rcv, np.zeros(1, np.float32)))
+    batch = next(iter(GraphLoader(graphs, 32, 1)))
+    state = Architecture(cfg, torch.Generator().manual_seed(0)).state_dict()
+    res = {}
+    for dev in ("cpu", cuda):
+        model = Architecture(cfg).to(dev)
+        model.load_state_dict(state)
+        model.train()
+        out = model(batch.to(dev))
+        (out ** 2).mean().backward()
+        res[str(dev)] = (out.detach().cpu(),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()},
+                         {n: b.cpu() for n, b in model.named_buffers()})
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    # a gradient that is zero in exact arithmetic (GlobalLAPool's gate
+    # bias: a softmax does not move when every logit does) is rounding
+    # noise: its scale is taken as at least 1e-2 of the tree's largest
+    tree = max(float(g.abs().max()) for g in res["cpu"][1].values())
+    for name, want in res["cpu"][1].items():
+        scale = max(float(want.abs().max()), 1e-2 * tree)
+        torch.testing.assert_close(res["cuda"][1][name], want, rtol=1e-3,
+                                   atol=1e-4 * scale, msg=name)
+    for name, want in res["cpu"][2].items():
+        torch.testing.assert_close(res["cuda"][2][name], want, rtol=1e-4,
+                                   atol=1e-4, msg=name)

@@ -1,7 +1,8 @@
-"""Import hygiene: every module of glam_tpu_torch imports without JAX,
-flax, optax, pandas or scikit-learn, and without any module of the JAX
-package (checked in a fresh interpreter).  The card's machine has none
-of them."""
+"""Import hygiene: every module of glam_tpu_torch, the layer library's
+convs, norms, readouts and kernel C's module among them, imports without
+JAX, flax, optax, pandas or scikit-learn, and without any module of the
+JAX package (checked in a fresh interpreter).  The card's machine has
+none of them."""
 import subprocess
 import sys
 
@@ -17,10 +18,31 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.train.metrics", "glam_tpu_torch.data.datasets",
         "glam_tpu_torch.chem.scaffold", "glam_tpu_torch.chem.stereo",
         "glam_tpu_torch.utils.seed", "glam_tpu_torch.serve",
-        "glam_tpu_torch.ops.kernels.triplet_fused"}
+        "glam_tpu_torch.ops.kernels.triplet_fused",
+        "glam_tpu_torch.ops.kernels.segment_softmax_spmm",
+        "glam_tpu_torch.ops.segment", "glam_tpu_torch.nn.convs",
+        "glam_tpu_torch.nn.norms", "glam_tpu_torch.nn.readouts",
+        "glam_tpu_torch.nn.cells", "glam_tpu_torch.nn.init",
+        "glam_tpu_torch.data.graph", "glam_tpu_torch.convert"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "glam_tpu")
+found = sorted(k for k in sys.modules
+               if k in banned or k.startswith(tuple(b + "." for b in banned)))
+assert not found, found
+# the layer library builds every name the JAX package registers, and
+# building it imports nothing new
+from glam_tpu_torch.nn.convs import get_conv
+from glam_tpu_torch.nn.norms import get_norm
+from glam_tpu_torch.nn.readouts import get_readout
+for c in ("_TripletMessage", "_TripletMessageLight", "_NNConv", "_GCNConv",
+          "_GATConv"):
+    get_conv(c, 8, 8, 4)
+for n in ("_None", "_BatchNorm", "_LayerNorm", "_PairNorm",
+          "_GraphSizeNorm"):
+    get_norm(n, 8)
+for r in ("GlobalPool5", "GlobalLAPool", "Set2Set"):
+    get_readout(r, 8, 16)
 found = sorted(k for k in sys.modules
                if k in banned or k.startswith(tuple(b + "." for b in banned)))
 assert not found, found

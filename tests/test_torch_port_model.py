@@ -188,7 +188,20 @@ class TestConfig:
         ("mol_block", "_NNConv"), ("mol_block", "_GATConv"),
         ("graph_norm", "_BatchNorm"), ("pre_norm", "_LayerNorm"),
         ("mol_readout", "Set2Set"), ("mol_readout", "GlobalLAPool")])
-    def test_unported_names_raise(self, field, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_model.Architecture(
-                _cfg(port_model.ModelConfig, **{field: name}))
+    def test_library_names_match_jax(self, batches, field, name):
+        """Each name of the JAX layer library builds in the port and the
+        eval-mode forward matches the JAX package's."""
+        jb, pb = batches
+        model_j = jax_model.Architecture(_cfg(jax_model.ModelConfig,
+                                              **{field: name}))
+        variables = model_j.init(jax.random.PRNGKey(6), jb, True)
+        cfg_t = _cfg(port_model.ModelConfig, **{field: name})
+        model_t = port_model.Architecture(cfg_t)
+        model_t.load_state_dict(convert.state_dict_from_jax(
+            _np_tree(variables["params"]), cfg_t,
+            _np_tree(variables.get("batch_stats", {}))))
+        model_t.eval()
+        with torch.no_grad():
+            got = model_t(pb).numpy()
+        np.testing.assert_allclose(got, np.asarray(model_j.apply(
+            variables, jb, True)), rtol=1e-5, atol=2e-5)

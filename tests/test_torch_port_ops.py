@@ -120,13 +120,17 @@ class TestSegmentOps:
         ids = np.sort(rng.randint(0, 40, 300)).astype(np.int64)
         ids[ids == 7] = 8                      # an empty segment
         x = rng.randn(300, 3).astype(np.float32) * 5
-        for fn in ("segment_sum", "segment_softmax"):
+        for fn in ("segment_sum", "segment_softmax", "segment_mean"):
             want = np.asarray(getattr(jax_segment, fn)(
                 jnp.asarray(x), jnp.asarray(ids.astype(np.int32)), 45))
             got = getattr(port_segment, fn)(
                 torch.from_numpy(x), torch.from_numpy(ids), 45).numpy()
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
                                        err_msg=fn)
+        np.testing.assert_array_equal(
+            port_segment.segment_count(torch.from_numpy(ids), 45).numpy(),
+            np.asarray(jax_segment.segment_count(
+                jnp.asarray(ids.astype(np.int32)), 45)))
 
     def test_dense_and_topk(self):
         """scatter_nodes_to_dense drops pos >= max_nodes; sort-pool ranks

@@ -1,8 +1,9 @@
 """Serving parity: one JAX checkpoint, written the way the JAX trainer
-writes ``best_save.ckpt`` (from init params, untrained), is served by the
-JAX ``Predictor`` and, decoded with flax, converted and saved as
-``best_save.pt``, by the port's ``Predictor`` on the CPU.  Predictions
-agree, NaN rows included."""
+writes ``best_save.ckpt`` (from init params, untrained; BatchNorm
+statistics, where the model has them, after one training forward), is
+served by the JAX ``Predictor`` and, decoded with flax, converted and
+saved as ``best_save.pt``, by the port's ``Predictor`` on the CPU.
+Predictions agree, NaN rows included."""
 import dataclasses
 import json
 
@@ -25,18 +26,27 @@ REQUEST = (SMILES_SET[:3] + ["C1CC"] + SMILES_SET[3:] + ["xyz"]
               "O=C(O)c1ccccc1O", "CCN(CC)CC"])
 
 
-def _write_jax_ckpt(run_dir, sample_graphs, max_nodes):
-    cfg = jax_model.ModelConfig(mol_block="_TripletMessage",
-                                hid_dim_alpha=2, e_dim=32,
-                                message_steps=2, max_nodes=max_nodes)
+def _write_jax_ckpt(run_dir, sample_graphs, max_nodes, **model_kw):
+    """A JAX checkpoint of the flagship model, or of ``model_kw``'s; with
+    a ``_BatchNorm``, its running statistics are those after one
+    training-mode forward, not the initial zeros and ones."""
+    kw = dict(mol_block="_TripletMessage", hid_dim_alpha=2, e_dim=32,
+              message_steps=2, max_nodes=max_nodes)
+    kw.update(model_kw)
+    cfg = jax_model.ModelConfig(**kw)
     args = {"dataset": "demo", "task": "binary_nan_bce", "num_tasks": 1,
             "out_dim": 1, "model_cfg": dataclasses.asdict(cfg)}
     batch = next(iter(JaxLoader(sample_graphs, 6, 1)))
-    params = jax_model.Architecture(cfg).init(jax.random.PRNGKey(5), batch,
-                                              True)["params"]
+    model = jax_model.Architecture(cfg)
+    variables = model.init(jax.random.PRNGKey(5), batch, True)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    if stats:
+        _, upd = model.apply(variables, batch, False, mutable=[
+            "batch_stats"], rngs={"dropout": jax.random.PRNGKey(6)})
+        stats = upd["batch_stats"]
     payload = {"args": json.dumps(args), "records": json.dumps({}),
                "params": serialization.to_bytes(params),
-               "batch_stats": serialization.to_bytes({})}
+               "batch_stats": serialization.to_bytes(stats)}
     run_dir.mkdir(parents=True, exist_ok=True)
     with open(run_dir / "best_save.ckpt", "wb") as f:
         f.write(serialization.msgpack_serialize(payload))
@@ -47,9 +57,10 @@ def _port_ckpt_from_jax(jax_dir, port_dir):
         payload = serialization.msgpack_restore(f.read())
     args = json.loads(payload["args"])
     params = serialization.msgpack_restore(payload["params"])
+    stats = serialization.msgpack_restore(payload["batch_stats"])
     cfg = port_model.ModelConfig(**args["model_cfg"])
     model = port_model.Architecture(cfg)
-    model.load_state_dict(convert.state_dict_from_jax(params, cfg))
+    model.load_state_dict(convert.state_dict_from_jax(params, cfg, stats))
     return save_checkpoint(port_dir, model, args)
 
 
@@ -77,6 +88,29 @@ class TestPredictorParity:
             assert np.isfinite(np.delete(got, [3, 7], axis=0)).all()
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5,
                                        err_msg=fn)
+
+    @pytest.mark.parametrize("model_kw", [
+        dict(mol_block="_TripletMessageLight", mol_readout="Set2Set",
+             graph_norm="_BatchNorm", flat_norm="_BatchNorm",
+             end_norm="_LayerNorm"),
+        dict(mol_block="_GATConv", mol_readout="GlobalLAPool",
+             pre_norm="_LayerNorm", graph_norm="_GraphSizeNorm",
+             end_norm="_BatchNorm")])
+    def test_library_checkpoint_predictions_match(self, tmp_path,
+                                                  sample_graphs, model_kw):
+        """A checkpoint of the layer library, BatchNorm running statistics
+        included, serves as the JAX Predictor serves it."""
+        _write_jax_ckpt(tmp_path / "jax", sample_graphs, 32, **model_kw)
+        path = _port_ckpt_from_jax(tmp_path / "jax", tmp_path / "port")
+        saved = torch.load(path, weights_only=True)["state_dict"]
+        moved = [k for k in saved if k.endswith(".mean")]
+        assert moved and all(saved[k].abs().max() > 0 for k in moved)
+        pj = JaxPredictor.from_checkpoint(tmp_path / "jax", batch_size=4)
+        pt = Predictor.from_checkpoint(tmp_path / "port", batch_size=4,
+                                       device="cpu")
+        want, got = pj.predict_smiles(REQUEST), pt.predict_smiles(REQUEST)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=2e-5)
 
     def test_all_invalid_and_load_without_forward(self, tmp_path,
                                                   sample_graphs):
