@@ -19,7 +19,11 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      serving path's TripletMessageLight and Set2Set calls (the last
      node's padded edges and the padding graph are rows of ~44,000 and
      ~13,800 entries) and on random CSRs with empty rows and a
-     5,000-entry row at (H, C) = (3, 16) and H*C = 512;
+     5,000-entry row at (H, C) = (3, 16) and H*C = 512; each kernel C
+     call must give bitwise the same results twice and be one device
+     kernel (the backward with unlisted entries also zero-fills): the
+     calls of every kernel C check of the run are traced at its end, in
+     one fresh process, and the kernel C lines printed then;
   4. serving phase: the flagship model (TripletMessage H=3 C=60, 3 steps,
      GlobalPool5, e_dim 1024, random weights from seed 0) saved and
      served by ``Predictor(device="cuda")`` for three requests (the whole
@@ -236,18 +240,23 @@ def spmm_bound_ms(args, which):
     """Least time for kernel C's work, by bytes (a few flops per byte, so
     bytes bound it): the listed entries' logits and values, the CSR and,
     for the backward, the rows of g with entries read once; the [R, H*C]
-    output, or d_logits and d_values of the listed entries, written
-    once."""
+    output, or d_logits and d_values of the listed entries, written once.
+    Returns (that bound, the same with the bytes the kernels' design adds:
+    the forward's [R, H] row statistics written, and the backward's reads
+    of them and of the output's rows with entries)."""
     logits, values, rowptr, idx = args
     R, S = rowptr.shape[0] - 1, idx.shape[0]
     H, hc = logits.shape[1], values.shape[1]
     nbytes = 4 * (S * (H + hc) + R + 1 + S)
     if which == "fwd":
         nbytes += 4 * R * hc
+        extra = 4 * R * 2 * H
     else:
         rows = int((rowptr[1:] > rowptr[:-1]).sum())
         nbytes += 4 * (rows * hc + S * (H + hc))
-    return 1e3 * nbytes / HBM_BYTES_PER_S
+        extra = 4 * rows * (hc + 2 * H)
+    return (1e3 * nbytes / HBM_BYTES_PER_S,
+            1e3 * (nbytes + extra) / HBM_BYTES_PER_S)
 
 
 def triplet_bound_ms(args, H, C):
@@ -355,29 +364,104 @@ def check_kernel(which, name, csr, rng, dev, H=3, C=60):
 
 
 def spmm_reference(args, g=None):
-    """Kernel C's plain forward on ``args`` (logits, values, rowptr, idx),
-    or with the cotangent ``g`` its plain backward, computed in float64
-    and cast back to float32: the reference a kernel's result is held
-    against, so that its error is the kernel's own and not the float32
-    plain version's rounding (whose ``index_add_`` sums in another order
-    on every call).  Returns a list of tensors."""
+    """Kernel C's plain forward on ``args`` (logits, values, rowptr, idx):
+    [out, row_max, row_inv]; or with the cotangent ``g`` its plain
+    backward from the plain forward's results: [d_logits, d_values];
+    computed in float64 and cast back to float32: the reference a
+    kernel's result is held against, so that its error is the kernel's
+    own and not the float32 plain version's rounding (whose ``index_add_``
+    sums in another order on every call)."""
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
         segment_softmax_spmm_bwd_plain, segment_softmax_spmm_plain)
     logits, values, rowptr, idx = args
     wide = (logits.double(), values.double(), rowptr, idx)
+    fwd = segment_softmax_spmm_plain(*wide)
     if g is None:
-        return [segment_softmax_spmm_plain(*wide).float()]
+        return [t.float() for t in fwd]
     return [t.float() for t in segment_softmax_spmm_bwd_plain(
-        *wide, g.double())]
+        *wide, *fwd, g.double())]
+
+
+def device_kernels(fn, calls: int = 4, tries: int = 5):
+    """The device kernels (and fills and copies) that one call of ``fn``
+    runs, from a ``torch.profiler`` trace of ``calls`` calls: their
+    names, in order.  A trace whose kernels do not repeat call by call
+    (one that lost device records, see :func:`traced_kernels`) is taken
+    again, up to ``tries`` times; fails if none does."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        per = names[:len(names) // calls]
+        if per and per * calls == names:
+            return per
+    fail(f"{tries} traces of {calls} calls each: the last held device "
+         f"kernels {names}, not the same kernels in each call")
+
+
+def traced_kernels(cases):
+    """The device kernels of one forward and one backward call of kernel
+    C on each of ``cases`` (lists of its arguments), each from a profiler
+    trace (:func:`device_kernels`), all taken in one fresh process
+    (``chip_smoke.py --trace``): in this one, once the training runs had
+    run, traces lost device records (3 of 4 kernels, or none, on the
+    H100).  Returns [{'fwd': names, 'bwd': names}] in the order of
+    ``cases``."""
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "calls.pt"
+        torch.save([[t.cpu() for t in args] for args in cases], path)
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--trace", str(path)], capture_output=True,
+                              text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"the trace process failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def trace_main(path):
+    """``chip_smoke.py --trace FILE``: kernel C's forward and backward on
+    the card on each list of inputs saved in FILE, each traced by
+    :func:`device_kernels`; prints [{'fwd': names, 'bwd': names}]."""
+    import torch
+    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
+        segment_softmax_spmm_bwd, segment_softmax_spmm_fwd)
+    traced = []
+    for saved in torch.load(path):
+        args = [t.cuda() for t in saved]
+        g = torch.ones(args[2].shape[0] - 1, args[1].shape[1], device="cuda")
+        stats = segment_softmax_spmm_fwd(*args)
+        traced.append({
+            "fwd": device_kernels(lambda: segment_softmax_spmm_fwd(*args)),
+            "bwd": device_kernels(
+                lambda: segment_softmax_spmm_bwd(*args, *stats, g))})
+    print(json.dumps(traced))
+
+
+# every kernel C check of the run, in order: (call name, its arguments on
+# the CPU, {'fwd': numbers, 'bwd': numbers}); the device kernels of each
+# call are traced at the end of the run (:func:`report_spmm`)
+SPMM_CHECKS = []
 
 
 def check_spmm(which, name, args, dev, card):
-    """Kernel C's forward (``which`` 'fwd') or backward ('bwd') on the
-    card on ``args`` (logits, values, rowptr, idx) against its plain
-    version computed in float64 (:func:`spmm_reference`): prints the
-    errors and the median device times of the kernel and of the float32
-    plain version beside the bound, and fails on disagreement.  Returns
-    that line's numbers."""
+    """Kernel C's forward (``which`` 'fwd') or backward ('bwd', from the
+    forward kernel's output and row statistics) on the card on ``args``
+    (logits, values, rowptr, idx) against its plain version computed in
+    float64 (:func:`spmm_reference`): the errors, whether two calls are
+    bitwise equal, and the median device times of the kernel and of the
+    float32 plain version beside the bound.  Fails on disagreement or on
+    results that differ between calls.  Returns that line's numbers and,
+    under 'line', its text without the device kernels, which
+    :func:`report_spmm` adds and prints."""
     import numpy as np
     import torch
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
@@ -388,38 +472,71 @@ def check_spmm(which, name, args, dev, card):
     H, hc = logits.shape[1], values.shape[1]
     if which == "fwd":
         kname, g = "segment_softmax_spmm_fwd", None
-        run = lambda: [segment_softmax_spmm_fwd(*args)]  # noqa: E731
-        plain = lambda: [segment_softmax_spmm_plain(*args)]  # noqa: E731
+        run = lambda: list(segment_softmax_spmm_fwd(*args))  # noqa: E731
+        plain = lambda: segment_softmax_spmm_plain(*args)  # noqa: E731
     else:
         kname = "segment_softmax_spmm_bwd"
         g = torch.from_numpy(np.random.RandomState(R).randn(R, hc).astype(
             np.float32)).to(dev)
-        run = lambda: segment_softmax_spmm_bwd(*args, g)  # noqa: E731
+        stats = segment_softmax_spmm_fwd(*args)
+        plain_stats = segment_softmax_spmm_plain(*args)
+        run = lambda: list(segment_softmax_spmm_bwd(  # noqa: E731
+            *args, *stats, g))
         plain = lambda: segment_softmax_spmm_bwd_plain(  # noqa: E731
-            *args, g)
+            *args, *plain_stats, g)
     got, want = run(), spmm_reference(args, g)
+    again = run()
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = [_errors(a, b) for a, b in zip(got, want)]
     max_abs = max(e[0] for e in errs)
     ok = all(torch.allclose(a, b, rtol=TOL, atol=TOL)
              for a, b in zip(got, want))
-    bound = spmm_bound_ms(args, which)
+    bound, design = spmm_bound_ms(args, which)
     k_ms = device_ms(run)
     p_ms = device_ms(plain, reps=20, sleep_cycles=20_000_000)
     longest = int((rowptr[1:] - rowptr[:-1]).max()) if R else 0
-    print(f"kernel {kname} [{name}] R={R} S={S} M={M} H={H} C={hc // H} "
-          f"longest_row={longest}: max_abs_err={max_abs:.3e} (tol {TOL}) "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound:.4f} "
-          f"(bytes) share_of_bound={bound / k_ms:.3f} ({card})")
+    line = (f"kernel {kname} [{name}] R={R} S={S} M={M} H={H} C={hc // H} "
+            f"longest_row={longest}: max_abs_err={max_abs:.3e} (tol {TOL}) "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bound:.4f} "
+            f"(bytes) share_of_bound={bound / k_ms:.3f} "
+            f"bound_with_row_stats_ms={design:.4f}")
     if not ok:
+        print(line)
         fail(f"{kname} disagrees with its plain version on {name}: "
              f"max_abs_err {max_abs}")
+    if not same:
+        print(line)
+        fail(f"{kname} on {name}: two calls differ")
     return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": "bytes"}
+            "bound_ms": bound, "bound_by": "bytes",
+            "bound_with_row_stats_ms": design, "deterministic": same,
+            "line": f"{line} deterministic={same} ({card})"}
 
 
 def check_spmm_both(name, args, dev, card):
-    return {w: check_spmm(w, name, args, dev, card) for w in ("fwd", "bwd")}
+    out = {w: check_spmm(w, name, args, dev, card) for w in ("fwd", "bwd")}
+    SPMM_CHECKS.append((name, [t.cpu() for t in args], out))
+    return out
+
+
+def report_spmm():
+    """Trace the device kernels of one call of each kernel C check of the
+    run (:func:`traced_kernels`, one process for all), print each check's
+    line with them, and fail unless each forward call, and each backward
+    call with every entry listed (S == M), is one kernel (a backward with
+    unlisted entries also zero-fills its outputs)."""
+    traced = traced_kernels([args for _, args, _ in SPMM_CHECKS])
+    for (name, args, out), kernels in zip(SPMM_CHECKS, traced):
+        S, M = args[3].shape[0], args[0].shape[0]
+        for w in ("fwd", "bwd"):
+            r, k = out[w], kernels[w]
+            r["device_kernels"] = len(k)
+            head, tail = r.pop("line").split(" deterministic=")
+            print(f"{head} device_kernels={len(k)} {k} deterministic={tail}")
+            if len(k) != (1 if w == "fwd" or S == M else 2):
+                fail(f"segment_softmax_spmm_{w} on {name}: one call ran "
+                     f"{len(k)} device kernels {k}")
 
 
 def check_spmm_calls(prefix, batch, block, readout, hid, rng, dev, card):
@@ -977,6 +1094,9 @@ def main() -> None:
         fail("run from a checkout of the repository: glam_tpu_torch/ or "
              "datasets/demo is missing")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--trace"]:
+        trace_main(sys.argv[2])
+        return
     from glam_tpu_torch.ops.kernels import build
 
     smi = subprocess.run(
@@ -1011,6 +1131,7 @@ def main() -> None:
                                                           demo)
         gat_trained, kern_gat = gat_phase(dev, card, tmp)
         default_phase(dev, tmp)
+    report_spmm()
 
     # each kernel's calls on each path: {path: {call: (launches per
     # forward, the numbers measured at that call's shapes)}}; then the
@@ -1088,6 +1209,11 @@ def main() -> None:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "by_path": by_path,
         })
+        if name.startswith("segment_softmax_spmm"):
+            kernels[-1]["device_kernels_per_call"] = max(
+                r["device_kernels"] for r in checked)
+            kernels[-1]["deterministic"] = all(
+                r["deterministic"] for r in checked)
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

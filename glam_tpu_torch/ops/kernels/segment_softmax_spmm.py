@@ -14,20 +14,28 @@ aggregations of ``TripletMessageLight`` and ``GATConv`` (rows are
 receivers, entries edges) and the ``GlobalLAPool`` and ``Set2Set``
 readouts (rows are graphs, entries nodes) run through it.
 
+The forward also gives each row's statistics, ``row_max`` [R, H] and
+``row_inv`` = 1 / (sum of exp + 1e-16) [R, H] (both 0 for an empty row);
+the backward takes them and the output, whose dot with the cotangent is
+the softmax backward's row sum, so no entry waits for the rest of its
+row.
+
 The forward kernel (``glam_tpu_torch/csrc/segment_softmax_spmm.cu``)
 replaces the Pallas TPU kernel ``_kernel`` of the JAX package
 (``glam_tpu/ops/pallas/segment_mxu.py:100``, ``fused_segment_softmax_spmm``
 :160).  The TPU kernel has no backward; the JAX package differentiates
 ``segment_softmax`` and ``segment_sum`` with XLA, and the backward
 kernel (``csrc/segment_softmax_spmm_bwd.cu``) computes that gradient.
-Both cut the CSR into chunks of 32 slots, one warp each, so a long row
-is spread over many warps and merged after.
+Each call is one CUDA kernel over blocks of 1-8 warps, 32 CSR slots a
+warp (:func:`block_warps`).  In the forward, rows that cross blocks are
+merged by the block that takes their last ticket; the tickets live in a
+zeroed buffer kept per device and stream, which each kernel leaves
+zeroed.
 
 ``segment_softmax_spmm`` is the differentiable op.  CPU tensors run the
 plain versions; CUDA tensors run the kernels or raise.
 ``segment_softmax_spmm.launches`` counts forward launches and
-``segment_softmax_spmm_bwd.launches`` backward ones (one per call, each
-of which runs two or three CUDA kernels).
+``segment_softmax_spmm_bwd.launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -36,42 +44,59 @@ import functools
 
 import torch
 
-from ..segment import csr_rows, segment_softmax, segment_sum
+from ..segment import csr_rows, segment_sum
 from . import build
 from .triplet_fused import _check
 
+_EPS = 1e-16
 
-def _gathered(logits, values, rowptr, idx):
+
+def _rows_alpha(logits, rowptr, idx, row_max, row_inv):
     """(row of each slot, entry of each slot, the slots' softmax weights
-    [S, H], the slots' values [S, H*C])."""
+    [S, H]) from the row statistics."""
     rows = csr_rows(rowptr, idx.shape[0])
     e = idx.long()
-    alpha = segment_softmax(logits.index_select(0, e), rows,
-                            rowptr.shape[0] - 1)
-    return rows, e, alpha, values.index_select(0, e)
+    alpha = (torch.exp(logits.index_select(0, e) - row_max.index_select(
+        0, rows)) * row_inv.index_select(0, rows))
+    return rows, e, alpha
 
 
 def segment_softmax_spmm_plain(logits, values, rowptr, idx):
     """The forward kernel's function in plain torch: logits [M, H],
-    values [M, H*C], rowptr [R+1], idx [S] -> [R, H*C]."""
-    rows, _, alpha, vals = _gathered(logits, values, rowptr, idx)
-    C = values.shape[1] // logits.shape[1]
-    return segment_sum(alpha.repeat_interleave(C, dim=1) * vals, rows,
-                       rowptr.shape[0] - 1)
+    values [M, H*C], rowptr [R+1], idx [S] -> (out [R, H*C], row_max
+    [R, H], row_inv [R, H])."""
+    R, H = rowptr.shape[0] - 1, logits.shape[1]
+    C = values.shape[1] // H
+    rows = csr_rows(rowptr, idx.shape[0])
+    x = logits.index_select(0, idx.long())
+    row_max = x.new_full((R, H), -torch.inf).index_reduce_(
+        0, rows, x, "amax", include_self=True)
+    nonempty = (rowptr[1:] > rowptr[:-1])[:, None]
+    row_max = torch.where(nonempty, row_max, torch.zeros_like(row_max))
+    ex = torch.exp(x - row_max.index_select(0, rows))
+    row_inv = torch.where(nonempty, 1.0 / (segment_sum(ex, rows, R) + _EPS),
+                          torch.zeros_like(row_max))
+    alpha = ex * row_inv.index_select(0, rows)
+    vals = values.index_select(0, idx.long())
+    out = segment_sum(alpha.repeat_interleave(C, dim=1) * vals, rows, R)
+    return out, row_max, row_inv
 
 
-def segment_softmax_spmm_bwd_plain(logits, values, rowptr, idx, g):
+def segment_softmax_spmm_bwd_plain(logits, values, rowptr, idx, out,
+                                   row_max, row_inv, g):
     """The backward kernel's function in plain torch, written out as the
-    kernel computes it (not by autograd).  g [R, H*C] is the output's
+    kernel computes it (not by autograd).  ``out``, ``row_max`` and
+    ``row_inv`` are the forward's results, g [R, H*C] the output's
     cotangent.  Returns (d_logits [M, H], d_values [M, H*C]), zero for
     entries that no slot lists."""
     R, H = rowptr.shape[0] - 1, logits.shape[1]
     C = values.shape[1] // H
-    rows, e, alpha, vals = _gathered(logits, values, rowptr, idx)
+    rows, e, alpha = _rows_alpha(logits, rowptr, idx, row_max, row_inv)
     grow = g.index_select(0, rows)                            # [S, H*C]
-    dalpha = (grow * vals).view(-1, H, C).sum(-1)             # [S, H]
-    # softmax backward: alpha * (dalpha - sum_row alpha * dalpha)
-    row_d = segment_sum(alpha * dalpha, rows, R).index_select(0, rows)
+    dalpha = (grow * values.index_select(0, e)).view(-1, H, C).sum(-1)
+    # softmax backward: alpha * (dalpha - sum_row alpha * dalpha), the row
+    # sum being <g[r], out[r]> per head
+    row_d = (g * out).view(R, H, C).sum(-1).index_select(0, rows)
     d_logits = torch.zeros_like(logits).index_copy_(
         0, e, alpha * (dalpha - row_d))
     d_values = torch.zeros_like(values).index_copy_(
@@ -79,38 +104,57 @@ def segment_softmax_spmm_bwd_plain(logits, values, rowptr, idx, g):
     return d_logits, d_values
 
 
+def block_warps(slots: int, sms: int, rows: int | None = None) -> int:
+    """Warps per block (32 CSR slots each) for ``slots`` slots on a card
+    of ``sms`` SMs: the fewest of 1-8 that leave at most one block per SM,
+    so that the blocks spread over the SMs.  The forward passes its
+    ``rows``: where they average more than 32 slots, rows cross blocks
+    often and each crossing is a merge through global memory, so it takes
+    8 warps, the fewest block states."""
+    if rows is not None and slots > 32 * rows:
+        return 8
+    chunks = -(-slots // 32)
+    return min(8, max(1, -(-chunks // sms)))
+
+
 @functools.cache
-def _bind(name: str, prefix: str, n_ptrs: int) -> ctypes.CDLL:
-    """Load kernel source ``name`` and type its entry points: the launch
-    ``prefix`` (``n_ptrs`` pointers, rows, slots, H*C, H, C, merge blocks,
-    stream) and the ``{prefix}_*`` queries of its limits."""
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def _bind(name: str, prefix: str, n_ptrs: int, n_ints: int):
+    """Load kernel source ``name`` and type its launch ``prefix``
+    (``n_ptrs`` pointers, ``n_ints`` ints, stream).  Returns (the launch,
+    its largest H*C, its most heads)."""
     lib = build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     launch = getattr(lib, prefix)
-    launch.argtypes = [ptr] * n_ptrs + [i32] * 6 + [ptr]
+    launch.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ptr]
     launch.restype = i32
-    for fn in ("max_hc", "max_heads", "chunk"):
-        getattr(lib, f"{prefix}_{fn}").argtypes = []
-        getattr(lib, f"{prefix}_{fn}").restype = i32
-    return lib
+    limits = []
+    for fn in ("max_hc", "max_heads"):
+        query = getattr(lib, f"{prefix}_{fn}")
+        query.argtypes, query.restype = [], i32
+        limits.append(query())
+    return (launch, *limits)
 
 
-def _check_inputs(lib, prefix, logits, values, rowptr, idx, g=None):
+def _check_inputs(limits, logits, values, rowptr, idx, extra=()):
     """Raise on what the kernels do not take: devices, dtypes, shapes,
-    contiguity and the widths' limits.  Returns (R, S, H*C, H, C)."""
+    contiguity and the widths' limits.  ``extra`` holds (name, tensor,
+    shape) of further float32 inputs.  Returns (R, S, H*C, H, C)."""
     M, H = logits.shape[0], logits.shape[1] if logits.dim() == 2 else -1
     hc = values.shape[1] if values.dim() == 2 else -1
     R, S = rowptr.shape[0] - 1, idx.shape[0]
     dev, f32, i32 = logits.device, torch.float32, torch.int32
-    checks = [("logits", logits, f32, (M, H)), ("values", values, f32,
-                                                 (M, hc)),
+    checks = [("logits", logits, f32, (M, H)),
+              ("values", values, f32, (M, hc)),
               ("rowptr", rowptr, i32, (R + 1,)), ("idx", idx, i32, (S,))]
-    if g is not None:
-        checks.append(("g", g, f32, (R, hc)))
+    checks += [(name, t, f32, shape) for name, t, shape in extra]
     for name, t, dtype, shape in checks:
         _check(name, t, dev, dtype, shape)
-    max_hc = getattr(lib, f"{prefix}_max_hc")()
-    max_heads = getattr(lib, f"{prefix}_max_heads")()
+    max_hc, max_heads = limits
     if hc > max_hc or H > max_heads:
         raise ValueError(f"segment_softmax_spmm kernel: H*C = {hc}, heads = "
                          f"{H} exceeds its maximum of {max_hc}, {max_heads}")
@@ -120,76 +164,100 @@ def _check_inputs(lib, prefix, logits, values, rowptr, idx, g=None):
     return R, S, hc, H, hc // H
 
 
-def _merge_blocks(dev, items: int, per_block: int) -> int:
-    """The merge pass's grid: a block per ``per_block`` work items (rows
-    or listed rows), at most 4 blocks per SM; blocks stride over the
-    rest."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(-(-items // per_block), 4 * sms))
+_TICKETS = {}
+
+
+def _tickets(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets for kernels on ``stream``: one
+    buffer per device and stream, zeroed when made or grown (the kernels
+    leave it zeroed), so a call needs no fill."""
+    key = (dev.index, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), device=dev, dtype=torch.int32)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _copy_mode(hc: int, *rows) -> int:
+    """The kernels' CopyMode for gathering rows of ``hc`` floats of
+    ``rows``: 1 (cp.async.bulk) where the rows are a multiple of 16 bytes
+    at 16-byte-aligned addresses, else 0 (4-byte cp.async)."""
+    return int(hc % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
+
+
+def _run(launch, name, dev, args, stream):
+    """Call ``launch(*args, stream)`` with ``dev`` current; raise on a
+    launch error."""
+    if dev.index == torch.cuda.current_device():
+        err = launch(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def _up4(n: int) -> int:
+    return (n + 3) & ~3
 
 
 def _launch_fwd(logits, values, rowptr, idx):
-    lib = _bind("segment_softmax_spmm", "segment_spmm_fwd", 10)
-    R, S, hc, H, C = _check_inputs(lib, "segment_spmm_fwd", logits, values,
+    launch, max_hc, max_heads = _bind(
+        "segment_softmax_spmm", "segment_spmm_fwd", 9, 7)
+    R, S, hc, H, C = _check_inputs((max_hc, max_heads), logits, values,
                                    rowptr, idx)
-    dev, f32 = logits.device, torch.float32
-    if R == 0 or S == 0:
-        return torch.zeros((R, hc), device=dev, dtype=f32)
-    # one zero-fill for the output (empty rows keep it) and the two
-    # counters of the work lists, kept as int32 bits behind it
-    zeroed = torch.zeros((R * hc + 2,), device=dev, dtype=f32)
-    out, counts = zeroed[:R * hc].view(R, hc), zeroed[R * hc:]
-    chunks = -(-S // lib.segment_spmm_fwd_chunk())
-    # scratch: the partial states [chunks, 2, H | H | H*C] and the two
-    # lists of rows that span chunks [2, chunks]
-    part_m, part_l, part_acc, lists = torch.empty(
-        (chunks * 2 * (2 * H + hc + 1),), device=dev, dtype=f32).split(
-            [2 * chunks * H, 2 * chunks * H, 2 * chunks * hc, 2 * chunks])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.segment_spmm_fwd(
-            logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), counts.data_ptr(),
-            lists.data_ptr(), R, S, hc, H, C,
-            _merge_blocks(dev, chunks, 16), stream)
-    if err != 0:
-        raise RuntimeError(f"segment_spmm_fwd launch failed with cudaError "
-                           f"{err}")
+    dev = logits.device
+    warps = block_warps(S, _sms(dev.index), R)
+    blocks = max(1, -(-S // (32 * warps)))
+    # one allocation: out [R, H*C], row_max, row_inv [R, H] and the
+    # per-block states of rows crossing blocks [blocks, 2, sw], each part
+    # 16-byte aligned
+    sizes = [_up4(R * hc), _up4(R * H), _up4(R * H),
+             blocks * 2 * _up4(hc + 2 * H)]
+    buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
+    out, row_max, row_inv, part = buf.split(sizes)
+    out, row_max, row_inv = (out[:R * hc].view(R, hc),
+                             row_max[:R * H].view(R, H),
+                             row_inv[:R * H].view(R, H))
+    if R == 0:
+        return out, row_max, row_inv
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _tickets(dev, stream, blocks)
+    _run(launch, "segment_spmm_fwd", dev, (
+        logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), row_max.data_ptr(),
+        row_inv.data_ptr(), part.data_ptr(), tickets.data_ptr(), R, S, hc,
+        H, C, _copy_mode(hc, values), warps), stream)
     segment_softmax_spmm.launches += 1
-    return out
+    return out, row_max, row_inv
 
 
-def _launch_bwd(logits, values, rowptr, idx, g):
-    lib = _bind("segment_softmax_spmm_bwd", "segment_spmm_bwd", 15)
-    R, S, hc, H, C = _check_inputs(lib, "segment_spmm_bwd", logits, values,
-                                   rowptr, idx, g)
-    dev, f32, M = logits.device, torch.float32, logits.shape[0]
+def _launch_bwd(logits, values, rowptr, idx, out, row_max, row_inv, g):
+    launch, max_hc, max_heads = _bind(
+        "segment_softmax_spmm_bwd", "segment_spmm_bwd", 10, 7)
+    R, H, hc = rowptr.shape[0] - 1, logits.shape[-1], values.shape[-1]
+    R, S, hc, H, C = _check_inputs(
+        (max_hc, max_heads), logits, values, rowptr, idx,
+        [("out", out, (R, hc)), ("row_max", row_max, (R, H)),
+         ("row_inv", row_inv, (R, H)), ("g", g, (R, hc))])
+    dev, M = logits.device, logits.shape[0]
     # entries that no slot lists keep zeros; with S == M every entry is
-    # listed once and the kernel writes all of them
+    # listed once and the kernel writes all of them.  d_values first, so
+    # that it is 16-byte aligned
     alloc = torch.empty if S == M else torch.zeros
-    d_logits = alloc((M, H), device=dev, dtype=f32)
-    d_values = alloc((M, hc), device=dev, dtype=f32)
+    grads = alloc((_up4(M * hc) + M * H,), device=dev, dtype=torch.float32)
+    d_values = grads[:M * hc].view(M, hc)
+    d_logits = grads[_up4(M * hc):].view(M, H)
     if R == 0 or S == 0:
         return d_logits, d_values
-    chunks = -(-S // lib.segment_spmm_bwd_chunk())
-    scratch = torch.empty((S * H + 3 * R * H + 6 * chunks * H,), device=dev,
-                          dtype=f32)
-    sizes = [S * H] + [R * H] * 3 + [2 * chunks * H] * 3
-    dal, row_m, row_inv, row_d, part_m, part_l, part_s = scratch.split(sizes)
-    slot_row = torch.empty((S,), device=dev, dtype=torch.int32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.segment_spmm_bwd(
-            logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
-            idx.data_ptr(), g.data_ptr(), d_logits.data_ptr(),
-            d_values.data_ptr(), dal.data_ptr(), slot_row.data_ptr(),
-            row_m.data_ptr(), row_inv.data_ptr(), row_d.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_s.data_ptr(), R, S,
-            hc, H, C, _merge_blocks(dev, R, 8), stream)
-    if err != 0:
-        raise RuntimeError(f"segment_spmm_bwd launch failed with cudaError "
-                           f"{err}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _run(launch, "segment_spmm_bwd", dev, (
+        logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), g.data_ptr(), row_max.data_ptr(),
+        row_inv.data_ptr(), d_logits.data_ptr(), d_values.data_ptr(), R, S,
+        hc, H, C, _copy_mode(hc, values, g, out),
+        block_warps(S, _sms(dev.index))), stream)
     segment_softmax_spmm_bwd.launches += 1
     return d_logits, d_values
 
@@ -204,44 +272,49 @@ def _route(t, plain, kernel):
 
 
 def segment_softmax_spmm_fwd(logits, values, rowptr, idx):
-    """The forward alone, not differentiable: CPU tensors run
-    :func:`segment_softmax_spmm_plain`, CUDA tensors the forward kernel
-    (float32 logits and values, int32 CSR, all contiguous, H up to 8 and
-    H*C up to 512) or raise."""
+    """The forward alone, not differentiable: (out, row_max, row_inv).
+    CPU tensors run :func:`segment_softmax_spmm_plain`, CUDA tensors the
+    forward kernel (float32 logits and values, int32 CSR, all contiguous,
+    H up to 8 and H*C up to 512) or raise."""
     fn = _route(logits, segment_softmax_spmm_plain, _launch_fwd)
     return fn(logits, values, rowptr, idx)
 
 
-def segment_softmax_spmm_bwd(logits, values, rowptr, idx, g):
+def segment_softmax_spmm_bwd(logits, values, rowptr, idx, out, row_max,
+                             row_inv, g):
     """The backward: CPU tensors run :func:`segment_softmax_spmm_bwd_plain`,
-    CUDA tensors the backward kernel (as the forward takes them, g
-    [R, H*C] float32 contiguous) or raise."""
+    CUDA tensors the backward kernel (as the forward takes them; the
+    forward's out, row_max and row_inv and g [R, H*C], float32
+    contiguous) or raise."""
     fn = _route(logits, segment_softmax_spmm_bwd_plain, _launch_bwd)
-    return fn(logits, values, rowptr, idx, g)
+    return fn(logits, values, rowptr, idx, out, row_max, row_inv, g)
 
 
 class _SegmentSoftmaxSpmm(torch.autograd.Function):
     """Forward and backward through the kernels (or their plain versions
-    on the CPU); nothing but the inputs is kept between the two."""
+    on the CPU); the inputs, the output and the rows' statistics are kept
+    between the two."""
 
     @staticmethod
     def forward(ctx, logits, values, rowptr, idx):
-        ctx.save_for_backward(logits, values, rowptr, idx)
-        return segment_softmax_spmm_fwd(logits, values, rowptr, idx)
+        out, row_max, row_inv = segment_softmax_spmm_fwd(logits, values,
+                                                         rowptr, idx)
+        ctx.save_for_backward(logits, values, rowptr, idx, out, row_max,
+                              row_inv)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        logits, values, rowptr, idx = ctx.saved_tensors
         d_logits, d_values = segment_softmax_spmm_bwd(
-            logits, values, rowptr, idx, g.contiguous())
+            *ctx.saved_tensors, g.contiguous())
         return d_logits, d_values, None, None
 
 
 def segment_softmax_spmm(logits, values, rowptr, idx):
     """Segment softmax + weighted sum per CSR row, differentiable in
     logits and values.  Arguments as for
-    :func:`segment_softmax_spmm_plain`; CPU tensors run the plain
-    versions, CUDA tensors the kernels or raise."""
+    :func:`segment_softmax_spmm_plain`, returns out [R, H*C]; CPU tensors
+    run the plain versions, CUDA tensors the kernels or raise."""
     return _SegmentSoftmaxSpmm.apply(logits, values, rowptr, idx)
 
 

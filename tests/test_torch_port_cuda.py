@@ -201,21 +201,50 @@ SPMM_CASES = [
     ("random", 1, 60),        # the convs' and Set2Set's width
     ("random", 1, 120),       # GlobalLAPool's
     ("random", 3, 16),
-    ("random", 8, 64),        # H*C = 512, the kernels' maximum
+    ("random", 8, 64),        # H*C = 512 with 8 heads, the maximum
     ("random", 1, 512),
+    ("random", 1, 30),        # H*C not a multiple of 4: 4-byte copies
+    ("random", 2, 30),        # C not a multiple of 4: one channel a group
+    ("misaligned", 1, 60),    # values not 16-byte aligned: 4-byte copies
     ("long_row", 1, 60),      # one row of 5,000 entries
-    ("unlisted", 2, 30),      # entries that no slot lists
+    ("one_boundary", 1, 60),  # a row crossing exactly one block boundary
+    ("hundred_blocks", 1, 60),  # a row over more than 100 blocks
+    ("serve_row", 1, 60),     # a 44,096-entry row, as serving's last node
+    ("empty_runs", 1, 60),    # 200 empty rows in a row, 30 at rowptr == S
+    ("unlisted", 2, 30),      # entries that no slot lists (S < M)
     ("empty_rows", 1, 60),    # rows, no entries
     ("no_rows", 1, 60),       # entries, no rows
 ]
 
 
+def _lens_csr(rng, lens, unlisted=0):
+    rowptr = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=rowptr[1:])
+    S = int(rowptr[-1])
+    return rowptr, rng.permutation(S + unlisted)[:S].astype(np.int32), \
+        S + unlisted
+
+
 def _spmm_case(rng, case):
-    if case == "random":
+    if case in ("random", "misaligned"):
         return random_segments(rng, n_rows=400, long_row=300,
                                empty_tail=50)
     if case == "long_row":
         return random_segments(rng, n_rows=60, long_row=5000, empty_tail=3)
+    if case == "one_boundary":            # slots 250-269 are one row
+        return _lens_csr(rng, np.r_[np.ones(250, int), 20,
+                                    rng.randint(1, 5, 100)])
+    if case == "hundred_blocks":          # 26,000 slots > 101 blocks
+        return _lens_csr(rng, np.r_[rng.randint(0, 9, 100), 26000,
+                                    rng.randint(0, 9, 100)])
+    if case == "serve_row":
+        return _lens_csr(rng, np.r_[rng.randint(0, 5, 3000),
+                                    np.zeros(13700, int), 44096])
+    if case == "empty_runs":
+        return _lens_csr(rng, np.r_[rng.randint(1, 9, 300),
+                                    np.zeros(200, int),
+                                    rng.randint(1, 9, 300),
+                                    np.zeros(30, int)])
     if case == "unlisted":
         return random_segments(rng, n_rows=200, long_row=100,
                                empty_tail=10, unlisted=37)
@@ -226,31 +255,46 @@ def _spmm_case(rng, case):
 
 @pytest.mark.parametrize("case,heads,channels", SPMM_CASES)
 def test_spmm_kernels_match_plain(cuda, case, heads, channels):
+    """Each kernel C call against the float64 plain versions at 1e-4
+    (the backward from the forward kernel's output and statistics),
+    bitwise the same on a second call, empty rows and unlisted entries
+    zero."""
     rng = np.random.RandomState(3)
     rowptr, idx, M = _spmm_case(rng, case)
     args = spmm_inputs(rng, rowptr, idx, M, heads, channels, cuda)
+    if case == "misaligned":
+        flat = torch.empty(args[1].numel() + 1, device=cuda)
+        flat[1:] = args[1].reshape(-1)
+        args[1] = flat[1:].view(args[1].shape)
+        assert args[1].data_ptr() % 16 and args[1].is_contiguous()
     R = len(rowptr) - 1
     g = torch.from_numpy(rng.randn(R, heads * channels).astype(
         np.float32)).to(cuda)
     fwd, bwd = segment_softmax_spmm.launches, segment_softmax_spmm_bwd.launches
     got = segment_softmax_spmm_fwd(*args)
-    [want] = spmm_reference(args)
-    got_b = segment_softmax_spmm_bwd(*args, g)
+    want = spmm_reference(args)
+    got_b = segment_softmax_spmm_bwd(*args, *got, g)
     want_b = spmm_reference(args, g)
+    again = segment_softmax_spmm_fwd(*args)
+    again_b = segment_softmax_spmm_bwd(*args, *again, g)
     torch.cuda.synchronize()
-    launched = int(len(idx) > 0 and R > 0)
-    assert segment_softmax_spmm.launches == fwd + launched
-    assert segment_softmax_spmm_bwd.launches == bwd + launched
-    assert got.shape == want.shape == (R, heads * channels)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert segment_softmax_spmm.launches == fwd + 2 * int(R > 0)
+    assert segment_softmax_spmm_bwd.launches == bwd + 2 * int(
+        len(idx) > 0 and R > 0)
+    assert got[0].shape == want[0].shape == (R, heads * channels)
+    for name, a, b in zip(("out", "row_max", "row_inv"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
     empty_rows = torch.from_numpy(np.diff(rowptr) == 0).to(cuda)
-    assert (got[empty_rows] == 0).all()
+    for t in got:
+        assert (t[empty_rows] == 0).all()
     for name, a, b in zip(("d_logits", "d_values"), got_b, want_b):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
     listed = torch.zeros(M, dtype=torch.bool, device=cuda)
     listed[args[3].long()] = True
     assert (got_b[0][~listed] == 0).all() and (got_b[1][~listed] == 0).all()
+    for a, b in zip(list(got) + list(got_b), list(again) + list(again_b)):
+        assert torch.equal(a, b)
 
 
 def test_spmm_function_gradients_match_cpu(cuda):
@@ -279,8 +323,9 @@ def test_spmm_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="exceeds its maximum"):
         segment_softmax_spmm(*args)
     g = torch.zeros((len(rowptr) - 1, 513), device=cuda)
+    stats = [torch.zeros((len(rowptr) - 1, 1), device=cuda)] * 2
     with pytest.raises(ValueError, match="exceeds its maximum"):
-        segment_softmax_spmm_bwd(*args, g)
+        segment_softmax_spmm_bwd(*args, g, *stats, g)
     args = spmm_inputs(rng, rowptr, idx, M, 1, 60, cuda)
     bad = list(args)
     bad[1] = bad[1].T.contiguous().T                 # not contiguous
@@ -294,6 +339,10 @@ def test_spmm_kernel_rejects_what_it_cannot_take(cuda):
     bad[0] = bad[0].double()                         # float64 logits
     with pytest.raises(TypeError, match="logits"):
         segment_softmax_spmm(*bad)
+    g = torch.zeros((len(rowptr) - 1, 60), device=cuda)
+    stats = [torch.zeros((len(rowptr) - 1, 1), device=cuda)] * 2
+    with pytest.raises(ValueError, match="row_inv has shape"):
+        segment_softmax_spmm_bwd(*args, g, stats[0], stats[1][:-1], g)
 
 
 @pytest.mark.parametrize("block,readout", [
