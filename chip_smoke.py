@@ -11,19 +11,22 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      (one ``nvcc`` per source, all started together);
   3. kernel phase: each kernel against its plain torch version on the
      card, device times (median of CUDA-event timings) beside the bound:
-     kernel A (the triplet-attention forward) at the serving path's
-     shapes (a padded 128-molecule demo batch), kernels A and B (its
-     backward) on a random batch with empty rows and a receiver of
-     in-degree 500; kernel C (segment softmax + SpMM, forward and
+     kernel A (the triplet-attention forward, with its row statistics)
+     at the serving path's shapes (a padded 128-molecule demo batch),
+     kernels A and B (its backward, fed A's output and statistics) on a
+     random batch with empty rows and a receiver of in-degree 500, at
+     H*C = 180 and 512; kernel C (segment softmax + SpMM, forward and
      backward, held against its plain version in float64) at the
      serving path's TripletMessageLight and Set2Set calls (the last
      node's padded edges and the padding graph are rows of ~44,000 and
      ~13,800 entries) and on random CSRs with empty rows and a
-     5,000-entry row at (H, C) = (3, 16) and H*C = 512; each kernel C
-     call must give bitwise the same results twice and be one device
-     kernel (the backward with unlisted entries also zero-fills): the
-     calls of every kernel C check of the run are traced at its end, in
-     one fresh process, and the kernel C lines printed then;
+     5,000-entry row at (H, C) = (3, 16) and H*C = 512; each call must
+     give bitwise the same results twice (B: d_eh, d_pre and d_a_i; its
+     d_xp is summed with atomics) and run the device kernels its design
+     states (A one; B two, the d_xp fill and the kernel; C one each way,
+     the backward with unlisted entries also zero-filling): the calls of
+     every kernel check of the run are traced at its end, in one fresh
+     process, and the kernel lines printed then;
   4. serving phase: the flagship model (TripletMessage H=3 C=60, 3 steps,
      GlobalPool5, e_dim 1024, random weights from seed 0) saved and
      served by ``Predictor(device="cuda")`` for three requests (the whole
@@ -263,7 +266,8 @@ def triplet_bound_ms(args, H, C):
     """Least time for the work: each needed input byte read once (the
     sender rows of xp and a_j, the rows of a_i with edges, the real edges'
     features and the CSR), the [N, H*C] output written once; against the
-    flops of the real edges.  Returns (ms, 'bytes' or 'operations')."""
+    flops of the real edges.  Returns (ms, 'bytes' or 'operations', ms
+    with the bytes of the row statistics the design adds)."""
     import torch
     xp, a_i, a_j, edge_attr, we, wemat, rowptr, csr_snd, csr_eid = args
     N, hc, fe, E = xp.shape[0], H * C, edge_attr.shape[1], csr_snd.shape[0]
@@ -276,8 +280,11 @@ def triplet_bound_ms(args, H, C):
                   + we.numel() + wemat.numel())
     flops = E * (2 * fe * hc + 3 * hc + 2 * fe * H + 8 * H)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    # the design's [N, H] row statistics, written beside the output
+    t_stats = (nbytes + 4 * N * 2 * H) / HBM_BYTES_PER_S
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * max(t_stats, t_ops))
 
 
 def triplet_bwd_bound_ms(args, H, C):
@@ -285,7 +292,8 @@ def triplet_bwd_bound_ms(args, H, C):
     g and a_i rows of receivers with edges, the real edges' features and
     the CSR read once; d_xp [N, H*C], d_eh [E, H*C], d_pre [E, H] and
     d_a_i [N, H] written once; against the flops of the real edges.
-    Returns (ms, 'bytes' or 'operations')."""
+    Returns (ms, 'bytes' or 'operations', ms with the bytes of the
+    forward's output and row statistics that the design reads)."""
     import torch
     xp, a_i, a_j, edge_attr, we, wemat, rowptr, csr_snd, csr_eid = args
     N, hc, fe = xp.shape[0], H * C, edge_attr.shape[1]
@@ -299,8 +307,12 @@ def triplet_bwd_bound_ms(args, H, C):
     flops = E_real * (2 * fe * hc + 2 * fe * H + 10 * hc + 2 * H * hc
                       + 12 * H)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    # the design's reads of the forward's output and row statistics at the
+    # rows with edges
+    t_stats = (nbytes + 4 * rows * (hc + 2 * H)) / HBM_BYTES_PER_S
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            1e3 * max(t_stats, t_ops))
 
 
 def _errors(got, want):
@@ -312,11 +324,16 @@ def _errors(got, want):
             float((err / want.abs().clamp(min=1.0)).max()))
 
 
-def check_kernel(which, name, csr, rng, dev, H=3, C=60):
-    """Kernel A (``which`` 'fwd') or B ('bwd') against its plain version
-    on the card, on random inputs drawn from ``rng`` around ``csr``:
-    prints the errors and the median device times beside the bound, and
-    fails on disagreement.  Returns that line's numbers."""
+def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
+    """Kernel A (``which`` 'fwd': the output and the row statistics) or B
+    ('bwd', fed kernel A's output and statistics) against its plain version
+    (fed the plain forward's) on the card, on random inputs drawn from
+    ``rng`` around ``csr``: the errors, whether two calls are bitwise equal
+    (A's outputs; B's d_eh, d_pre and d_a_i: d_xp is summed with atomics),
+    and the median device times beside the bound.  Fails on disagreement
+    or on results that differ between calls.  The device kernels of one
+    call are traced at the end of the run (:func:`report_traced`), which
+    prints the line.  Returns that line's numbers."""
     import numpy as np
     import torch
     from glam_tpu_torch.ops.kernels.triplet_fused import (
@@ -330,19 +347,24 @@ def check_kernel(which, name, csr, rng, dev, H=3, C=60):
         kname = "triplet_fused_fwd"
         run = lambda: triplet_attention_fwd(*args, H, C)  # noqa: E731
         plain = lambda: triplet_attention_plain(*args, H, C)  # noqa: E731
-        got, want = [run()], [plain()]
-        ok = bool((got[0][empty] == 0).all())
-        bound, bound_by = triplet_bound_ms(args, H, C)
+        got, want, again = run(), plain(), run()
+        ok = all(bool((t[empty] == 0).all()) for t in got)
+        bound, bound_by, design = triplet_bound_ms(args, H, C)
     else:
         kname = "triplet_fused_bwd"
         g = torch.from_numpy(rng.randn(N, H * C).astype(np.float32)).to(dev)
-        run = lambda: triplet_attention_bwd(*args, g, H, C)  # noqa: E731
+        stats = triplet_attention_fwd(*args, H, C)
+        plain_stats = triplet_attention_plain(*args, H, C)
+        run = lambda: triplet_attention_bwd(  # noqa: E731
+            *args, *stats, g, H, C)
         plain = lambda: triplet_attention_bwd_plain(  # noqa: E731
-            *args, g, H, C)
-        got, want = run(), plain()
+            *args, *plain_stats, g, H, C)
+        got, want, again = run(), plain(), run()
         ok = bool((got[3][empty] == 0).all())
-        bound, bound_by = triplet_bwd_bound_ms(args, H, C)
+        bound, bound_by, design = triplet_bwd_bound_ms(args, H, C)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in
+               zip(got[which == "bwd":], again[which == "bwd":]))
     errs = [_errors(a, b) for a, b in zip(got, want)]
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
@@ -350,17 +372,28 @@ def check_kernel(which, name, csr, rng, dev, H=3, C=60):
                     for a, b in zip(got, want))
     k_ms = device_ms(run)
     p_ms = device_ms(plain, reps=20, sleep_cycles=20_000_000)
-    print(f"kernel {kname} [{name}] N={N} E={args[3].shape[0]} "
-          f"E_real={E} H={H} C={C}: max_abs_err={max_abs:.3e} "
-          f"max_rel_err={max_rel:.3e} (tol {TOL}) "
-          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"bound_ms={bound:.4f} ({bound_by}) "
-          f"share_of_bound={bound / k_ms:.3f}")
+    longest = int(np.diff(csr[0]).max()) if N else 0
+    line = (f"kernel {kname} [{name}] N={N} E={args[3].shape[0]} "
+            f"E_real={E} H={H} C={C} longest_row={longest}: "
+            f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
+            f"(tol {TOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+            f"bound_ms={bound:.4f} ({bound_by}) "
+            f"share_of_bound={bound / k_ms:.3f} "
+            f"bound_with_row_stats_ms={design:.4f}")
     if not ok:
+        print(line)
         fail(f"{kname} disagrees with its plain version on {name}: "
              f"max_abs_err {max_abs}")
-    return {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    if not same:
+        print(line)
+        fail(f"{kname} on {name}: two calls differ")
+    out = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_with_row_stats_ms": design, "deterministic": same,
+           "line": f"{line} deterministic={same} ({card})"}
+    TRACED.append(("triplet", which, name, [t.cpu() for t in args], (H, C),
+                   out))
+    return out
 
 
 def spmm_reference(args, g=None):
@@ -408,17 +441,19 @@ def device_kernels(fn, calls: int = 4, tries: int = 5):
 
 
 def traced_kernels(cases):
-    """The device kernels of one forward and one backward call of kernel
-    C on each of ``cases`` (lists of its arguments), each from a profiler
-    trace (:func:`device_kernels`), all taken in one fresh process
+    """The device kernels of one call of each of ``cases`` ((kind, which,
+    arguments, (H, C)): kind 'spmm' for kernel C, 'triplet' for kernels A
+    and B; which 'fwd', 'bwd' or 'both'), each from a profiler trace
+    (:func:`device_kernels`), all taken in one fresh process
     (``chip_smoke.py --trace``): in this one, once the training runs had
     run, traces lost device records (3 of 4 kernels, or none, on the
     H100).  Returns [{'fwd': names, 'bwd': names}] in the order of
-    ``cases``."""
+    ``cases``, with the directions each case asks for."""
     import torch
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "calls.pt"
-        torch.save([[t.cpu() for t in args] for args in cases], path)
+        torch.save([(kind, which, [t.cpu() for t in args], widths)
+                    for kind, which, args, widths in cases], path)
         proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                                "--trace", str(path)], capture_output=True,
                               text=True, timeout=600)
@@ -428,28 +463,45 @@ def traced_kernels(cases):
 
 
 def trace_main(path):
-    """``chip_smoke.py --trace FILE``: kernel C's forward and backward on
-    the card on each list of inputs saved in FILE, each traced by
-    :func:`device_kernels`; prints [{'fwd': names, 'bwd': names}]."""
+    """``chip_smoke.py --trace FILE``: each call saved in FILE (see
+    :func:`traced_kernels`) on the card, traced by :func:`device_kernels`
+    (a backward from its forward's results, with g all ones); prints
+    [{'fwd': names, 'bwd': names}]."""
     import torch
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
         segment_softmax_spmm_bwd, segment_softmax_spmm_fwd)
+    from glam_tpu_torch.ops.kernels.triplet_fused import (
+        triplet_attention_bwd, triplet_attention_fwd)
     traced = []
-    for saved in torch.load(path):
+    for kind, which, saved, (H, C) in torch.load(path):
         args = [t.cuda() for t in saved]
-        g = torch.ones(args[2].shape[0] - 1, args[1].shape[1], device="cuda")
-        stats = segment_softmax_spmm_fwd(*args)
-        traced.append({
-            "fwd": device_kernels(lambda: segment_softmax_spmm_fwd(*args)),
-            "bwd": device_kernels(
-                lambda: segment_softmax_spmm_bwd(*args, *stats, g))})
+        if kind == "spmm":
+            g = torch.ones(args[2].shape[0] - 1, args[1].shape[1],
+                           device="cuda")
+            fwd = lambda: segment_softmax_spmm_fwd(*args)  # noqa: E731
+            stats = fwd()
+            bwd = lambda: segment_softmax_spmm_bwd(  # noqa: E731
+                *args, *stats, g)
+        else:
+            g = torch.ones(args[0].shape[0], H * C, device="cuda")
+            fwd = lambda: triplet_attention_fwd(*args, H, C)  # noqa: E731
+            stats = fwd()
+            bwd = lambda: triplet_attention_bwd(  # noqa: E731
+                *args, *stats, g, H, C)
+        traced.append({w: device_kernels(fn) for w, fn in
+                       (("fwd", fwd), ("bwd", bwd))
+                       if which in (w, "both")})
     print(json.dumps(traced))
 
 
-# every kernel C check of the run, in order: (call name, its arguments on
-# the CPU, {'fwd': numbers, 'bwd': numbers}); the device kernels of each
-# call are traced at the end of the run (:func:`report_spmm`)
-SPMM_CHECKS = []
+# every kernel check of the run whose device kernels are traced at its
+# end (:func:`report_traced`), in order: (kind, which, call name, its
+# arguments on the CPU, (H, C), the numbers or {'fwd': ..., 'bwd': ...})
+TRACED = []
+# device kernels a call must run: kernel A one; kernel B two, the zero
+# fill of d_xp (summed into with atomics) and the kernel; kernel C one
+# each way (a backward with unlisted entries also zero-fills)
+TRIPLET_KERNELS = {"fwd": 1, "bwd": 2}
 
 
 def check_spmm(which, name, args, dev, card):
@@ -461,7 +513,7 @@ def check_spmm(which, name, args, dev, card):
     float32 plain version beside the bound.  Fails on disagreement or on
     results that differ between calls.  Returns that line's numbers and,
     under 'line', its text without the device kernels, which
-    :func:`report_spmm` adds and prints."""
+    :func:`report_traced` adds and prints."""
     import numpy as np
     import torch
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
@@ -516,27 +568,35 @@ def check_spmm(which, name, args, dev, card):
 
 def check_spmm_both(name, args, dev, card):
     out = {w: check_spmm(w, name, args, dev, card) for w in ("fwd", "bwd")}
-    SPMM_CHECKS.append((name, [t.cpu() for t in args], out))
+    TRACED.append(("spmm", "both", name, [t.cpu() for t in args], (0, 0),
+                   out))
     return out
 
 
-def report_spmm():
-    """Trace the device kernels of one call of each kernel C check of the
-    run (:func:`traced_kernels`, one process for all), print each check's
-    line with them, and fail unless each forward call, and each backward
-    call with every entry listed (S == M), is one kernel (a backward with
-    unlisted entries also zero-fills its outputs)."""
-    traced = traced_kernels([args for _, args, _ in SPMM_CHECKS])
-    for (name, args, out), kernels in zip(SPMM_CHECKS, traced):
-        S, M = args[3].shape[0], args[0].shape[0]
-        for w in ("fwd", "bwd"):
-            r, k = out[w], kernels[w]
+def report_traced():
+    """Trace the device kernels of one call of each check of the run
+    (:func:`traced_kernels`, one process for all), print each check's line
+    with them, and fail unless each call runs the kernels its design
+    states: kernel A one, kernel B two (:data:`TRIPLET_KERNELS`), kernel
+    C's forward one and its backward one with every entry listed (S == M;
+    it also zero-fills where some are not)."""
+    traced = traced_kernels([(kind, which, args, widths) for
+                             kind, which, _, args, widths, _ in TRACED])
+    for (kind, which, name, args, _, out), kernels in zip(TRACED, traced):
+        for w, k in kernels.items():
+            r = out[w] if kind == "spmm" else out
             r["device_kernels"] = len(k)
             head, tail = r.pop("line").split(" deterministic=")
             print(f"{head} device_kernels={len(k)} {k} deterministic={tail}")
-            if len(k) != (1 if w == "fwd" or S == M else 2):
-                fail(f"segment_softmax_spmm_{w} on {name}: one call ran "
-                     f"{len(k)} device kernels {k}")
+            if kind == "spmm":
+                want = 1 if w == "fwd" or args[3].shape[0] == args[0].shape[
+                    0] else 2
+                kname = f"segment_softmax_spmm_{w}"
+            else:
+                want, kname = TRIPLET_KERNELS[w], f"triplet_fused_{w}"
+            if len(k) != want:
+                fail(f"{kname} on {name}: one call ran {len(k)} device "
+                     f"kernels {k}, not {want}")
 
 
 def check_spmm_calls(prefix, batch, block, readout, hid, rng, dev, card):
@@ -566,7 +626,8 @@ def check_spmm_calls(prefix, batch, block, readout, hid, rng, dev, card):
 
 def kernel_phase(dev, demo, card):
     """Kernels A and B on the serving path's batch and on a random batch
-    with empty rows and an in-degree-500 hub; kernel C at the serving
+    with empty rows and an in-degree-500 hub (also at H*C = 512 with 8
+    heads); kernel C at the serving
     path's calls (TripletMessageLight over every edge slot, the last
     node's padded edges one long row; Set2Set over the graphs of a
     128-molecule batch at the pinned budgets, its padding graph one long
@@ -578,11 +639,14 @@ def kernel_phase(dev, demo, card):
     rng = np.random.RandomState(0)
     hub = random_csr(rng)
     out = {"fwd": {"serve": check_kernel("fwd", "demo128", demo_csr(demo),
-                                         rng, dev),
+                                         rng, dev, card),
                    "hub": check_kernel("fwd", "random_hub_empty", hub, rng,
-                                       dev)},
+                                       dev, card)},
            "bwd": {"hub": check_kernel("bwd", "random_hub_empty", hub, rng,
-                                       dev)}}
+                                       dev, card)}}
+    for w in ("fwd", "bwd"):      # H*C = 512, 8 heads
+        out[w]["h8_c64"] = check_kernel(w, "random_h8_c64", hub, rng, dev,
+                                        card, 8, 64)
     spmm = check_spmm_calls("serve", demo_batch(demo), "_TripletMessageLight",
                             "Set2Set", 60, rng, dev, card)
     for H, C in ((3, 16), (8, 64)):
@@ -863,7 +927,7 @@ def training_phase(dev, card, tmp):
     batch = next(iter(trainer.train_loader))
     rng = np.random.RandomState(1)
     csr = batch_csr(batch)
-    kern = {w: check_kernel(w, "train_batch", csr, rng, dev)
+    kern = {w: check_kernel(w, "train_batch", csr, rng, dev, card)
             for w in ("fwd", "bwd")}
     function_on_card_vs_cpu(dev, csr, rng)
     grads_card_vs_cpu(trainer, cfg, batch, dev)
@@ -1047,7 +1111,8 @@ def per_launch(calls):
     bound."""
     total = sum(w for w, _ in calls.values())
     out = {key: sum(w * r[key] for w, r in calls.values()) / total
-           for key in ("ms", "plain_ms", "bound_ms")}
+           for key in ("ms", "plain_ms", "bound_ms",
+                       "bound_with_row_stats_ms")}
     out["bound_by"] = max(calls.values(),
                           key=lambda wr: wr[0] * wr[1]["bound_ms"])[1][
                               "bound_by"]
@@ -1131,7 +1196,7 @@ def main() -> None:
                                                           demo)
         gat_trained, kern_gat = gat_phase(dev, card, tmp)
         default_phase(dev, tmp)
-    report_spmm()
+    report_traced()
 
     # each kernel's calls on each path: {path: {call: (launches per
     # forward, the numbers measured at that call's shapes)}}; then the
@@ -1151,8 +1216,10 @@ def main() -> None:
             "train_gat_lapool": {"gat": (3, kern_gat["gat"][w]),
                                  "lapool": (1, kern_gat["lapool"][w])}}
     del calls["segment_softmax_spmm_bwd"]["serve_light_set2set"]
-    off_path = {"triplet_fused_fwd": [kern["fwd"]["hub"]],
-                "triplet_fused_bwd": [kern["bwd"]["hub"]],
+    off_path = {"triplet_fused_fwd": [kern["fwd"]["hub"],
+                                      kern["fwd"]["h8_c64"]],
+                "triplet_fused_bwd": [kern["bwd"]["hub"],
+                                      kern["bwd"]["h8_c64"]],
                 **{f"segment_softmax_spmm_{w}": [
                     r[w] for case, r in spmm.items()
                     if case.startswith("random")] for w in ("fwd", "bwd")}}
@@ -1208,12 +1275,11 @@ def main() -> None:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None, "by_path": by_path,
+            "bound_with_row_stats_ms": k["bound_with_row_stats_ms"],
+            "device_kernels_per_call": max(
+                r["device_kernels"] for r in checked),
+            "deterministic": all(r["deterministic"] for r in checked),
         })
-        if name.startswith("segment_softmax_spmm"):
-            kernels[-1]["device_kernels_per_call"] = max(
-                r["device_kernels"] for r in checked)
-            kernels[-1]["deterministic"] = all(
-                r["deterministic"] for r in checked)
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

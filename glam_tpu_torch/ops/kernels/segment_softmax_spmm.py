@@ -45,8 +45,7 @@ import functools
 import torch
 
 from ..segment import csr_rows, segment_sum
-from . import build
-from .triplet_fused import _check
+from . import build, common
 
 _EPS = 1e-16
 
@@ -118,11 +117,6 @@ def block_warps(slots: int, sms: int, rows: int | None = None) -> int:
 
 
 @functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.cache
 def _bind(name: str, prefix: str, n_ptrs: int, n_ints: int):
     """Load kernel source ``name`` and type its launch ``prefix``
     (``n_ptrs`` pointers, ``n_ints`` ints, stream).  Returns (the launch,
@@ -153,7 +147,7 @@ def _check_inputs(limits, logits, values, rowptr, idx, extra=()):
               ("rowptr", rowptr, i32, (R + 1,)), ("idx", idx, i32, (S,))]
     checks += [(name, t, f32, shape) for name, t, shape in extra]
     for name, t, dtype, shape in checks:
-        _check(name, t, dev, dtype, shape)
+        common.check(name, t, dev, dtype, shape)
     max_hc, max_heads = limits
     if hc > max_hc or H > max_heads:
         raise ValueError(f"segment_softmax_spmm kernel: H*C = {hc}, heads = "
@@ -164,42 +158,11 @@ def _check_inputs(limits, logits, values, rowptr, idx, extra=()):
     return R, S, hc, H, hc // H
 
 
-_TICKETS = {}
-
-
-def _tickets(dev, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 tickets for kernels on ``stream``: one
-    buffer per device and stream, zeroed when made or grown (the kernels
-    leave it zeroed), so a call needs no fill."""
-    key = (dev.index, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 1024),), device=dev, dtype=torch.int32)
-        _TICKETS[key] = buf
-    return buf
-
-
 def _copy_mode(hc: int, *rows) -> int:
     """The kernels' CopyMode for gathering rows of ``hc`` floats of
     ``rows``: 1 (cp.async.bulk) where the rows are a multiple of 16 bytes
     at 16-byte-aligned addresses, else 0 (4-byte cp.async)."""
-    return int(hc % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
-
-
-def _run(launch, name, dev, args, stream):
-    """Call ``launch(*args, stream)`` with ``dev`` current; raise on a
-    launch error."""
-    if dev.index == torch.cuda.current_device():
-        err = launch(*args, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = launch(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with cudaError {err}")
-
-
-def _up4(n: int) -> int:
-    return (n + 3) & ~3
+    return int(hc % 4 == 0 and common.aligned(*rows))
 
 
 def _launch_fwd(logits, values, rowptr, idx):
@@ -208,13 +171,13 @@ def _launch_fwd(logits, values, rowptr, idx):
     R, S, hc, H, C = _check_inputs((max_hc, max_heads), logits, values,
                                    rowptr, idx)
     dev = logits.device
-    warps = block_warps(S, _sms(dev.index), R)
+    warps = block_warps(S, common.sms(dev.index), R)
     blocks = max(1, -(-S // (32 * warps)))
     # one allocation: out [R, H*C], row_max, row_inv [R, H] and the
     # per-block states of rows crossing blocks [blocks, 2, sw], each part
     # 16-byte aligned
-    sizes = [_up4(R * hc), _up4(R * H), _up4(R * H),
-             blocks * 2 * _up4(hc + 2 * H)]
+    sizes = [common.up4(R * hc), common.up4(R * H), common.up4(R * H),
+             blocks * 2 * common.up4(hc + 2 * H)]
     buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
     out, row_max, row_inv, part = buf.split(sizes)
     out, row_max, row_inv = (out[:R * hc].view(R, hc),
@@ -223,8 +186,8 @@ def _launch_fwd(logits, values, rowptr, idx):
     if R == 0:
         return out, row_max, row_inv
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tickets(dev, stream, blocks)
-    _run(launch, "segment_spmm_fwd", dev, (
+    tickets = common.tickets(dev, stream, blocks)
+    common.run(launch, "segment_spmm_fwd", dev, (
         logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
         idx.data_ptr(), out.data_ptr(), row_max.data_ptr(),
         row_inv.data_ptr(), part.data_ptr(), tickets.data_ptr(), R, S, hc,
@@ -246,18 +209,19 @@ def _launch_bwd(logits, values, rowptr, idx, out, row_max, row_inv, g):
     # listed once and the kernel writes all of them.  d_values first, so
     # that it is 16-byte aligned
     alloc = torch.empty if S == M else torch.zeros
-    grads = alloc((_up4(M * hc) + M * H,), device=dev, dtype=torch.float32)
+    at = common.up4(M * hc)
+    grads = alloc((at + M * H,), device=dev, dtype=torch.float32)
     d_values = grads[:M * hc].view(M, hc)
-    d_logits = grads[_up4(M * hc):].view(M, H)
+    d_logits = grads[at:].view(M, H)
     if R == 0 or S == 0:
         return d_logits, d_values
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _run(launch, "segment_spmm_bwd", dev, (
+    common.run(launch, "segment_spmm_bwd", dev, (
         logits.data_ptr(), values.data_ptr(), rowptr.data_ptr(),
         idx.data_ptr(), out.data_ptr(), g.data_ptr(), row_max.data_ptr(),
         row_inv.data_ptr(), d_logits.data_ptr(), d_values.data_ptr(), R, S,
         hc, H, C, _copy_mode(hc, values, g, out),
-        block_warps(S, _sms(dev.index))), stream)
+        block_warps(S, common.sms(dev.index))), stream)
     segment_softmax_spmm_bwd.launches += 1
     return d_logits, d_values
 

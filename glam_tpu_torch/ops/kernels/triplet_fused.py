@@ -5,10 +5,18 @@ Kernel A (``glam_tpu_torch/csrc/triplet_fused.cu``) is the forward; it
 replaces the Pallas TPU kernel ``_fwd_kernel`` of the JAX package
 (``glam_tpu/ops/pallas/triplet_fused.py:236``).  Kernel B
 (``glam_tpu_torch/csrc/triplet_fused_bwd.cu``) is the backward; it
-replaces ``_bwd_kernel`` (same file, :296).  Both walk a receiver-sorted
-CSR of the real edges, one warp per receiver row, and are bounded by
-memory traffic.  The backward recomputes the forward, as the TPU kernel
-does: nothing but the inputs is kept between the two.
+replaces ``_bwd_kernel`` (same file, :296).  Both take a receiver-sorted
+CSR of the real edges: a row of 1-32 edges is one warp's, a longer row is
+cut into 32-edge chunks over warps and merged in CSR order
+(``csrc/triplet_common.cuh``); both are bounded by memory traffic.
+
+The forward also gives each row's softmax statistics, ``row_max`` [N, H]
+and ``row_inv`` = 1 / (sum of exp + 1e-16) [N, H] (both 0 for an empty
+row).  The backward takes them and the forward's output, whose dot with
+the cotangent is the softmax backward's row sum, so it computes each
+edge's gradient in one pass without recomputing the softmax; the
+``autograd.Function`` keeps the inputs, the output and the statistics
+between the two.
 
 ``triplet_attention`` is the differentiable op (the Function's
 ``apply``).  CPU tensors run the plain versions; CUDA tensors run the
@@ -22,19 +30,23 @@ import functools
 
 import torch
 
-from ..segment import csr_rows, segment_softmax, segment_sum
-from . import build
+from ..segment import csr_rows, segment_sum
+from . import build, common
 
-_SMEM_LIMIT = 48 * 1024   # shared memory without an opt-in attribute
+_EPS = 1e-16
+_SMEM_LIMIT = 232448   # shared memory a block can use on Hopper
 
 
-def _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv, snd, eid, num_heads,
-               slope):
-    """The recomputed forward of the CSR edges: (eh, pre_raw, alpha)."""
-    eh = edge_attr[eid] @ we                                  # [E, H*C]
-    pre_raw = a_i[rcv] + eh @ wemat + a_j[snd]                # [E, H]
+def _logits(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
+            csr_eid, slope):
+    """The CSR edges' rows, senders, projections eh [E, H*C] and raw and
+    leaky-ReLU logits [E, H]."""
+    rcv = csr_rows(csr_rowptr, csr_snd.shape[0])
+    snd = csr_snd.long()
+    eh = edge_attr[csr_eid.long()] @ we
+    pre_raw = a_i[rcv] + eh @ wemat + a_j[snd]
     pre = torch.where(pre_raw >= 0, pre_raw, slope * pre_raw)
-    return eh, pre_raw, segment_softmax(pre, rcv, xp.shape[0])
+    return rcv, snd, eh, pre_raw, pre
 
 
 def triplet_attention_plain(xp, a_i, a_j, edge_attr, we, wemat,
@@ -47,42 +59,55 @@ def triplet_attention_plain(xp, a_i, a_j, edge_attr, we, wemat,
     features in original edge order, we [Fe, H*C], wemat [H*C, H]
     (a_e = (edge_attr @ we) @ wemat), and the receiver-sorted CSR of the
     real edges: csr_rowptr [N+1], csr_snd [E_real], csr_eid [E_real]
-    (int32).  Returns [N, H*C]."""
-    rcv = csr_rows(csr_rowptr, csr_snd.shape[0])
-    snd = csr_snd.long()
-    eh, _, alpha = _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv, snd,
-                              csr_eid.long(), num_heads, slope)
-    alpha_full = alpha.repeat_interleave(channels, dim=1)
-    return segment_sum(alpha_full * eh * xp[snd], rcv, xp.shape[0])
+    (int32).  Returns (out [N, H*C], row_max [N, H], row_inv [N, H]): the
+    rows' largest logit and 1 / (sum of exp(logit - max) + 1e-16), both 0
+    for an empty row."""
+    N, C = xp.shape[0], channels
+    rcv, snd, eh, _, pre = _logits(xp, a_i, a_j, edge_attr, we, wemat,
+                                   csr_rowptr, csr_snd, csr_eid, slope)
+    row_max = pre.new_full((N, num_heads), -torch.inf).index_reduce_(
+        0, rcv, pre, "amax", include_self=True)
+    nonempty = (csr_rowptr[1:] > csr_rowptr[:-1])[:, None]
+    row_max = torch.where(nonempty, row_max, torch.zeros_like(row_max))
+    ex = torch.exp(pre - row_max[rcv])
+    row_inv = torch.where(nonempty, 1.0 / (segment_sum(ex, rcv, N) + _EPS),
+                          torch.zeros_like(row_max))
+    alpha = (ex * row_inv[rcv]).repeat_interleave(C, dim=1)
+    out = segment_sum(alpha * eh * xp[snd], rcv, N)
+    return out, row_max, row_inv
 
 
 def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
-                                csr_rowptr, csr_snd, csr_eid, g,
-                                num_heads: int, channels: int,
+                                csr_rowptr, csr_snd, csr_eid, out, row_max,
+                                row_inv, g, num_heads: int, channels: int,
                                 slope: float = 0.2):
-    """The backward kernel's function in plain torch, written out as
-    ``_bwd_kernel`` computes it (not by autograd).
+    """The backward kernel's function in plain torch, written out as the
+    kernel computes it (not by autograd).
 
-    Arguments as for :func:`triplet_attention_plain`, plus the output's
-    cotangent g [N, H*C].  Returns (d_xp [N, H*C], d_eh [E, H*C],
-    d_pre [E, H], d_a_i [N, H]): d_eh and d_pre are the cotangents of the
-    edge projection eh = edge_attr @ we and of the attention logit before
-    the leaky ReLU, in original edge order, zero for edges outside the
-    CSR (padding)."""
+    Arguments as for :func:`triplet_attention_plain`, plus its results
+    out, row_max and row_inv and the output's cotangent g [N, H*C].
+    Returns (d_xp [N, H*C], d_eh [E, H*C], d_pre [E, H], d_a_i [N, H]):
+    d_eh and d_pre are the cotangents of the edge projection
+    eh = edge_attr @ we and of the attention logit before the leaky ReLU,
+    in original edge order, zero for edges outside the CSR (padding)."""
     H, C = num_heads, channels
     N, E = xp.shape[0], edge_attr.shape[0]
-    rcv = csr_rows(csr_rowptr, csr_snd.shape[0])
-    snd, eid = csr_snd.long(), csr_eid.long()
-    eh, pre_raw, alpha = _attention(xp, a_i, a_j, edge_attr, we, wemat, rcv,
-                                    snd, eid, H, slope)
+    rcv, snd, eh, pre_raw, pre = _logits(xp, a_i, a_j, edge_attr, we,
+                                         wemat, csr_rowptr, csr_snd,
+                                         csr_eid, slope)
+    alpha = torch.exp(pre - row_max[rcv]) * row_inv[rcv]      # [E, H]
     xj, grcv = xp[snd], g[rcv]
     dvalues = alpha.repeat_interleave(C, dim=1) * grcv        # [E, H*C]
     dalpha = (eh * xj * grcv).view(-1, H, C).sum(-1)          # [E, H]
-    # softmax backward: dpre = alpha * (dalpha - sum_row alpha * dalpha)
-    row = segment_sum(alpha * dalpha, rcv, N)[rcv]
-    dpre = alpha * (dalpha - row)
+    # softmax backward: dpre = alpha * (dalpha - sum_row alpha * dalpha),
+    # the row sum being <g[r], out[r]> per head, summed in float64: dpre
+    # subtracts it from dalpha, which cancels digits
+    row_d = (g.double() * out.double()).view(N, H, C).sum(-1)
+    row_d = row_d.to(g.dtype)[rcv]
+    dpre = alpha * (dalpha - row_d)
     dpre = dpre * torch.where(pre_raw >= 0, 1.0, slope).to(dpre.dtype)
     d_xp = segment_sum(dvalues * eh, snd, N)                  # to senders
+    eid = csr_eid.long()
     d_eh = xp.new_zeros((E, H * C))
     d_eh[eid] = dvalues * xj + dpre @ wemat.T
     d_pre = xp.new_zeros((E, H))
@@ -91,41 +116,32 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
 
 
 @functools.cache
-def _bind(name: str, prefix: str, launch: str, n_ptrs: int) -> ctypes.CDLL:
-    """Load kernel source ``name`` and type its C entry points: the launch
-    ``launch`` (``n_ptrs`` pointers, N, H*C, H, C, Fe, slope, blocks,
-    stream) and the ``{prefix}_*`` queries of its limits."""
+def _bind(name: str, prefix: str, launch: str, n_ptrs: int, n_ints: int):
+    """Load kernel source ``name`` and type its launch ``launch``
+    (``n_ptrs`` pointers, ``n_ints`` ints, slope, vec, stream).  Returns
+    (the launch, (its largest H*C, its most heads, its most edge features,
+    its shared-memory query))."""
     lib = build.load(name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    getattr(lib, launch).argtypes = ([ptr] * n_ptrs + [i32] * 5
-                                     + [ctypes.c_float, i32, ptr])
-    getattr(lib, launch).restype = i32
-    for fn in ("max_hc", "max_heads", "warps_per_block"):
-        getattr(lib, f"{prefix}_{fn}").argtypes = []
-        getattr(lib, f"{prefix}_{fn}").restype = i32
-    getattr(lib, f"{prefix}_blocks_per_sm").argtypes = [i32] * 4
-    getattr(lib, f"{prefix}_blocks_per_sm").restype = i32
-    getattr(lib, f"{prefix}_smem_bytes").argtypes = [i32] * 3
-    getattr(lib, f"{prefix}_smem_bytes").restype = ctypes.c_longlong
-    return lib
+    fn = getattr(lib, launch)
+    fn.argtypes = [ptr] * n_ptrs + [i32] * n_ints + [ctypes.c_float, i32,
+                                                      ptr]
+    fn.restype = i32
+    limits = []
+    for q in ("max_hc", "max_heads", "max_fe"):
+        query = getattr(lib, f"{prefix}_{q}")
+        query.argtypes, query.restype = [], i32
+        limits.append(query())
+    smem = getattr(lib, f"{prefix}_smem_bytes")
+    smem.argtypes, smem.restype = [i32] * 3, ctypes.c_longlong
+    return fn, (*limits, smem)
 
 
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _check_inputs(lib, prefix, xp, a_i, a_j, edge_attr, we, wemat,
-                  csr_rowptr, csr_snd, csr_eid, H, C, g=None):
+def _check_inputs(limits, xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
+                  csr_snd, csr_eid, H, C, extra=()):
     """Raise on what the kernels do not take: devices, dtypes, shapes,
-    contiguity and the widths' limits."""
+    contiguity and the widths' limits.  ``extra`` holds (name, tensor,
+    shape) of further float32 inputs."""
     N, hc = xp.shape[0], H * C
     E, fe = edge_attr.shape[0], edge_attr.shape[1]
     dev, f32, i32 = xp.device, torch.float32, torch.int32
@@ -135,89 +151,95 @@ def _check_inputs(lib, prefix, xp, a_i, a_j, edge_attr, we, wemat,
               ("csr_rowptr", csr_rowptr, i32, (N + 1,)),
               ("csr_snd", csr_snd, i32, (csr_snd.shape[0],)),
               ("csr_eid", csr_eid, i32, (csr_snd.shape[0],))]
-    if g is not None:
-        checks.append(("g", g, f32, (N, hc)))
+    checks += [(name, t, f32, shape) for name, t, shape in extra]
     for name, t, dtype, shape in checks:
-        _check(name, t, dev, dtype, shape)
-    smem = getattr(lib, f"{prefix}_smem_bytes")(hc, H, fe)
-    limits = {"H*C": (hc, getattr(lib, f"{prefix}_max_hc")()),
-              "heads": (H, getattr(lib, f"{prefix}_max_heads")()),
-              "shared memory bytes": (smem, _SMEM_LIMIT)}
-    for what, (got, most) in limits.items():
+        common.check(name, t, dev, dtype, shape)
+    max_hc, max_heads, max_fe, smem = limits
+    for what, got, most in (("H*C", hc, max_hc), ("heads", H, max_heads),
+                            ("edge features", fe, max_fe),
+                            ("shared memory bytes", smem(hc, H, fe),
+                             _SMEM_LIMIT)):
         if got > most:
             raise ValueError(f"triplet_attention kernel: {what} = {got} "
                              f"exceeds its maximum of {most}")
-
-
-@functools.cache
-def _resident_blocks(lib, prefix, dev, hc, heads, channels, fe) -> int:
-    """Blocks of a kernel that fit on the card at once: the grid, so that
-    every block is resident and each warp walks many rows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_sm = getattr(lib, f"{prefix}_blocks_per_sm")(hc, heads, channels, fe)
-    return sms * max(per_sm, 1)
-
-
-def _grid(lib, prefix, xp, edge_attr, H, C) -> int:
-    rows_per_block = getattr(lib, f"{prefix}_warps_per_block")()
-    return min(-(-xp.shape[0] // rows_per_block),
-               _resident_blocks(lib, prefix, xp.device, H * C, H, C,
-                                edge_attr.shape[1]))
+    if csr_snd.shape[0] > E:
+        raise ValueError(f"triplet_attention kernel: {csr_snd.shape[0]} "
+                         f"CSR edges but {E} edge features")
 
 
 def _launch_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
                 csr_eid, num_heads, channels, slope):
     H, C = int(num_heads), int(channels)
-    lib = _bind("triplet_fused", "triplet_fused", "triplet_fused_fwd", 10)
-    _check_inputs(lib, "triplet_fused", xp, a_i, a_j, edge_attr, we, wemat,
-                  csr_rowptr, csr_snd, csr_eid, H, C)
-    N, hc, fe = xp.shape[0], H * C, edge_attr.shape[1]
-    out = torch.empty((N, hc), device=xp.device, dtype=torch.float32)
+    launch, limits = _bind("triplet_fused", "triplet_fused",
+                           "triplet_fused_fwd", 14, 6)
+    _check_inputs(limits, xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
+                  csr_snd, csr_eid, H, C)
+    dev, N, hc, fe = xp.device, xp.shape[0], H * C, edge_attr.shape[1]
+    S = csr_snd.shape[0]
+    chunks = -(-S // 32)
+    # one allocation: out [N, H*C], row_max, row_inv [N, H] and the long
+    # rows' partial results [chunks, 2, sw], each part 16-byte aligned
+    sizes = [common.up4(N * hc), common.up4(N * H), common.up4(N * H),
+             chunks * 2 * common.up4(hc + 2 * H)]
+    buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
+    out, row_max, row_inv, part = buf.split(sizes)
+    out, row_max, row_inv = (out[:N * hc].view(N, hc),
+                             row_max[:N * H].view(N, H),
+                             row_inv[:N * H].view(N, H))
     if N == 0:
-        return out
-    blocks = _grid(lib, "triplet_fused", xp, edge_attr, H, C)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = lib.triplet_fused_fwd(
-            xp.data_ptr(), a_i.data_ptr(), a_j.data_ptr(),
-            edge_attr.data_ptr(), we.data_ptr(), wemat.data_ptr(),
-            csr_rowptr.data_ptr(), csr_snd.data_ptr(), csr_eid.data_ptr(),
-            out.data_ptr(), N, hc, H, C, fe, float(slope), blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"triplet_fused_fwd launch failed with "
-                           f"cudaError {err}")
+        return out, row_max, row_inv
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = common.tickets(dev, stream, chunks)
+    vec = int(C % 4 == 0 and common.aligned(xp, buf))
+    common.run(launch, "triplet_fused_fwd", dev, (
+        xp.data_ptr(), a_i.data_ptr(), a_j.data_ptr(), edge_attr.data_ptr(),
+        we.data_ptr(), wemat.data_ptr(), csr_rowptr.data_ptr(),
+        csr_snd.data_ptr(), csr_eid.data_ptr(), out.data_ptr(),
+        row_max.data_ptr(), row_inv.data_ptr(), part.data_ptr(),
+        tickets.data_ptr(), N, S, hc, H, C, fe, float(slope), vec), stream)
     triplet_attention.launches += 1
-    return out
+    return out, row_max, row_inv
 
 
 def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-                csr_eid, g, num_heads, channels, slope):
+                csr_eid, out, row_max, row_inv, g, num_heads, channels,
+                slope):
     H, C = int(num_heads), int(channels)
-    lib = _bind("triplet_fused_bwd", "triplet_bwd", "triplet_bwd", 14)
-    _check_inputs(lib, "triplet_bwd", xp, a_i, a_j, edge_attr, we, wemat,
-                  csr_rowptr, csr_snd, csr_eid, H, C, g)
+    launch, limits = _bind("triplet_fused_bwd", "triplet_bwd",
+                           "triplet_bwd", 19, 7)
     N, hc = xp.shape[0], H * C
+    _check_inputs(limits, xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
+                  csr_snd, csr_eid, H, C,
+                  [("out", out, (N, hc)), ("row_max", row_max, (N, H)),
+                   ("row_inv", row_inv, (N, H)), ("g", g, (N, hc))])
+    dev, S = xp.device, csr_snd.shape[0]
     E, fe = edge_attr.shape[0], edge_attr.shape[1]
-    # d_xp is summed into with atomics; d_eh and d_pre keep zeros for the
-    # edges outside the CSR; the kernel writes every row of d_a_i
-    d_xp = torch.zeros((N, hc), device=xp.device, dtype=torch.float32)
-    d_eh = torch.zeros((E, hc), device=xp.device, dtype=torch.float32)
-    d_pre = torch.zeros((E, H), device=xp.device, dtype=torch.float32)
-    d_a_i = torch.empty((N, H), device=xp.device, dtype=torch.float32)
+    chunks = -(-S // 32)
+    # d_xp is summed into with atomics: the call's one fill.  The kernel
+    # writes every row of d_eh, d_pre (padded edges' rows too) and d_a_i:
+    # one allocation, d_eh first so that it is 16-byte aligned
+    d_xp = torch.zeros((N, hc), device=dev, dtype=torch.float32)
+    sizes = [common.up4(E * hc), common.up4(E * H), common.up4(N * H),
+             chunks * 2 * 8]
+    buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
+    d_eh, d_pre, d_a_i, part = buf.split(sizes)
+    d_eh, d_pre, d_a_i = (d_eh[:E * hc].view(E, hc), d_pre[:E * H].view(E, H),
+                          d_a_i[:N * H].view(N, H))
     if N == 0:
+        d_eh.zero_()
+        d_pre.zero_()
         return d_xp, d_eh, d_pre, d_a_i
-    blocks = _grid(lib, "triplet_bwd", xp, edge_attr, H, C)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream(xp.device).cuda_stream
-        err = lib.triplet_bwd(
-            xp.data_ptr(), a_i.data_ptr(), a_j.data_ptr(),
-            edge_attr.data_ptr(), we.data_ptr(), wemat.data_ptr(),
-            csr_rowptr.data_ptr(), csr_snd.data_ptr(), csr_eid.data_ptr(),
-            g.data_ptr(), d_xp.data_ptr(), d_eh.data_ptr(),
-            d_pre.data_ptr(), d_a_i.data_ptr(), N, hc, H, C, fe,
-            float(slope), blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"triplet_bwd launch failed with cudaError {err}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = common.tickets(dev, stream, chunks)
+    vec = int(C % 4 == 0 and common.aligned(xp, g, out, d_xp, buf))
+    common.run(launch, "triplet_bwd", dev, (
+        xp.data_ptr(), a_i.data_ptr(), a_j.data_ptr(), edge_attr.data_ptr(),
+        we.data_ptr(), wemat.data_ptr(), csr_rowptr.data_ptr(),
+        csr_snd.data_ptr(), csr_eid.data_ptr(), out.data_ptr(),
+        row_max.data_ptr(), row_inv.data_ptr(), g.data_ptr(),
+        d_xp.data_ptr(), d_eh.data_ptr(), d_pre.data_ptr(),
+        d_a_i.data_ptr(), part.data_ptr(), tickets.data_ptr(), N, S, E, hc,
+        H, C, fe, float(slope), vec), stream)
     triplet_attention_bwd.launches += 1
     return d_xp, d_eh, d_pre, d_a_i
 
@@ -234,24 +256,31 @@ def _route(xp, plain, kernel):
 def triplet_attention_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                           csr_snd, csr_eid, num_heads: int, channels: int,
                           slope: float = 0.2):
-    """The forward alone, not differentiable: CPU tensors run
-    :func:`triplet_attention_plain`, CUDA tensors kernel A (float32
-    tensors, int32 CSR, all contiguous, H*C up to 512) or raise."""
+    """The forward alone, not differentiable: (out, row_max, row_inv).
+    CPU tensors run :func:`triplet_attention_plain`, CUDA tensors kernel A
+    (float32 tensors, int32 CSR, all contiguous, H up to 8 and H*C up to
+    512) or raise."""
     fn = _route(xp, triplet_attention_plain, _launch_fwd)
     return fn(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
               csr_eid, num_heads, channels, slope)
 
 
 def triplet_attention_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
-                          csr_snd, csr_eid, g, num_heads: int,
-                          channels: int, slope: float = 0.2):
+                          csr_snd, csr_eid, out, row_max, row_inv, g,
+                          num_heads: int, channels: int, slope: float = 0.2):
     """The backward: CPU tensors run :func:`triplet_attention_bwd_plain`,
-    CUDA tensors kernel B (as kernel A takes them, g [N, H*C] float32
-    contiguous) or raise.  d_xp is summed with float atomics on the card,
-    so its sums run in another order on every call."""
+    CUDA tensors kernel B (as kernel A takes them; the forward's out,
+    row_max and row_inv and g [N, H*C], float32 contiguous) or raise.
+
+    The kernel relies on the invariant that ``pad_graphs`` keeps: the
+    real edges come first and ``csr_eid`` is a permutation of [0, E_real),
+    so that it writes every real edge's rows of d_eh and d_pre and zeroes
+    the padded edges' rows [E_real, E) itself.  d_xp is summed with float
+    atomics on the card, so its sums run in another order on every call;
+    d_eh, d_pre and d_a_i are the same on every call."""
     fn = _route(xp, triplet_attention_bwd_plain, _launch_bwd)
     return fn(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-              csr_eid, g, num_heads, channels, slope)
+              csr_eid, out, row_max, row_inv, g, num_heads, channels, slope)
 
 
 class _TripletAttention(torch.autograd.Function):
@@ -262,21 +291,23 @@ class _TripletAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                 csr_snd, csr_eid, num_heads, channels, slope):
+        out, row_max, row_inv = triplet_attention_fwd(
+            xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
+            csr_eid, num_heads, channels, slope)
         ctx.save_for_backward(xp, a_i, a_j, edge_attr, we, wemat,
-                              csr_rowptr, csr_snd, csr_eid)
+                              csr_rowptr, csr_snd, csr_eid, out, row_max,
+                              row_inv)
         ctx.widths = (num_heads, channels, slope)
-        return triplet_attention_fwd(xp, a_i, a_j, edge_attr, we, wemat,
-                                     csr_rowptr, csr_snd, csr_eid,
-                                     num_heads, channels, slope)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-         csr_eid) = ctx.saved_tensors
+        (xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd, csr_eid,
+         out, row_max, row_inv) = ctx.saved_tensors
         need = ctx.needs_input_grad
         d_xp, d_eh, d_pre, d_a_i = triplet_attention_bwd(
             xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-            csr_eid, g.contiguous(), *ctx.widths)
+            csr_eid, out, row_max, row_inv, g.contiguous(), *ctx.widths)
         d_a_j = d_edge_attr = d_we = d_wemat = None
         if need[2]:
             d_a_j = torch.zeros_like(a_j).index_add_(
@@ -298,8 +329,9 @@ def triplet_attention(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
     """Fused TripletMessage attention-aggregation, differentiable in xp,
     a_i, a_j, edge_attr, we and wemat.
 
-    Arguments as for :func:`triplet_attention_plain`.  CPU tensors run
-    the plain versions; CUDA tensors run kernels A and B or raise."""
+    Arguments as for :func:`triplet_attention_plain`; returns out
+    [N, H*C].  CPU tensors run the plain versions; CUDA tensors run
+    kernels A and B or raise."""
     return _TripletAttention.apply(xp, a_i, a_j, edge_attr, we, wemat,
                                    csr_rowptr, csr_snd, csr_eid, num_heads,
                                    channels, slope)

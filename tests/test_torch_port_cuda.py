@@ -9,11 +9,13 @@ This file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Tolerance: rtol 1e-4, atol 1e-4 in float32.  The kernels sum each row's
-edges in CSR order with an online softmax; the plain versions sum with
-atomics in another order, and their softmax divides after the sum.
-Kernel B sums d_xp over senders with float atomics, in another order on
-every call.  Kernel C is held against its plain versions computed in
-float64, so that the error is the kernel's own.
+edges in CSR order (a long row in 32-edge chunks, merged in order); the
+plain versions sum with atomics in another order, and their softmax
+divides after the sum.  Kernel B sums d_xp over senders with float
+atomics, in another order on every call; every other output of kernels A
+and B, and of kernel C, is bitwise the same on every call.  Kernel C is
+held against its plain versions computed in float64, so that the error
+is the kernel's own.
 """
 import numpy as np
 import pytest
@@ -48,39 +50,91 @@ def _random_csr(rng, n_graphs=40):
     return random_csr(rng, n_graphs=n_graphs, max_n=30, tail=64, hub=300)
 
 
+def _rows_csr(rng, lens, padded=0, fe=4):
+    """A CSR with rows of ``lens`` edges from random senders, the edges'
+    ids a permutation of the real ones, and ``padded`` edges after them
+    that the CSR leaves out (zero features, as ``pad_graphs`` makes)."""
+    rowptr = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=rowptr[1:])
+    S = int(rowptr[-1])
+    edge_attr = rng.randn(S + padded, fe).astype(np.float32)
+    edge_attr[S:] = 0.0
+    return (rowptr, rng.randint(0, len(lens), S).astype(np.int32),
+            rng.permutation(S).astype(np.int32), edge_attr)
+
+
 CASES = [
     ("demo128", 3, 60),       # the flagship serving shapes
     ("random", 3, 60),        # empty rows and a 300-edge receiver
     ("random", 5, 54),        # H*C = 270, the search space's widest
     ("random", 1, 8),
-    ("random", 8, 64),        # H*C = 512, the kernels' maximum
+    ("random", 8, 64),        # H*C = 512, the kernels' maximum, 8 heads
     ("no_edges", 3, 60),      # E_real = 0 (a batch of methane)
+    ("one_boundary", 3, 60),  # a 40-edge row across a 32-slot chunk
+    ("many_blocks", 3, 60),   # a 3,000-edge row over 12 blocks of slots
+    ("hub500", 3, 60),        # random_hub_empty: in-degree 500, 2,048 empty
+    ("empty_runs", 3, 60),    # 200 empty rows in a row, 30 at the end
+    ("padded", 3, 60),        # 37 padded edges after the real ones
+    ("padded", 2, 5),         # H*C = 10, C not a multiple of 4
+    ("misaligned", 3, 60),    # xp not 16-byte aligned: one channel a group
 ]
 
 
 def _case_csr(rng, case):
     if case == "demo128":
         return demo_csr(read_demo())
-    if case == "random":
+    if case in ("random", "misaligned"):
         return _random_csr(rng)
+    if case == "hub500":
+        return random_csr(rng)
+    if case == "one_boundary":
+        return _rows_csr(rng, np.r_[np.ones(20, int), 40,
+                                    rng.randint(1, 5, 50)])
+    if case == "many_blocks":
+        return _rows_csr(rng, np.r_[rng.randint(0, 5, 100), 3000,
+                                    rng.randint(0, 5, 100)])
+    if case == "empty_runs":
+        return _rows_csr(rng, np.r_[rng.randint(1, 9, 300),
+                                    np.zeros(200, int),
+                                    rng.randint(1, 9, 300),
+                                    np.zeros(30, int)])
+    if case == "padded":
+        return _rows_csr(rng, rng.randint(0, 6, 300), padded=37)
     empty = np.zeros(0, np.int32)
     return receiver_csr(empty, empty, 9) + (np.zeros((4, 4), np.float32),)
 
 
+def _case_inputs(rng, case, heads, channels, dev):
+    csr = _case_csr(rng, case)
+    args = kernel_inputs(rng, *csr, heads, channels, dev)
+    if case == "misaligned":
+        flat = torch.empty(args[0].numel() + 1, device=dev)
+        flat[1:] = args[0].reshape(-1)
+        args[0] = flat[1:].view(args[0].shape)
+        assert args[0].data_ptr() % 16 and args[0].is_contiguous()
+    return csr, args
+
+
 @pytest.mark.parametrize("case,heads,channels", CASES)
 def test_kernel_matches_plain(cuda, case, heads, channels):
+    """Kernel A against its plain version: the output and the row
+    statistics, empty rows 0, and bitwise the same on a second call."""
     rng = np.random.RandomState(0)
-    csr = _case_csr(rng, case)
-    args = kernel_inputs(rng, *csr, heads, channels, cuda)
+    csr, args = _case_inputs(rng, case, heads, channels, cuda)
     before = triplet_attention.launches
     got = triplet_attention_fwd(*args, heads, channels)
+    again = triplet_attention_fwd(*args, heads, channels)
     want = triplet_attention_plain(*args, heads, channels)
     torch.cuda.synchronize()
-    assert triplet_attention.launches == before + 1
-    assert got.shape == want.shape == (len(csr[0]) - 1, heads * channels)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert triplet_attention.launches == before + 2
+    N = len(csr[0]) - 1
+    assert got[0].shape == want[0].shape == (N, heads * channels)
+    for name, a, b in zip(("out", "row_max", "row_inv"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
     empty_rows = torch.from_numpy(np.diff(csr[0]) == 0).to(cuda)
-    assert (got[empty_rows] == 0).all()
+    for a, b in zip(got, again):
+        assert (a[empty_rows] == 0).all()
+        assert torch.equal(a, b)
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -106,20 +160,28 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("case,heads,channels", CASES)
 def test_backward_kernel_matches_plain(cuda, case, heads, channels):
+    """Kernel B, fed kernel A's output and statistics, against its plain
+    version fed the plain forward's; padded edges' rows zero without a
+    fill; d_eh, d_pre and d_a_i bitwise the same on a second call."""
     rng = np.random.RandomState(0)
-    csr = _case_csr(rng, case)
-    args = kernel_inputs(rng, *csr, heads, channels, cuda)
+    csr, args = _case_inputs(rng, case, heads, channels, cuda)
     N = args[0].shape[0]
     g = torch.from_numpy(rng.randn(N, heads * channels).astype(
         np.float32)).to(cuda)
+    stats = triplet_attention_fwd(*args, heads, channels)
+    plain_stats = triplet_attention_plain(*args, heads, channels)
     before = triplet_attention_bwd.launches
-    got = triplet_attention_bwd(*args, g, heads, channels)
-    want = triplet_attention_bwd_plain(*args, g, heads, channels)
+    got = triplet_attention_bwd(*args, *stats, g, heads, channels)
+    again = triplet_attention_bwd(*args, *stats, g, heads, channels)
+    want = triplet_attention_bwd_plain(*args, *plain_stats, g, heads,
+                                       channels)
     torch.cuda.synchronize()
-    assert triplet_attention_bwd.launches == before + 1
+    assert triplet_attention_bwd.launches == before + 2
     for name, a, b in zip(("d_xp", "d_eh", "d_pre", "d_a_i"), got, want):
         assert a.shape == b.shape, name
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    for a, b in zip(got[1:], again[1:]):
+        assert torch.equal(a, b)
     # padded edges (outside the CSR) and empty rows keep zeros
     in_csr = torch.zeros(args[3].shape[0], dtype=torch.bool, device=cuda)
     in_csr[args[8].long()] = True
@@ -133,12 +195,17 @@ def test_backward_kernel_rejects_what_it_cannot_take(cuda):
     csr = _random_csr(rng, n_graphs=3)
     args = kernel_inputs(rng, *csr, 6, 90, cuda)   # H*C = 540 > 512
     g = torch.zeros_like(args[0])
+    stats = [torch.zeros_like(args[1])] * 2
     with pytest.raises(ValueError, match="exceeds its maximum"):
-        triplet_attention_bwd(*args, g, 6, 90)
+        triplet_attention_bwd(*args, g, *stats, g, 6, 90)
     args = kernel_inputs(rng, *csr, 3, 60, cuda)
+    out, *stats = triplet_attention_fwd(*args, 3, 60)
     g = torch.zeros_like(args[0]).T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="g must be contiguous"):
-        triplet_attention_bwd(*args, g, 3, 60)
+        triplet_attention_bwd(*args, out, *stats, g, 3, 60)
+    with pytest.raises(ValueError, match="row_inv has shape"):
+        triplet_attention_bwd(*args, out, stats[0], stats[1][:-1],
+                              torch.zeros_like(out), 3, 60)
 
 
 def test_function_gradients_match_cpu(cuda):

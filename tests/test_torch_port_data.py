@@ -116,6 +116,25 @@ class TestCSR:
         n_real = int(b.node_mask.sum())
         assert rowptr[n_real] == rowptr[-1]
 
+    @pytest.mark.parametrize("smis,edge_pad", [(DEMO[:64], 300),
+                                               (["C", "C"], 5),
+                                               (SMILES_SET, 0)])
+    def test_real_edges_first_and_eid_a_permutation(self, smis, edge_pad):
+        """The invariant the backward kernel relies on to write d_eh and
+        d_pre without a fill: pad_graphs puts the E_real real edges first
+        (padded ones after them) and csr_eid is a permutation of
+        [0, E_real)."""
+        pg = _graphs(port_featurize, port_graph, smis)
+        n_tot = sum(g.nodes.shape[0] for g in pg) + 3
+        e_real = sum(g.senders.shape[0] for g in pg)
+        b = port_graph.pad_graphs(pg, len(pg), n_tot, e_real + edge_pad, 1)
+        mask = b.edge_mask.numpy()
+        assert mask[:e_real].all() and not mask[e_real:].any()
+        eid = b.csr_eid.numpy()
+        assert eid.dtype == np.int32 and len(eid) == e_real
+        np.testing.assert_array_equal(np.sort(eid), np.arange(e_real))
+        assert (b.edges.numpy()[e_real:] == 0).all()
+
     def test_loader_budgets_and_order(self):
         pg = _graphs(port_featurize, port_graph, DEMO[:50])
         loader = GraphLoader(pg, batch_size=16, num_tasks=1)

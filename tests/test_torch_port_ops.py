@@ -2,7 +2,10 @@
 against the JAX package: ``triplet_attention_plain`` against both
 ``triplet_attention_reference`` and the Pallas ``fused_triplet_attention``
 run in interpret mode, at that kernel's test tolerance (rtol 1e-4,
-atol 1e-5)."""
+atol 1e-5); its row statistics (each row's largest logit and
+1 / (sum of exp + 1e-16)) against the same computed with ``jax.ops`` from
+the reference's logits, at rtol 1e-5."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ from glam_tpu_torch.ops.kernels.triplet_fused import (
 
 
 def _random_batch(rng, n_graphs=20, max_n=30, isolated_tail=16,
-                  hub_degree=200):
+                  hub_degree=300):
     """Contiguous small random graphs, an isolated-node tail (empty
     rows) and one receiver of high in-degree."""
     off, snd, rcv = 0, [], []
@@ -53,29 +56,52 @@ def _params(rng, N, E, H, C, Fe=4):
 def _plain(p, snd, rcv, N, H, C):
     rowptr, csr_snd, csr_eid = receiver_csr(snd, rcv, N)
     t = {k: torch.from_numpy(v) for k, v in p.items()}
-    return triplet_attention_plain(
+    return [a.numpy() for a in triplet_attention_plain(
         *t.values(), torch.from_numpy(rowptr), torch.from_numpy(csr_snd),
-        torch.from_numpy(csr_eid), H, C).numpy()
+        torch.from_numpy(csr_eid), H, C)]
+
+
+def _jax_stats(p, snd, rcv, N, H, slope=0.2):
+    """Each row's largest logit and 1 / (sum of exp(logit - max) + 1e-16)
+    from the reference's logits (``triplet_fused.py:568-576``), with
+    ``jax.ops``; 0 and 0 for an empty row."""
+    j = {k: jnp.asarray(v) for k, v in p.items()}
+    pre = (j["a_i"][rcv] + (j["edge_attr"] @ j["we"]) @ j["wemat"]
+           + j["a_j"][snd])
+    pre = jnp.where(pre >= 0, pre, slope * pre)
+    nonempty = (np.bincount(rcv, minlength=N) > 0)[:, None]
+    m = jnp.where(nonempty, jax.ops.segment_max(pre, rcv, N), 0.0)
+    total = jax.ops.segment_sum(jnp.exp(pre - m[rcv]), rcv, N)
+    return (np.asarray(m),
+            np.asarray(jnp.where(nonempty, 1.0 / (total + 1e-16), 0.0)))
 
 
 class TestTripletAttentionPlain:
     @pytest.mark.parametrize("heads,channels", [(1, 8), (3, 16), (3, 60),
-                                                (5, 54)])
+                                                (5, 54), (8, 64)])
     def test_matches_reference(self, heads, channels):
+        """Random graphs, 16 empty rows and a receiver of in-degree 300, up
+        to H*C = 270 and 512."""
         rng = np.random.RandomState(1)
         snd, rcv, N = _random_batch(rng)
+        assert np.bincount(rcv).max() >= 300
         p = _params(rng, N, len(snd), heads, channels)
         want = np.asarray(triplet_attention_reference(
             *[jnp.asarray(v) for v in p.values()], jnp.asarray(snd),
             jnp.asarray(rcv), heads, channels))
-        got = _plain(p, snd, rcv, N, heads, channels)
+        got, row_max, row_inv = _plain(p, snd, rcv, N, heads, channels)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
-        assert (got[-16:] == 0).all()       # empty rows are exactly 0
+        want_max, want_inv = _jax_stats(p, snd, rcv, N, heads)
+        np.testing.assert_allclose(row_max, want_max, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(row_inv, want_inv, rtol=1e-5, atol=1e-7)
+        for a in (got, row_max, row_inv):   # empty rows are exactly 0
+            assert (a[-16:] == 0).all()
 
     @pytest.mark.parametrize("heads,channels", [(1, 8), (3, 16)])
     def test_matches_pallas_interpret(self, heads, channels):
         rng = np.random.RandomState(2)
-        snd, rcv, N = _random_batch(rng)
+        # the Pallas packing takes at most 256 edges a row
+        snd, rcv, N = _random_batch(rng, hub_degree=200)
         p = _params(rng, N, len(snd), heads, channels)
         pk = pack_blocks2(snd, rcv, N)
         packed = [jnp.asarray(v) for v in
@@ -85,7 +111,7 @@ class TestTripletAttentionPlain:
             heads, channels, 0.2, True,
             *[jnp.asarray(v) for v in p.values()], jnp.asarray(snd),
             jnp.asarray(rcv), *packed))
-        got = _plain(p, snd, rcv, N, heads, channels)
+        got = _plain(p, snd, rcv, N, heads, channels)[0]
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
     def test_no_edges(self):
@@ -93,8 +119,10 @@ class TestTripletAttentionPlain:
         N, H, C = 5, 3, 8
         p = _params(rng, N, 2, H, C)
         empty = np.zeros(0, np.int32)
-        got = _plain(p, empty, empty, N, H, C)
+        got, row_max, row_inv = _plain(p, empty, empty, N, H, C)
         assert got.shape == (N, H * C) and (got == 0).all()
+        assert row_max.shape == row_inv.shape == (N, H)
+        assert (row_max == 0).all() and (row_inv == 0).all()
 
     def test_wrapper_dispatch(self):
         rng = np.random.RandomState(4)
@@ -105,7 +133,7 @@ class TestTripletAttentionPlain:
         csr = [torch.from_numpy(a) for a in receiver_csr(snd, rcv, N)]
         before = triplet_attention.launches
         got = triplet_attention(*p.values(), *csr, H, C)
-        want = triplet_attention_plain(*p.values(), *csr, H, C)
+        want = triplet_attention_plain(*p.values(), *csr, H, C)[0]
         assert torch.equal(got, want)
         # the CPU path is the plain version: no kernel launch counted
         assert triplet_attention.launches == before
