@@ -56,7 +56,33 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
        self-loops, GlobalLAPool's graphs at width 120);
      - the CLI's default (_NNConv, GlobalPool5, _PairNorm), 1 epoch: no
        kernel; then one step of a _GCNConv model's gradients card vs CPU;
-  6. a JSON line of the kernels (times per launch on the path that
+  6. the pair families, each through ``glam_tpu_torch.run.main`` on its
+     bundled corpus at full width (hid 60, 3 steps, e_dim 1024,
+     GlobalPool5 in both towers), launches counted around each run:
+     - ``ddi``: drugbank_caster (ddi_demo), TripletMessage towers, 2
+       epochs: kernel A 6 times per forward (3 per tower), B 6 per
+       step; the trained ``best_save.pt`` served by ``PairPredictor`` on
+       the card as on the CPU on the test pairs; kernels A and B at each
+       tower's batch of the trainer's loader; one training-mode step's
+       gradients card vs CPU; step time and a profile;
+     - ``dti``: bindingdb_c (dti_demo), a TripletMessage molecule tower
+       and a GATConv protein tower, 1 epoch: A 3 per forward, B 3 per
+       step, kernel C 3 per forward and 3 per step; kernel C at the
+       protein tower's batch (edges and self-loops), A and B at the
+       molecule tower's; the checkpoint served on the card as on the CPU;
+       gradients card vs CPU; step time and a profile;
+     - ``dti_serving``: a full-width DTI model (GATConv protein tower,
+       pro_max_nodes 1024) with random weights from seed 0, saved and
+       served by ``PairPredictor(device="cuda", batch_size=16)``: 64 demo
+       SMILES against one 1,000-residue protein made from a seed (~12
+       contacts per residue), and a request with an invalid SMILES and
+       a protein without a contact map (NaN rows); card vs CPU; kernel
+       C 3 times per batch, and at the served batch's self-loop CSR
+       (16 proteins, ~16,000 rows); pairs/s and a batch's device ms;
+     - ``screening``: ALDH1 (scr_demo) with the CLI's defaults
+       (GCNConv protein tower, loss wce), 1 epoch: A 3 per forward, B 3
+       per step, C never; the final line has bedroc;
+  7. a JSON line of the kernels (times per launch on the path that
      launches each most; every path's launches, per-launch means and
      each call's numbers at its own shapes under ``by_path``), the
      card's line, then the final line.
@@ -97,6 +123,12 @@ LIBRARY_ARGS = ["--epochs", "2", "--mol_block", "_TripletMessageLight",
 GAT_ARGS = ["--epochs", "1", "--mol_block", "_GATConv", "--mol_readout",
             "GlobalLAPool", "--pre_norm", "_LayerNorm", "--graph_norm",
             "_GraphSizeNorm"]
+PAIR_ROOTS = {"drugbank_caster": "ddi_demo", "bindingdb_c": "dti_demo",
+              "ALDH1": "scr_demo"}
+DDI_ARGS = ["--epochs", "2", "--mol_block", "_TripletMessage"]
+DTI_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
+            "--pro_block", "_GATConv"]
+SCR_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage"]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside tensor cores
 
@@ -784,9 +816,12 @@ def breakdown(pred, demo):
         print_profile("one batch forward", lambda: pred.model(moved[0]))
 
 
-def print_profile(label, fn):
-    """A ``torch.profiler`` top-8 of one call of ``fn``, by self device
-    time."""
+def print_profile(label, fn, top=8):
+    """A ``torch.profiler`` top-``top`` of one call of ``fn``, by self
+    device time; then the call's device kernels from the trace: their
+    count, the sum of their durations (the time the card is busy) and the
+    span from the first's start to the last's end.  Returns those three
+    ({'kernels', 'busy_ms', 'span_ms'})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -797,10 +832,18 @@ def print_profile(label, fn):
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         fail(f"profile of {label}: no device time recorded")
-    print(f"profile {label}: device_time_us={total:.1f}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+    kernels = [e.time_range for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(k.elapsed_us() for k in kernels) / 1e3
+    span = (max(k.end for k in kernels) - min(k.start for k in kernels)) \
+        / 1e3
+    print(f"profile {label}: device_time_us={total:.1f}; {len(kernels)} "
+          f"device kernels, busy_ms={busy:.4f} over a span of "
+          f"{span:.4f} ms (first start to last end)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.key[:60]}: device_us={e.self_device_time_total:.1f} "
               f"calls={e.count}")
+    return {"kernels": len(kernels), "busy_ms": busy, "span_ms": span}
 
 
 def parse_final_line(line: str):
@@ -849,19 +892,25 @@ def check_counts(label, got, want):
                  f"{want.get(name, 0)}")
 
 
-def run_cli(tmp, flags, label):
-    """``glam_tpu_torch.run.main`` on the demo dataset with ``flags``, on
-    the card; the counts are read around this run alone.  Returns the
-    trainer, the launches, the wall seconds and the number of forwards
-    (steps, validation each epoch, then validation and test of the best
-    checkpoint)."""
+def run_cli(tmp, flags, label, dataset="demo"):
+    """``glam_tpu_torch.run.main`` on ``dataset`` (the demo dataset, or a
+    pair dataset of :data:`PAIR_ROOTS` on its bundled corpus) with
+    ``flags``, on the card; the counts are read around this run alone.
+    Returns the trainer, the launches, the optimizer steps and the number
+    of forwards (steps, validation each epoch, then validation and test
+    of the best checkpoint)."""
     import torch
     from glam_tpu_torch import run
-    root = Path(tmp) / "demo"
-    if not root.exists():
-        shutil.copytree(DEMO_CSV.parent, root / "raw")
-    argv = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
-            str(root), "--work_dir", str(Path(tmp) / label)] + flags
+    if dataset == "demo":
+        root = Path(tmp) / "demo"
+        if not root.exists():
+            shutil.copytree(DEMO_CSV.parent, root / "raw")
+        data = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
+                str(root)]
+    else:
+        data = ["--dataset", dataset, "--dataset_root",
+                str(ROOT / "datasets" / PAIR_ROOTS[dataset])]
+    argv = data + ["--work_dir", str(Path(tmp) / label)] + flags
     print(f"training [{label}]: python -m glam_tpu_torch.run "
           f"{' '.join(argv)}")
     reset_counts()
@@ -877,16 +926,18 @@ def run_cli(tmp, flags, label):
     forwards = (steps + len(trainer.epoch_stats) * len(trainer.valid_loader)
                 + len(trainer.valid_loader) + len(trainer.test_loader))
     cfg = trainer.model.cfg
+    towers = (f" protein tower {cfg.pro_block} {cfg.pro_readout}"
+              if getattr(trainer.model, "hetero", False) else "")
     print(f"training [{label}]: block={cfg.mol_block} readout="
-          f"{cfg.mol_readout} norms pre={cfg.pre_norm} graph="
+          f"{cfg.mol_readout}{towers} norms pre={cfg.pre_norm} graph="
           f"{cfg.graph_norm} flat={cfg.flat_norm} end={cfg.end_norm} "
           f"hid={cfg.hid_dim} steps={cfg.message_steps} e_dim={cfg.e_dim} "
           f"optimizer steps={steps} forwards={forwards} wall_s={wall:.2f}; "
           f"launches {json.dumps(launches)}")
     for i, e in enumerate(trainer.epoch_stats):
         print(f"  epoch {i}: {e['steps']} steps, {e['molecules']} "
-              f"molecules in {e['seconds']:.3f} s = "
-              f"{e['molecules'] / e['seconds']:.1f} molecules/s")
+              f"samples in {e['seconds']:.3f} s = "
+              f"{e['molecules'] / e['seconds']:.1f} samples/s")
     print(f"final line [{label}]: {last}")
     return trainer, launches, steps, forwards
 
@@ -1038,34 +1089,285 @@ def default_phase(dev, tmp):
                           gcn, torch.Generator().manual_seed(0)).state_dict())
 
 
+def serve_card_vs_cpu(label, run_dir, pairs, dev, contact_maps=None):
+    """``PairPredictor`` on the card and on the CPU from one checkpoint,
+    on ``pairs``: the outputs must agree (NaN rows alike)."""
+    import numpy as np
+    from glam_tpu_torch.serve import PairPredictor
+    on_card = PairPredictor.from_checkpoint(run_dir, device=dev,
+                                            contact_maps=contact_maps)
+    on_cpu = PairPredictor.from_checkpoint(run_dir, device="cpu",
+                                           contact_maps=contact_maps)
+    a, b = on_card.predict_pairs(pairs), on_cpu.predict_pairs(pairs)
+    valid = ~np.isnan(b[:, 0])
+    err = float(np.abs(a[valid] - b[valid]).max()) if valid.any() else 0.0
+    if not (valid.all() and np.isfinite(a).all()
+            and np.allclose(a, b, rtol=TOL, atol=TOL)):
+        fail(f"{label}: the trained best_save.pt served on the card and on "
+             f"the CPU differ (max_abs_err {err}, {int(valid.sum())} of "
+             f"{len(pairs)} pairs resolved)")
+    print(f"serving the trained best_save.pt [{label}] with PairPredictor: "
+          f"{len(pairs)} pairs, card vs CPU max_abs_err={err:.3e} at outputs "
+          f"up to {float(np.abs(b[valid]).max()):.3e} (tol rtol {TOL} + "
+          f"atol {TOL})")
+
+
+def check_triplet_towers(prefix, parts, rng, dev, card, towers=(0, 1)):
+    """Kernels A and B at the shapes of each molecule tower's batch in
+    ``parts`` (a pair batch); returns {tower: {'fwd': .., 'bwd': ..}}."""
+    return {f"mol{t + 1}": {w: check_kernel(
+        w, f"{prefix}_mol{t + 1}", batch_csr(parts[t]), rng, dev, card)
+        for w in ("fwd", "bwd")} for t in towers}
+
+
+def gat_calls(prefix, batch, hid, rng, dev, card):
+    """Kernel C forward and backward at the shapes of the GAT conv's calls
+    on ``batch`` (a protein tower's): every edge slot and a self-loop per
+    node, [slots, 1] logits and [slots, hid] values."""
+    rowptr, idx = batch.self_loop_csr
+    return check_spmm_both(f"{prefix}_gat", spmm_inputs(
+        rng, rowptr, idx, batch.num_edges + batch.num_nodes, 1, hid, dev),
+        dev, card)
+
+
+def ddi_phase(dev, card, tmp):
+    """DDI through the CLI at full width, 2 epochs: kernels A and B 6
+    times per forward and per step (3 message steps x 2 TripletMessage
+    towers); the trained checkpoint served on the card as on the CPU;
+    kernels A and B at each tower's batch; gradients card vs CPU; step
+    time and a profile."""
+    import numpy as np
+    trainer, launches, steps, forwards = run_cli(
+        tmp, DDI_ARGS, "ddi", "drugbank_caster")
+    cfg = trainer.model.cfg
+    n = 2 * cfg.message_steps
+    check_counts("ddi training", launches, {
+        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps})
+    print(f"training [ddi]: launches triplet_fused_fwd="
+          f"{launches['triplet_fused_fwd']} = {n} x {forwards} forwards, "
+          f"triplet_fused_bwd={launches['triplet_fused_bwd']} = {n} x "
+          f"{steps} steps ({card})")
+    pairs = [(g1.smi, g2.smi) for g1, g2 in trainer.test_loader.pairs]
+    serve_card_vs_cpu("ddi", trainer.log_save_dir, pairs, dev)
+    batch = next(iter(trainer.train_loader))
+    kern = check_triplet_towers("ddi", batch, np.random.RandomState(4),
+                                dev, card)
+    grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
+    return launches, kern, timing
+
+
+def dti_phase(dev, card, tmp):
+    """DTI through the CLI at full width with a GATConv protein tower, 1
+    epoch: kernel A 3 per forward, B 3 per step, C 3 per forward and 3
+    per step; kernel C at the protein tower's batch (against float64),
+    A and B at the molecule tower's; the checkpoint served on the card
+    as on the CPU; gradients card vs CPU; step time and a profile."""
+    import numpy as np
+    from glam_tpu_torch.data.pair_datasets import BindingDBDataset
+    trainer, launches, steps, forwards = run_cli(
+        tmp, DTI_ARGS, "dti", "bindingdb_c")
+    cfg = trainer.model.cfg
+    n = cfg.message_steps
+    check_counts("dti training", launches, {
+        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps,
+        "segment_softmax_spmm_fwd": n * forwards,
+        "segment_softmax_spmm_bwd": n * steps})
+    print(f"training [dti]: launches {n} x {forwards} forwards and {n} x "
+          f"{steps} steps of A/C and B/C-backward: {json.dumps(launches)} "
+          f"({card})")
+    ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
+    serve_card_vs_cpu("dti", trainer.log_save_dir,
+                      [(g1.smi, g2.smi) for g1, g2 in ds.test], dev,
+                      ds.contact_maps)
+    batch = next(iter(trainer.train_loader))
+    rng = np.random.RandomState(5)
+    kern = check_triplet_towers("dti", batch, rng, dev, card, towers=(0,))
+    kern["gat"] = gat_calls("dti", batch[1], cfg.hid_dim, rng, dev, card)
+    grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
+    return launches, kern, timing
+
+
+def synthetic_protein(seed=0, length=1000, contacts=12):
+    """A sequence of ``length`` residues and a symmetric contact map with
+    about ``contacts`` contacts per residue (|i - j| >= 2, most of them
+    within 40 residues) at probabilities in (0.1, 1), drawn from
+    ``seed``; the backbone comes from the sequence."""
+    import numpy as np
+    from glam_tpu_torch.chem.proteins import RES_TYPES
+    rng = np.random.RandomState(seed)
+    seq = "".join(rng.choice(list(RES_TYPES), length))
+    cm = np.zeros((length, length), np.float32)
+    for i in range(length):
+        for _ in range(contacts // 2):
+            j = i + rng.randint(2, 40) if rng.rand() < 0.8 else \
+                rng.randint(length)
+            if 0 <= j < length and abs(i - j) >= 2:
+                p = rng.uniform(0.1, 1.0)
+                cm[i, j] = cm[j, i] = max(p, 0.1 + 1e-3)
+    return seq, cm
+
+
+def dti_serving_phase(dev, card, demo):
+    """A full-width DTI model (GATConv protein tower) with random weights
+    from seed 0, saved and served by PairPredictor at batch 16: 64 demo
+    SMILES against a 1,000-residue protein; card vs CPU; kernel C 3 times
+    per batch (A too, B and C's backward never), and kernel C at the
+    served batch's self-loop CSR; pairs/s and a batch's device ms."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.nn.model import ModelConfig, PairArchitecture
+    from glam_tpu_torch.serve import PairPredictor, save_checkpoint
+
+    cfg = ModelConfig(mol_block="_TripletMessage", pro_block="_GATConv",
+                      hid_dim_alpha=4, e_dim=1024, message_steps=3,
+                      out_dim=2, max_nodes=132, pro_max_nodes=1024)
+    model = PairArchitecture(cfg, hetero=True,
+                             generator=torch.Generator().manual_seed(0))
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    seq, cm = synthetic_protein()
+    maps = {seq: cm}
+    smis = []
+    for smi in demo:
+        try:
+            smiles_to_arrays(smi)
+        except ValueError:
+            continue
+        smis.append(smi)
+        if len(smis) == 64:
+            break
+    requests = {"demo64_x_protein1000": [(s, seq) for s in smis],
+                "with_invalid": [("CCO", seq), ("xyz", seq),
+                                 (smis[1], "NOCONTACTMAP"), (smis[2], seq)]}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, model, {"task": "pair_binary", "num_tasks": 1,
+                                     "out_dim": 2})
+        pred = PairPredictor.from_checkpoint(tmp, contact_maps=maps,
+                                             batch_size=16, device=dev)
+        cpu = PairPredictor.from_checkpoint(tmp, contact_maps=maps,
+                                            batch_size=16, device="cpu")
+    n_contacts = int((cm > 0).sum())
+    print(f"dti_serving: full-width DTI model (TripletMessage + GATConv "
+          f"towers, hid {cfg.hid_dim}, e_dim {cfg.e_dim}, pro_max_nodes "
+          f"{cfg.pro_max_nodes}); protein of {len(seq)} residues, "
+          f"{n_contacts} contact-map entries ({n_contacts / len(seq):.1f} "
+          f"per residue)")
+    pred.predict_pairs(requests["demo64_x_protein1000"][:16])   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, secs = {}, {}
+    for name, pairs in requests.items():
+        t0 = time.perf_counter()
+        outs[name] = pred.predict_pairs(pairs)
+        secs[name] = time.perf_counter() - t0
+    launches = read_counts()
+    n_batches = 0
+    for name, pairs in requests.items():
+        valid = [s for s in pred.samples(pairs) if s is not None]
+        n_batches += len(pred.loader(valid))
+        want = cpu.predict_pairs(pairs)
+        got = outs[name]
+        ok = ~np.isnan(want[:, 0])
+        if got.shape != (len(pairs), 2) or not np.allclose(
+                got, want, rtol=TOL, atol=TOL, equal_nan=True) or not \
+                np.isfinite(got[ok]).all():
+            fail(f"dti_serving {name}: card and CPU differ by "
+                 f"{np.nanmax(np.abs(got - want))}")
+        if name == "with_invalid" and ok.tolist() != [True, False, False,
+                                                      True]:
+            fail(f"dti_serving: NaN rows {(~ok).tolist()}, not the invalid "
+                 "SMILES and the unknown protein")
+        print(f"request {name}: {len(pairs)} pairs ({int(ok.sum())} "
+              f"resolved) latency_s={secs[name]:.4f} pairs_per_s="
+              f"{len(pairs) / secs[name]:.1f} max_abs_err_vs_cpu="
+              f"{float(np.abs(got[ok] - want[ok]).max()):.3e} at outputs up "
+              f"to {float(np.abs(want[ok]).max()):.3e} (tol rtol {TOL} + "
+              f"atol {TOL})")
+    check_counts("dti_serving", launches, {
+        "triplet_fused_fwd": cfg.message_steps * n_batches,
+        "segment_softmax_spmm_fwd": cfg.message_steps * n_batches})
+    b1, b2 = next(iter(pred.loader(
+        [s for s in pred.samples(requests["demo64_x_protein1000"])])))
+    moved = (b1.to(dev), b2.to(dev))
+    with torch.inference_mode():
+        fwd_ms = device_ms(lambda: pred.model(*moved), reps=10, warmup=2,
+                           sleep_cycles=100_000_000)
+        print_profile("dti_serving one batch forward",
+                      lambda: pred.model(*moved), top=12)
+    print(f"dti_serving: launches {json.dumps(launches)} = "
+          f"{cfg.message_steps} x {n_batches} batches; a batch of 16 pairs: "
+          f"protein tower N={b2.num_nodes} E={b2.num_edges} (+{b2.num_nodes} "
+          f"self-loops), molecule tower N={b1.num_nodes} E={b1.num_edges}; "
+          f"one batch forward device_ms={fwd_ms:.4f} "
+          f"({16 / fwd_ms * 1e3:.1f} pairs/s on the device); request "
+          f"pairs_per_s={64 / secs['demo64_x_protein1000']:.1f} ({card})")
+    rng = np.random.RandomState(6)
+    kern = {"gat": gat_calls("serve_dti", b2, cfg.hid_dim, rng, dev, card),
+            "mol1": {"fwd": check_kernel("fwd", "serve_dti_mol1",
+                                         batch_csr(b1), rng, dev, card)}}
+    return launches, kern
+
+
+def screening_phase(dev, card, tmp):
+    """LIT-PCBA ALDH1 through the CLI with its defaults (GCNConv protein
+    tower, loss wce), 1 epoch: kernel A 3 per forward, B 3 per step, C
+    never; the final line has bedroc; A and B at the molecule tower's
+    batch."""
+    import numpy as np
+    trainer, launches, steps, forwards = run_cli(
+        tmp, SCR_ARGS, "screening", "ALDH1")
+    cfg = trainer.model.cfg
+    n = cfg.message_steps
+    check_counts("screening training", launches, {
+        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps})
+    if trainer.args["loss"] != "wce" or cfg.pro_block != "_GCNConv":
+        fail(f"screening: loss {trainer.args['loss']}, protein tower "
+             f"{cfg.pro_block}; the CLI's defaults are wce and _GCNConv")
+    last = (trainer.log_save_dir / "log.txt").read_text().strip() \
+        .splitlines()[-1]
+    if "bedroc" not in parse_final_line(last)[1]:
+        fail(f"screening: the final line has no bedroc: {last!r}")
+    kern = check_triplet_towers("screening", next(iter(
+        trainer.train_loader)), np.random.RandomState(7), dev, card,
+        towers=(0,))
+    return launches, kern
+
+
 def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
                       state=None):
-    """One Adam step from the same weights on the same batch on the card
-    and on the CPU: the parameter gradients must agree.  In eval mode (no
+    """One Adam step from the same weights on the same batch (a
+    ``GraphBatch``, or a pair of them for a pair model) on the card and
+    on the CPU: the parameter gradients must agree.  In eval mode (no
     noise, so both draw none), or with ``train_mode`` in training mode
     (batch statistics in BatchNorm) with the config's dropout and RReLU
     noise taken out.  The weights are ``state``, or the trainer's."""
     import dataclasses
     import torch
-    from glam_tpu_torch.nn.model import Architecture
+    from glam_tpu_torch.nn.model import Architecture, PairArchitecture
     from glam_tpu_torch.train.optim import make_optimizer
 
     if train_mode:
         cfg = dataclasses.replace(
             cfg, pre_do="_None()", graph_do="_None()", flat_do="_None()",
             end_do="_None()", pre_act="CELU", graph_act="CELU",
-            flat_act="CELU")
+            flat_act="CELU", end_act="CELU")
+    if isinstance(trainer.model, PairArchitecture):
+        hetero = trainer.model.hetero
+        build = lambda: PairArchitecture(cfg, hetero)  # noqa: E731
+    else:
+        build = lambda: Architecture(cfg)  # noqa: E731
     if state is None:
         state = {k: v.detach().cpu().clone()
                  for k, v in trainer.model.state_dict().items()}
     grads, params = {}, {}
     for key, d in (("cpu", "cpu"), ("card", dev)):
-        model = Architecture(cfg).to(d)
+        model = build().to(d)
         model.load_state_dict(state)
         model.train(train_mode)
         opt = make_optimizer("Adam", model.named_parameters(), 1e-3)
-        b = batch.to(d)
-        loss = trainer.loss_fn(model(b), b.y, b.graph_mask)
+        b = [p.to(d) for p in trainer._as_parts(batch)]
+        loss = trainer.loss_fn(model(*b), b[0].y, b[0].graph_mask)
         opt.zero_grad()
         loss.backward()
         opt.step()
@@ -1093,8 +1395,11 @@ def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
             worst, worst_name = err / scale, name
     dp = max(float((params["card"][n] - params["cpu"][n]).abs().max())
              for n in params["cpu"])
+    towers = (f" + {cfg.pro_block} protein tower"
+              if getattr(trainer.model, "hetero", False) else "")
     print(f"one Adam step card vs CPU [{cfg.mol_block} "
-          f"{cfg.mol_readout}, {'train' if train_mode else 'eval'} mode] "
+          f"{cfg.mol_readout}{towers}, "
+          f"{'train' if train_mode else 'eval'} mode] "
           f"({len(grads['cpu'])} parameter "
           f"tensors): max gradient error {worst:.3e} of the tensor's "
           f"largest entry ({worst_name}; tol rtol {GRAD_RTOL} + atol "
@@ -1119,11 +1424,12 @@ def per_launch(calls):
     return out
 
 
-def step_timing(trainer, batch, card):
+def step_timing(trainer, batch, card, top=8):
     """Median time of one optimizer step (forward, backward, Adam) on a
-    training batch: on the device alone (the launches queued behind a
-    spin) and as the host runs it (events around a synchronized step);
-    then a profile of one step."""
+    training batch (on the card; a pair of them for a pair trainer): on
+    the device alone (the launches queued behind a spin) and as the host
+    runs it (events around a synchronized step); then a profile of one
+    step, its ``top`` rows."""
     import torch
     trainer.model.train()
     step = lambda: trainer.train_step(batch)  # noqa: E731
@@ -1138,14 +1444,18 @@ def step_timing(trainer, batch, card):
         end.record()
         end.synchronize()
         host.append(start.elapsed_time(end))
-    n_mol = int(batch.graph_mask.sum())
+    parts = trainer._as_parts(batch)
+    n_mol = int(parts[0].graph_mask.sum())
     wall_ms = statistics.median(host)
-    print(f"training step (batch of {n_mol} molecules, N={batch.num_nodes} "
-          f"E={batch.num_edges} E_real={batch.num_real_edges}): "
-          f"step_ms={wall_ms:.4f} ({n_mol / wall_ms * 1e3:.1f} molecules/s) "
+    shapes = " | ".join(f"N={b.num_nodes} E={b.num_edges} "
+                        f"E_real={b.num_real_edges}" for b in parts)
+    print(f"training step (batch of {n_mol} samples, {shapes}): "
+          f"step_ms={wall_ms:.4f} ({n_mol / wall_ms * 1e3:.1f} samples/s) "
           f"device_ms={dev_ms:.4f}, medians of 20 CUDA-event timings "
-          f"({card})")
-    print_profile("one training step", step)
+          f"({card}); device_ms holds only where the step's launches fit "
+          "the launch queue behind the spin: see the profile's busy_ms")
+    return dict(print_profile("one training step", step, top),
+                step_ms=wall_ms, device_ms=dev_ms)
 
 
 def main() -> None:
@@ -1196,6 +1506,10 @@ def main() -> None:
                                                           demo)
         gat_trained, kern_gat = gat_phase(dev, card, tmp)
         default_phase(dev, tmp)
+        ddi_trained, kern_ddi, _ = ddi_phase(dev, card, tmp)
+        dti_trained, kern_dti, _ = dti_phase(dev, card, tmp)
+        dti_served, kern_srv = dti_serving_phase(dev, card, demo)
+        scr_trained, kern_scr = screening_phase(dev, card, tmp)
     report_traced()
 
     # each kernel's calls on each path: {path: {call: (launches per
@@ -1207,6 +1521,15 @@ def main() -> None:
                  "train": {"train_batch": (3, kern_train["fwd"])}},
              "triplet_fused_bwd": {
                  "train": {"train_batch": (3, kern_train["bwd"])}}}
+    # the pair paths: kernels A and B at each molecule tower's batch
+    for w in ("fwd", "bwd"):
+        for path, k in (("train_ddi", kern_ddi), ("train_dti", kern_dti),
+                        ("train_screening", kern_scr),
+                        ("serve_dti", kern_srv)):
+            towers = {t: (3, r[w]) for t, r in k.items()
+                      if t.startswith("mol") and w in r}
+            if towers:
+                calls[f"triplet_fused_{w}"][path] = towers
     for w in ("fwd", "bwd"):
         calls[f"segment_softmax_spmm_{w}"] = {
             "serve_light_set2set": {"light": (3, spmm["light"][w]),
@@ -1215,6 +1538,11 @@ def main() -> None:
                                     "set2set": (3, kern_lib["set2set"][w])},
             "train_gat_lapool": {"gat": (3, kern_gat["gat"][w]),
                                  "lapool": (1, kern_gat["lapool"][w])}}
+    for w in ("fwd", "bwd"):
+        calls[f"segment_softmax_spmm_{w}"]["train_dti"] = {
+            "gat": (3, kern_dti["gat"][w])}
+    calls["segment_softmax_spmm_fwd"]["serve_dti"] = {
+        "gat": (3, kern_srv["gat"]["fwd"])}
     del calls["segment_softmax_spmm_bwd"]["serve_light_set2set"]
     off_path = {"triplet_fused_fwd": [kern["fwd"]["hub"],
                                       kern["fwd"]["h8_c64"]],
@@ -1223,7 +1551,10 @@ def main() -> None:
                 **{f"segment_softmax_spmm_{w}": [
                     r[w] for case, r in spmm.items()
                     if case.startswith("random")] for w in ("fwd", "bwd")}}
+    off_path["segment_softmax_spmm_bwd"].append(kern_srv["gat"]["bwd"])
 
+    pair_paths = {"train_ddi": ddi_trained, "train_dti": dti_trained,
+                  "train_screening": scr_trained, "serve_dti": dti_served}
     launches = {
         "triplet_fused_fwd": {"serve": served["triplet_fused_fwd"],
                               "train": trained["triplet_fused_fwd"]},
@@ -1235,6 +1566,9 @@ def main() -> None:
         "segment_softmax_spmm_bwd": {
             "train_light_set2set": lib_trained["segment_softmax_spmm_bwd"],
             "train_gat_lapool": gat_trained["segment_softmax_spmm_bwd"]}}
+    for name, counts in launches.items():
+        counts.update({path: n[name] for path, n in pair_paths.items()
+                       if path in calls[name]})
     for name, counts in launches.items():
         for path, n in counts.items():
             if n < 1:

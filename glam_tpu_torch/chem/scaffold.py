@@ -1,7 +1,6 @@
-"""Bemis-Murcko scaffold extraction and scaffold-based splitting, a
-verbatim copy of the JAX package's ``chem/scaffold.py`` without
-``molecule_key`` (the DDI molecule store's identity, which comes with the
-pair slice, ROADMAP A4).
+"""Bemis-Murcko scaffold extraction, scaffold-based splitting and the
+DDI molecule store's identity (``molecule_key``), a verbatim copy of the
+JAX package's ``chem/scaffold.py``.
 
 Replaces the reference's RDKit ``MurckoScaffold.MurckoScaffoldSmiles``
 (reference src_1gp/utils.py:119-133) with a first-principles
@@ -25,7 +24,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from .smiles import Mol, SmilesError, parse_smiles
-from .stereo import wl_refine
+from .stereo import (allene_descriptors, double_bond_descriptors,
+                     square_planar_descriptors, tetrahedral_descriptors,
+                     wl_refine)
 
 
 def murcko_scaffold(mol: Mol) -> Tuple[List[int], List[Tuple[int, int, int]]]:
@@ -99,6 +100,44 @@ def scaffold_key(smiles: str) -> str:
     labels = {
         i: f"{mol.atoms[i].symbol}{int(mol.atoms[i].aromatic)}"
         f"{mol.atoms[i].charge}" for i in kept}
+    return _wl_hash(labels, bonds)
+
+
+def molecule_key(smiles: str) -> str:
+    """Canonical molecule identity key ('' if unparseable).
+
+    Replaces the reference's RDKit canonical-SMILES normalization for
+    the DDI molecule store (reference src_2gi_ddi/dataset.py:118-124,
+    isomericSmiles=True at src_1gp/dataset.py:154) with a
+    Weisfeiler-Lehman graph hash over the FULL molecule — element,
+    aromaticity, charge, H-count and isotope labels plus bond orders,
+    augmented with CANONICAL stereo descriptors (chem/stereo.py): a
+    spelling-invariant '@'/'@@' tag per resolvable stereocenter and a
+    cis/trans flag per configured double bond, so stereoisomers get
+    DISTINCT keys (reference isomeric-SMILES dedup semantics) while
+    respellings of one molecule still collapse.  WL refinement is not a
+    complete isomorphism test, but with atom-level labels at 4 rounds it
+    separates all practically occurring molecular graphs; size/label
+    multisets are part of the hash by construction."""
+    try:
+        mol = parse_smiles(smiles)
+    except SmilesError:
+        return ""
+    labels = {
+        i: (f"{a.symbol}|{int(a.aromatic)}|{a.charge}|{a.num_h}"
+            f"|{a.isotope}")
+        for i, a in enumerate(mol.atoms)}
+    bonds = [(b.a, b.b, b.order) for b in mol.bonds]
+    ranks = wl_refine(labels, bonds)
+    tet = tetrahedral_descriptors(mol, ranks)
+    ez = double_bond_descriptors(mol, ranks)
+    al = allene_descriptors(mol, ranks)
+    sp = square_planar_descriptors(mol, ranks)
+    labels = {i: lab + f"|S{tet.get(i, 0)}|A{al.get(i, 0)}"
+              f"|P{sp.get(i, '')}"
+              for i, lab in labels.items()}
+    bonds = [(b.a, b.b, f"{b.order}{ez.get(bi, '')}")
+             for bi, b in enumerate(mol.bonds)]
     return _wl_hash(labels, bonds)
 
 

@@ -1,13 +1,18 @@
-"""Carry weights from the JAX package's ``Architecture`` to the port's.
+"""Carry weights from the JAX package's ``Architecture`` or
+``PairArchitecture`` to the port's.
 
-``state_dict_from_jax(params, cfg, batch_stats=None)`` takes the JAX
+``state_dict_from_jax(params, cfg, batch_stats=None, pair=None)`` takes
+the JAX
 parameter tree as nested mappings of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, variables["params"])``, or a
 decoded checkpoint) and, for a model with ``_BatchNorm``, its
 ``batch_stats`` collection (``mean``, ``var``), and returns the port's
 ``state_dict``: the parameters, and the BatchNorm running statistics when
 ``batch_stats`` is given (without it only the parameters, as for a tree
-of gradients).  Dense, GRU and GCN/GAT kernels are stored [in, out] on
+of gradients).  ``pair`` builds the pair model: ``"homo"`` (DDI, two
+molecule towers) or ``"hetero"`` (DTI, the second tower the protein's);
+its ``mol1``, ``mol2``, ``lin_out0`` and ``lin_out1`` names are the JAX
+tree's.  Dense, GRU and GCN/GAT kernels are stored [in, out] on
 the JAX side and are transposed to torch's [out, in]; the other weights
 (TripletMessage's, NNConv's root, Set2Set's LSTM) keep their layout.  A
 missing, extra or misshapen entry raises.
@@ -20,7 +25,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from .nn.model import Architecture, ModelConfig
+from .nn.model import Architecture, ModelConfig, PairArchitecture
 
 # JAX leaf name -> (port name, transpose)
 _LEAVES = {"kernel": ("weight", True), "weight": ("weight", True),
@@ -77,9 +82,16 @@ def convert_tree(tree: Mapping, expected: Dict[str, torch.Tensor],
 
 
 def state_dict_from_jax(params: Mapping, cfg: ModelConfig,
-                        batch_stats: Optional[Mapping] = None
+                        batch_stats: Optional[Mapping] = None,
+                        pair: Optional[str] = None
                         ) -> Dict[str, torch.Tensor]:
-    model = Architecture(cfg)
+    if pair is None:
+        model = Architecture(cfg)
+    elif pair in ("homo", "hetero"):
+        model = PairArchitecture(cfg, hetero=pair == "hetero")
+    else:
+        raise ValueError(f"pair must be None, 'homo' or 'hetero', not "
+                         f"{pair!r}")
     weights = dict(model.named_parameters())
     out = convert_tree(params, weights)
     if batch_stats is not None:

@@ -6,7 +6,8 @@ label of a classification dataset becomes -1 (``datasets.py:136-137``).
 The processed cache (``processed/dataset_<name>.npz``) and the split
 indices (``processed/split_<seed>_<name>_<split>.npz``) have the JAX
 package's names and contents, so either package reads what the other
-wrote.  Pair datasets and ``physprop_perturb`` raise and name their
+wrote.  ``auto_dataset`` routes the pair datasets to
+``data/pair_datasets.py``; ``physprop_perturb`` raises and names its
 ROADMAP item.
 """
 from __future__ import annotations
@@ -203,21 +204,44 @@ def load_graph_cache(path: Path) -> List[GraphArrays]:
 
 
 def auto_dataset(args: dict):
-    """(args, dataset, trainer kind) for a single-graph dataset, as the
-    JAX package's ``auto_dataset`` resolves them; sets ``args['out_dim']``
-    from the loss and the task count."""
+    """(args, dataset, trainer kind), as the JAX package's
+    ``auto_dataset`` resolves them; sets ``args['out_dim']`` from the loss
+    and the task count, and for the pair datasets their default loss when
+    ``args['loss']`` is unset or ``mse`` (the CLI's default): DDI
+    ``bcel``, BindingDB ``ce``, LIT-PCBA ``wce``."""
     name = args["dataset"]
     pairs = [n for v in PAIR_DATASET_NAMES.values() for n in v]
     if name not in DATASET_NAMES["r"] + DATASET_NAMES["c"] + pairs:
         raise ValueError("error dataset input")
-    if name in pairs:
-        raise NotImplementedError(
-            f"pair dataset {name!r} is not ported yet (ROADMAP queue A, "
-            "'Pair families')")
+    split_seed = args.get("split_seed", 1234)
+    default_loss = args.get("loss") in (None, "mse")
+    if name in PAIR_DATASET_NAMES["ddi"]:
+        # binary vs multiclass head: decided by the dataset's label set
+        from .pair_datasets import DDIDataset
+        ds = DDIDataset(args["dataset_root"], dataset=name,
+                        split_seed=split_seed)
+        if default_loss:
+            args["loss"] = "bcel"
+        return args, ds, "pair_ddi"
+    if name in PAIR_DATASET_NAMES["dti"]:
+        from .pair_datasets import BindingDBDataset
+        ds = BindingDBDataset(args["dataset_root"], dataset=name)
+        args["out_dim"] = 2
+        if default_loss:
+            args["loss"] = "ce"
+        return args, ds, "pair_binary"
+    if name in PAIR_DATASET_NAMES["scr"]:
+        from .pair_datasets import LITPCBADataset
+        ds = LITPCBADataset(args["dataset_root"], target=name,
+                            split_seed=split_seed)
+        args["out_dim"] = 2
+        if default_loss:
+            args["loss"] = "wce"
+        return args, ds, "pair_screening"
     if name == "physprop_perturb":
         raise NotImplementedError(
-            "physprop_perturb is not ported yet (ROADMAP queue A, 'Rest of "
-            "the layer library': data/perturb.py and Trainer.pasp)")
+            "physprop_perturb is not ported yet (ROADMAP A3b, 'PASP and "
+            "multitask': data/perturb.py and Trainer.pasp)")
     ds = MolDataset(args["dataset_root"], dataset=name,
                     split=args.get("split", "random"),
                     split_seed=args.get("split_seed", 1234))

@@ -1,10 +1,17 @@
-"""The single-graph model, with the JAX package's config strings and
-semantics (``nn/model.py``): pre-linear -> message_steps x weight-tied
-MessageBlock -> readout -> flat LinearBlock -> lin_out1.
+"""The models, with the JAX package's config strings and semantics
+(``nn/model.py``):
+
+  Architecture      single graph: pre-linear -> message_steps x
+                    weight-tied MessageBlock -> readout -> flat
+                    LinearBlock -> lin_out1
+  PairArchitecture  two towers with separate weights and a cross-graph
+                    fusion per message step -> lin_out0 -> lin_out1; the
+                    homo DDI model (two molecules) and, with ``hetero``,
+                    the DTI model (molecule and protein contact map)
 
 Module names follow the JAX parameter tree (``mol.lin0``, ``mol.conv``,
-``mol.flat``, ``lin_out1``), so ``convert.state_dict_from_jax`` maps one
-onto the other name for name.
+``mol.flat``, ``lin_out1``; ``mol1``, ``mol2``, ``lin_out0``), so
+``convert.state_dict_from_jax`` maps one onto the other name for name.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 
 from ..data.graph import GraphBatch
 from .blocks import LinearBlock, MessageBlock
+from .fusion import dot_and_global_pool
 from .init import reset_parameters
 from .readouts import get_readout
 
@@ -117,6 +125,52 @@ class Architecture(torch.nn.Module):
         res = self.mol(g, return_nodes=return_nodes, generator=generator)
         out = self.lin_out1(res[0] if return_nodes else res, generator)
         return (out, res[1]) if return_nodes else out
+
+
+class PairArchitecture(torch.nn.Module):
+    """Two-tower pair model with a cross-graph fusion per message step.
+
+    ``hetero`` takes the ``pro_*`` dims and config for the second tower
+    (DTI); without it both towers are molecule towers with separate
+    weights (DDI).  Parameters and noise as in :class:`Architecture`;
+    ``forward(g1, g2, generator=None)``, labels on ``g1``."""
+
+    def __init__(self, cfg: ModelConfig, hetero: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = self.cfg = cfg
+        self.hetero = hetero
+        hid = c.hid_dim
+        self.mol1 = _Tower(c.mol_in_dim, c.mol_edge_in_dim, hid, hid,
+                           c.mol_block, c.mol_readout, c.message_steps, c,
+                           c.max_nodes)
+        self.max_nodes2 = c.pro_max_nodes if hetero else c.max_nodes
+        self.mol2 = _Tower(
+            c.pro_in_dim if hetero else c.mol_in_dim,
+            c.pro_edge_in_dim if hetero else c.mol_edge_in_dim, hid, hid,
+            c.pro_block if hetero else c.mol_block,
+            c.pro_readout if hetero else c.mol_readout, c.message_steps, c,
+            self.max_nodes2)
+        self.lin_out0 = LinearBlock(hid * 2 + 2 * c.message_steps, c.e_dim,
+                                    norm=c.end_norm, dropout=c.end_do,
+                                    act=c.end_act)
+        self.lin_out1 = LinearBlock(c.e_dim, c.out_dim, norm=c.end_norm,
+                                    dropout=c.end_do, act="_None")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        reset_parameters(self, generator)
+
+    def forward(self, g1: GraphBatch, g2: GraphBatch,
+                generator: Optional[torch.Generator] = None):
+        out1, xs1 = self.mol1(g1, return_nodes=True, generator=generator)
+        out2, xs2 = self.mol2(g2, return_nodes=True, generator=generator)
+        fusion = [dot_and_global_pool(
+            x1, x2, g1.node_graph, g1.node_pos, g1.n_node, g2.node_graph,
+            g2.node_pos, g2.n_node, g1.num_graphs, self.cfg.max_nodes,
+            self.max_nodes2, stats5=False) for x1, x2 in zip(xs1, xs2)]
+        out = self.lin_out0(torch.cat([out1, out2] + fusion, dim=-1),
+                            generator)
+        return self.lin_out1(out, generator)
 
 
 _NON_MODEL_ARGS = frozenset([

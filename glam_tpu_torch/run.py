@@ -3,15 +3,26 @@
 
     python -m glam_tpu_torch.run --dataset demo --dataset_root datasets/demo \\
         --epochs 2 --loss bcel --mol_block _TripletMessage
+    python -m glam_tpu_torch.run --dataset drugbank_caster \\
+        --dataset_root datasets/ddi_demo --mol_block _TripletMessage
+    python -m glam_tpu_torch.run --dataset bindingdb_c \\
+        --dataset_root datasets/dti_demo --mol_block _TripletMessage \\
+        --pro_block _GATConv
+    python -m glam_tpu_torch.run --dataset ALDH1 \\
+        --dataset_root datasets/scr_demo --mol_block _TripletMessage
 
-Every conv, norm and readout name of the JAX package is taken; with no
+Property datasets train the single-graph model; the pair datasets (DDI
+``drugbank_caster``, DTI ``bindingdb_c``, LIT-PCBA screening targets)
+the two-tower pair model, dispatched by ``make_auto_trainer``.  Every
+conv, norm and readout name of the JAX package is taken; with no
 ``--mol_block`` it trains ``_NNConv``, the JAX CLI's default.  It trains
 on the CUDA card ``--gpu`` (default 0); ``--platform cpu`` trains on the
 host CPU instead.  ``--pallas``, ``--probe_compile``,
 ``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
 kernels always run on the card, and eager PyTorch compiles nothing.
-``--dtype bfloat16``, ``--n_devices > 1``, ``--pro_shards > 1`` and the
-pair datasets raise ``NotImplementedError`` naming their ROADMAP item.
+``--dtype bfloat16``, ``--n_devices > 1``, ``--pro_shards > 1`` and
+``physprop_perturb`` raise ``NotImplementedError`` naming their ROADMAP
+item; ``--pair_batch > 1`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -113,7 +124,8 @@ def main(argv=None):
     args = vars(build_parser().parse_args(argv))
     device = resolve_run_device(args)
     from .data.datasets import auto_dataset
-    from .train.trainer import check_supported, make_trainer
+    from .train.pair_trainer import make_auto_trainer
+    from .train.trainer import check_supported
     from .utils.seed import seed_everything
 
     check_supported(args)
@@ -126,8 +138,9 @@ def main(argv=None):
     args, dataset, trainer_kind = auto_dataset(args)
     print("Training init...")
     resume = args.pop("resume", None)
-    trainer = make_trainer(args, dataset, trainer_kind,
-                           work_dir=args.get("work_dir"), device=device)
+    trainer = make_auto_trainer(args, dataset, trainer_kind,
+                                work_dir=args.get("work_dir"),
+                                device=device)
     if resume:
         trainer.resume(resume)
     trainer.train_and_test()

@@ -1,9 +1,22 @@
-"""Serving: load a checkpoint, predict from SMILES.
+"""Serving: load a checkpoint, predict from SMILES, or from pairs.
 
     pred = Predictor.from_checkpoint("<run_dir>", batch_size=128)
     scores = pred.predict_smiles(["CCO", "c1ccccc1"])
 
-The port of the JAX package's ``Predictor`` (``serve.py``).  Batches are
+    pair = PairPredictor.from_checkpoint("<pair run_dir>",
+                                         contact_maps={seq: cmap})
+    scores = pair.predict_scores([("CCO", seq), ("c1ccccc1", seq)])
+
+The port of the JAX package's ``Predictor`` and ``PairPredictor``
+(``serve.py``).  ``PairPredictor`` serves a ``PairArchitecture``
+checkpoint: a DDI one (tasks ``pair_binary_bce``, ``pair_multiclass``)
+from (SMILES, SMILES) pairs, a DTI one from (SMILES, protein sequence)
+pairs, each sequence's residue graph made from its contact map in
+``contact_maps``; a pair whose SMILES does not featurize or whose
+protein has no contact map yields a NaN row.  Its batch budgets are
+monotone floors kept across calls (``PairGraphLoader``'s ``budget1`` /
+``budget2``), which fit the inputs given: a contact-map graph has far
+more edges per node than ``pinned_budgets`` assumes.  Batches are
 padded to budgets pinned from the checkpoint's ``max_nodes``, with a
 fallback to input-derived budgets for unusually large molecules;
 SMILES that cannot be featurized yield NaN rows.  Loading runs no forward
@@ -22,15 +35,21 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .chem.featurize import smiles_to_arrays
-from .data.batching import GraphLoader
+from .data.batching import GraphLoader, PairGraphLoader
 from .data.graph import GraphArrays, GraphBatch
-from .nn.model import Architecture, ModelConfig, model_config_from_args
+from .data.pair_datasets import mol_graph, protein_graph
+from .nn.model import (Architecture, ModelConfig, PairArchitecture,
+                       model_config_from_args)
+
+# the DDI tasks, whose checkpoints hold the homo two-molecule model; the
+# other pair tasks' hold the hetero (molecule, protein) model
+HOMO_PAIR_TASKS = ("pair_binary_bce", "pair_multiclass")
 
 
 def resolve_device(device) -> torch.device:
@@ -56,7 +75,8 @@ def pinned_budgets(batch_size: int, max_nodes: int):
             8 * -(-(3 * batch_size * max_nodes) // 8))
 
 
-def save_checkpoint(run_dir, model: Architecture, args: Dict,
+def save_checkpoint(run_dir, model: Union[Architecture, PairArchitecture],
+                    args: Dict,
                     which: str = "best_save.pt",
                     records: Optional[Dict] = None) -> Path:
     """Write ``run_dir/which``; ``args`` gains the model's ``model_cfg``
@@ -97,6 +117,10 @@ class Predictor:
         payload = torch.load(Path(run_dir) / which, map_location="cpu",
                              weights_only=True)
         args = json.loads(payload["args"])
+        if str(args.get("task", "")).startswith("pair_"):
+            raise ValueError(
+                f"{Path(run_dir) / which} holds a pair model (task "
+                f"{args['task']!r}); serve it with PairPredictor")
         if "model_cfg" in args:
             cfg = ModelConfig(**args["model_cfg"])
         else:
@@ -162,3 +186,104 @@ class Predictor:
             ex = np.exp(logits - logits.max(-1, keepdims=True))
             return (ex / ex.sum(-1, keepdims=True))[..., 1]
         return out
+
+
+class PairPredictor:
+    """Pair-model predictor: DDI (SMILES, SMILES) or DTI (SMILES,
+    protein sequence + contact map); see the module docstring."""
+
+    def __init__(self, model: PairArchitecture, args: Dict,
+                 contact_maps: Optional[Dict[str, np.ndarray]] = None,
+                 batch_size: int = 16, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.args = args
+        self.hetero = model.hetero
+        self.contact_maps = contact_maps or {}
+        self.task = args.get("task", "pair_binary")
+        self.out_dim = int(args.get("out_dim", 1))
+        self.batch_size = max(int(batch_size), 1)
+        self._pro_cache: Dict[str, GraphArrays] = {}
+        # sticky (node, edge) budget floors per tower, grown as needed
+        self.budget1: Optional[Tuple[int, int]] = None
+        self.budget2: Optional[Tuple[int, int]] = None
+
+    @classmethod
+    def from_checkpoint(cls, run_dir, which: str = "best_save.pt",
+                        contact_maps: Optional[Dict[str, np.ndarray]] = None,
+                        batch_size: int = 16,
+                        device="cuda") -> "PairPredictor":
+        resolve_device(device)
+        path = Path(run_dir) / which
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        args = json.loads(payload["args"])
+        task = str(args.get("task", ""))
+        if not task.startswith("pair_"):
+            raise ValueError(f"{path} holds a single-graph model (task "
+                             f"{task!r}); serve it with Predictor")
+        model = PairArchitecture(ModelConfig(**args["model_cfg"]),
+                                 hetero=task not in HOMO_PAIR_TASKS)
+        model.load_state_dict(payload["state_dict"])
+        return cls(model, args, contact_maps, batch_size, device)
+
+    def _protein(self, seq: str) -> Optional[GraphArrays]:
+        if seq in self._pro_cache:
+            return self._pro_cache[seq]
+        cm = self.contact_maps.get(seq)
+        if cm is None:
+            return None
+        g = self._pro_cache[seq] = protein_graph(seq, cm)
+        return g
+
+    def samples(self, pairs: Sequence[tuple]
+                ) -> List[Optional[Tuple[GraphArrays, GraphArrays]]]:
+        """One (g1, g2) per pair; None where either side cannot be
+        resolved."""
+        out: List[Optional[Tuple[GraphArrays, GraphArrays]]] = []
+        for a, b in pairs:
+            g1 = mol_graph(a)
+            g2 = None if g1 is None else (
+                self._protein(b) if self.hetero else mol_graph(b))
+            out.append((g1, g2) if g2 is not None else None)
+        return out
+
+    def loader(self, valid) -> PairGraphLoader:
+        """The padded batches of the resolved pairs ``valid``, at budgets
+        no smaller than the previous calls'; the floors move up to
+        them."""
+        loader = PairGraphLoader(valid, self.batch_size, 1,
+                                 budget1=self.budget1, budget2=self.budget2)
+        self.budget1, self.budget2 = loader.budget1, loader.budget2
+        return loader
+
+    def predict_pairs(self, pairs: Sequence[tuple]) -> np.ndarray:
+        """[N, out] outputs (logits); unresolvable pairs yield NaN
+        rows."""
+        samples = self.samples(pairs)
+        valid = [s for s in samples if s is not None]
+        outs = []
+        if valid:
+            with torch.inference_mode():
+                for b1, b2 in self.loader(valid):
+                    out = self.model(b1.to(self.device),
+                                     b2.to(self.device)).cpu().numpy()
+                    outs.append(out[b1.graph_mask.numpy()])
+            preds = np.concatenate(outs, axis=0)
+        else:
+            preds = np.zeros((0, self.out_dim), np.float32)
+        width = preds.shape[1] if preds.size else self.out_dim
+        full = np.full((len(samples), width), np.nan, np.float32)
+        full[np.asarray([s is not None for s in samples], bool)] = preds
+        return full
+
+    def predict_scores(self, pairs: Sequence[tuple]) -> np.ndarray:
+        """Interaction probability per pair (sigmoid of the 1-logit DDI
+        head, softmax P(class 1) of the 2-logit DTI head), else the first
+        output."""
+        out = self.predict_pairs(pairs)
+        if self.task == "pair_binary_bce":
+            return 1.0 / (1.0 + np.exp(-out[:, 0]))
+        if self.task in ("pair_binary", "pair_screening"):
+            ex = np.exp(out - np.nanmax(out, axis=-1, keepdims=True))
+            return (ex / ex.sum(-1, keepdims=True))[:, 1]
+        return out[:, 0]

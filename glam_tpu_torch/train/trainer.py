@@ -1,7 +1,11 @@
-"""Training engine for the single-graph model: train and eval steps, the
-epoch loop with early stop, ReduceLROnPlateau, best checkpoints, resume,
-and the parseable result line.  The port of the JAX package's
-``train/trainer.py`` (``Trainer``, ``make_trainer``).
+"""Training engine: train and eval steps, the epoch loop with early
+stop, ReduceLROnPlateau, best checkpoints, resume, and the parseable
+result line.  The port of the JAX package's ``train/trainer.py``
+(``Trainer``, ``make_trainer``).  The steps and the epoch loop are
+generic over a loader item's parts (``Trainer._as_parts``): one
+``GraphBatch`` here, a (g1, g2) pair in ``pair_trainer.PairTrainer``,
+which swaps the loaders, the loss and the metric heads; the labels and
+the graph mask are the first part's.
 
 Each optimizer step is one forward, one backward and one update, on the
 trainer's device (``cuda`` unless the caller passes ``device="cpu"``).
@@ -35,7 +39,7 @@ import shutil
 import time
 from datetime import datetime, timezone
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,7 +113,7 @@ class Trainer:
 
     TASK = "regression"
 
-    def __init__(self, args: Dict, model: Architecture, train_graphs,
+    def __init__(self, args: Dict, model: torch.nn.Module, train_graphs,
                  valid_graphs, test_graphs=None, print_log: bool = True,
                  work_dir: Optional[str] = None, device="cuda"):
         check_supported(args)
@@ -122,16 +126,8 @@ class Trainer:
         self.num_tasks = int(self.args.get("num_tasks", 1))
         seed = int(self.args.get("seed", 1234))
 
-        nt = self.num_tasks
-        self.train_loader = GraphLoader(
-            train_graphs, int(self.args.get("batch_size", 32)), nt,
-            shuffle=True, seed=seed)
-        self.valid_loader = GraphLoader(valid_graphs, 32, nt)
-        self.test_loader = (GraphLoader(test_graphs, 32, nt)
-                            if test_graphs else None)
-
-        self.loss_fn = make_loss_fn(self.task, self.args.get("loss", "mse"),
-                                    nt)
+        self._make_loaders(train_graphs, valid_graphs, test_graphs)
+        self.loss_fn = self._make_loss()
         self.optimizer = make_optimizer(
             self.args.get("optim", "Adam"), self.model.named_parameters(),
             float(self.args.get("lr", 1e-3)), k=int(self.args.get("k", 6)))
@@ -163,12 +159,39 @@ class Trainer:
                          len(test_graphs) if test_graphs else 0))
         self.log("total parameters:" + str(n_params))
 
+    # -- wiring hooks (PairTrainer replaces these) ----------------------
+    def _make_loaders(self, train_graphs, valid_graphs, test_graphs):
+        nt = self.num_tasks
+        self.train_loader = GraphLoader(
+            train_graphs, int(self.args.get("batch_size", 32)), nt,
+            shuffle=True, seed=int(self.args.get("seed", 1234)))
+        self.valid_loader = GraphLoader(valid_graphs, 32, nt)
+        self.test_loader = (GraphLoader(test_graphs, 32, nt)
+                            if test_graphs else None)
+
+    def _make_loss(self):
+        return make_loss_fn(self.task, self.args.get("loss", "mse"),
+                            self.num_tasks)
+
+    @staticmethod
+    def _as_parts(batch) -> Tuple[GraphBatch, ...]:
+        """A loader item as a tuple of GraphBatches: (batch,) for a
+        single-graph loader, (g1, g2) for a pair loader."""
+        if isinstance(batch, GraphBatch):
+            return (batch,)
+        return tuple(batch)
+
+    def _to_device(self, batch) -> Tuple[GraphBatch, ...]:
+        return tuple(b.to(self.device) for b in self._as_parts(batch))
+
     # ------------------------------------------------------------------
-    def train_step(self, batch: GraphBatch) -> torch.Tensor:
-        """One optimizer step on a batch already on the device; returns
-        the loss, still on the device."""
-        out = self.model(batch, generator=self.generator)
-        loss = self.loss_fn(out, batch.y, batch.graph_mask)
+    def train_step(self, batch) -> torch.Tensor:
+        """One optimizer step on a batch (a ``GraphBatch`` or a tuple of
+        them) already on the device; returns the loss, still on the
+        device."""
+        parts = self._as_parts(batch)
+        out = self.model(*parts, generator=self.generator)
+        loss = self.loss_fn(out, parts[0].y, parts[0].graph_mask)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
@@ -179,8 +202,9 @@ class Trainer:
         losses, n_mol = [], 0
         t0 = time.perf_counter()
         for batch in prefetch(iter(self.train_loader)):
-            losses.append(self.train_step(batch.to(self.device)))
-            n_mol += int(batch.graph_mask.sum())
+            parts = self._to_device(batch)
+            losses.append(self.train_step(parts))
+            n_mol += int(self._as_parts(batch)[0].graph_mask.sum())
         values = torch.stack(losses).tolist() if losses else []
         dt = time.perf_counter() - t0
         self.epoch_stats.append({"steps": len(values), "molecules": n_mol,
@@ -199,12 +223,14 @@ class Trainer:
         outs, losses, ys, masks = [], [], [], []
         with torch.inference_mode():
             for batch in prefetch(iter(loader)):
-                b = batch.to(self.device)
-                out = self.model(b)
+                parts = self._to_device(batch)
+                out = self.model(*parts)
                 outs.append(out)
-                losses.append(self.loss_fn(out, b.y, b.graph_mask))
-                ys.append(batch.y.numpy())
-                masks.append(batch.graph_mask.numpy())
+                losses.append(self.loss_fn(out, parts[0].y,
+                                           parts[0].graph_mask))
+                host = self._as_parts(batch)[0]
+                ys.append(host.y.numpy())
+                masks.append(host.graph_mask.numpy())
             out = torch.cat(outs).float().cpu().numpy()
             loss = torch.stack(losses).double().cpu().numpy()
         m = np.concatenate(masks)

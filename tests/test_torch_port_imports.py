@@ -1,8 +1,8 @@
 """Import hygiene: every module of glam_tpu_torch, the layer library's
-convs, norms, readouts and kernel C's module among them, imports without
-JAX, flax, optax, pandas or scikit-learn, and without any module of the
-JAX package (checked in a fresh interpreter).  The card's machine has
-none of them."""
+convs, norms, readouts, kernel C's module and the pair families' modules
+among them, imports without JAX, flax, optax, pandas or scikit-learn, and
+without any module of the JAX package (checked in a fresh interpreter).
+The card's machine has none of them."""
 import subprocess
 import sys
 
@@ -23,7 +23,10 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.ops.segment", "glam_tpu_torch.nn.convs",
         "glam_tpu_torch.nn.norms", "glam_tpu_torch.nn.readouts",
         "glam_tpu_torch.nn.cells", "glam_tpu_torch.nn.init",
-        "glam_tpu_torch.data.graph", "glam_tpu_torch.convert"}
+        "glam_tpu_torch.data.graph", "glam_tpu_torch.convert",
+        "glam_tpu_torch.chem.proteins", "glam_tpu_torch.nn.fusion",
+        "glam_tpu_torch.data.pair_datasets",
+        "glam_tpu_torch.train.pair_trainer"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "glam_tpu")

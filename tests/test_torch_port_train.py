@@ -295,9 +295,17 @@ def test_auto_dataset_matches_jax(tmp_path):
         assert got_kind == want_kind == kind
         assert port_datasets.auto_dataset(dict(args))[0]["out_dim"] == \
             out_dim
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_datasets.auto_dataset({"dataset": "drugbank_caster",
-                                    "dataset_root": str(tmp_path)})
+    # a pair dataset routes as the JAX package routes it
+    ddi = tmp_path / "ddi" / "raw"
+    ddi.mkdir(parents=True)
+    csv_lines = (DEMO_RAW.parents[1] / "ddi_demo" / "raw"
+                 / "drugbank_caster.csv").read_text().splitlines()[:41]
+    (ddi / "drugbank_caster.csv").write_text("\n".join(csv_lines) + "\n")
+    args = {"dataset": "drugbank_caster", "dataset_root": str(ddi.parent)}
+    got_args, _, got_kind = port_datasets.auto_dataset(dict(args))
+    want_args, _, want_kind = jax_datasets.auto_dataset(dict(args))
+    assert got_kind == want_kind == "pair_ddi"
+    assert got_args == want_args
 
 
 # ------------------------------------------------------ norms and noise
@@ -466,7 +474,7 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"],
                                   ["--n_devices", "2"],
                                   ["--pro_shards", "2"],
-                                  ["--dataset", "drugbank_caster"]])
+                                  ["--dataset", "physprop_perturb"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     root = _raw_copy(tmp_path / "data", "demo", 20)
     argv = ["--dataset", "demo", "--dataset_root", str(root), "--loss",
