@@ -82,10 +82,31 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      - ``screening``: ALDH1 (scr_demo) with the CLI's defaults
        (GCNConv protein tower, loss wce), 1 epoch: A 3 per forward, B 3
        per step, C never; the final line has bedroc;
-  7. a JSON line of the kernels (times per launch on the path that
+  7. the AutoML solver on ``physprop_perturb`` (a fresh copy of
+     ``datasets/physprop`` for each search: 12,607 molecules, label
+     split 7,684 / 2,561 / 2,362): first, in a fresh process, the
+     solver's card count creates no CUDA context; kernels A and B at
+     (H, C) = (3, 15) and (3, 90) and C both ways at (1, 15), (1, 90)
+     and (1, 180), the widths the search draws on the kernels' one-lane
+     path, on a 768-molecule physprop batch and the 128-molecule demo
+     batch; then the search at seed ``AUTOML_SEED`` (4 configurations x
+     1 seed x 1 epoch; its configurations hold a _TripletMessage and
+     kernel C users, or it fails), its low-fidelity phase at
+     ``GLAM_TPU_TRIAL_SLOTS=1``, and ``glam.main`` (then the top 2 x 1
+     seed x 2 epochs, the blend and PASP) at 4 slots on the one card,
+     each timed, the card's utilisation sampled every 0.5 s; every trial
+     must exit 0, write its final line and its result.json, and count
+     the kernel launches its config implies in its own process; each
+     trial's best_save.pt serves 37 test SMILES on the card as on the
+     CPU, launches exact; the blend's and PASP's launches in this
+     process exact, the blend's RMSE and PASP's three Delta_RMSE
+     finite; ``EnsemblePredictor`` card vs CPU; each config's kernel
+     calls checked at its trainer's batch and at the test batch;
+  8. a JSON line of the kernels (times per launch on the path that
      launches each most; every path's launches, per-launch means and
-     each call's numbers at its own shapes under ``by_path``), the
-     card's line, then the final line.
+     each call's numbers at its own shapes under ``by_path``, the AutoML
+     paths ``automl_search``, ``automl_trials`` and ``automl_blend``
+     among them), the card's line, then the final line.
 
 Exits non-zero, without the final line, if anything fails.
 """
@@ -95,11 +116,14 @@ import ast
 import csv
 import json
 import math
+import os
+import random
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -129,6 +153,21 @@ DDI_ARGS = ["--epochs", "2", "--mol_block", "_TripletMessage"]
 DTI_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
             "--pro_block", "_GATConv"]
 SCR_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage"]
+# the AutoML phase: the solver's seed (its four sampled configurations
+# hold a _TripletMessage, for kernels A and B, and kernel C users; checked
+# before the search) and the search's cuts: 4 configurations x 1 seed x
+# 1 epoch, then the top 2 x 1 seed x 2 epochs (the real search: 200
+# configurations x 3 seeds x 30 epochs, then the top 3 x 5 seeds x 2,000)
+AUTOML_SEED = 73
+AUTOML_ARGS = {"n_init_configs": 4, "n_low_fidelity_seed": 1,
+               "low_fidelity_epochs": 1, "n_top_blend": 2,
+               "n_high_fidelity_seed": 1, "high_fidelity_epochs": 2}
+PHYSPROP_CSV = ROOT / "datasets" / "physprop" / "raw" / "physprop_perturb.csv"
+# the widths the search draws that kernels A and B (H = 3, C = hid) and
+# C (H = 1: C = hid, or 2 hid in GlobalLAPool) take on their one-lane
+# path (C % 4 != 0; hid = 15 x hid_dim_alpha, alpha in {1, 2, 3, 4, 6})
+AUTOML_TRIPLET_WIDTHS = (15, 90)
+AUTOML_SPMM_WIDTHS = (15, 90, 180)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside tensor cores
 
@@ -874,14 +913,8 @@ def reset_counts():
 
 def read_counts():
     """{kernel name: launches since the last reset_counts()}."""
-    from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
-        segment_softmax_spmm, segment_softmax_spmm_bwd)
-    from glam_tpu_torch.ops.kernels.triplet_fused import (
-        triplet_attention, triplet_attention_bwd)
-    return {"triplet_fused_fwd": triplet_attention.launches,
-            "triplet_fused_bwd": triplet_attention_bwd.launches,
-            "segment_softmax_spmm_fwd": segment_softmax_spmm.launches,
-            "segment_softmax_spmm_bwd": segment_softmax_spmm_bwd.launches}
+    from glam_tpu_torch.ops.kernels import launch_counts
+    return launch_counts()
 
 
 def check_counts(label, got, want):
@@ -1334,6 +1367,483 @@ def screening_phase(dev, card, tmp):
     return launches, kern
 
 
+def cuda_context_check():
+    """In a fresh process: ``DeviceManager``'s card count
+    (``torch.cuda.device_count()``) leaves every card's primary context
+    inactive, as ``cuDevicePrimaryCtxGetState`` reports it (the solver
+    process creates no context before it blends)."""
+    code = """if True:
+        import ctypes, json, torch
+        from glam_tpu_torch.automl.scheduler import DeviceManager
+        dm = DeviceManager()
+        cuda = ctypes.CDLL("libcuda.so.1")
+        def call(fn, *args):
+            if fn(*args) != 0:
+                raise RuntimeError(f"{fn.__name__} failed")
+        call(cuda.cuInit, 0)
+        active = []
+        for i in range(dm.num_cards):
+            dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+            call(cuda.cuDeviceGet, ctypes.byref(dev), i)
+            call(cuda.cuDevicePrimaryCtxGetState, dev, ctypes.byref(flags),
+                 ctypes.byref(on))
+            active.append(on.value)
+        print(json.dumps({"cards": dm.num_cards, "slots": dm.num_slots,
+                          "torch_initialized": torch.cuda.is_initialized(),
+                          "primary_contexts_active": active}))
+    """
+    env = dict(os.environ)
+    env.pop("GLAM_TPU_TRIAL_SLOTS", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"the CUDA context check failed:\n{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"automl: DeviceManager in a fresh process: {json.dumps(got)}")
+    if got["cards"] < 1 or got["torch_initialized"] or any(
+            got["primary_contexts_active"]):
+        fail("counting the cards created a CUDA context (or found none)")
+
+
+def automl_configs():
+    """The solver's first configurations at AUTOML_SEED, drawn as
+    ``GLAM.low_fidelity_training`` draws them (ids not repeated; an id
+    hashes the dataset root too, so the solver's ids differ)."""
+    from glam_tpu_torch.automl.search_space import sample_config
+    rng, seen, out = random.Random(AUTOML_SEED), [], []
+    for _ in range(AUTOML_ARGS["n_init_configs"]):
+        cfg, cid = sample_config("physprop_perturb", "", AUTOML_SEED, 1234,
+                                 rng)
+        while cid in seen:
+            cfg, cid = sample_config("physprop_perturb", "", AUTOML_SEED,
+                                     1234, rng)
+        seen.append(cid)
+        out.append(dict(cfg, note=cid))
+    return out
+
+
+def config_calls(cfg, mol_in_dim=15):
+    """The kernel calls of one forward of a single-graph config: [(kind,
+    H, C, calls per forward)], kind 'triplet' (kernel A, and B per step),
+    'light', 'gat' (kernel C over the conv's edges), 'set2set' or
+    'lapool' (kernel C over the graphs)."""
+    hid, steps = mol_in_dim * int(cfg["hid_dim_alpha"]), int(
+        cfg["message_steps"])
+    calls = []
+    conv = {"_TripletMessage": ("triplet", 3), "_TripletMessageLight":
+            ("light", 1), "_GATConv": ("gat", 1)}.get(cfg["mol_block"])
+    if conv:
+        calls.append((conv[0], conv[1], hid, steps))
+    if cfg["mol_readout"] == "Set2Set":
+        calls.append(("set2set", 1, hid, 3))
+    elif cfg["mol_readout"] == "GlobalLAPool":
+        calls.append(("lapool", 1, 2 * hid, 1))
+    return calls
+
+
+def per_forward(cfg):
+    """{kernel: launches per forward} of a config; a training step runs
+    the same counts of kernels B and C's backward."""
+    a = sum(n for kind, _, _, n in config_calls(cfg) if kind == "triplet")
+    c = sum(n for kind, _, _, n in config_calls(cfg) if kind != "triplet")
+    return {"triplet_fused_fwd": a, "segment_softmax_spmm_fwd": c}
+
+
+def spmm_call_inputs(kind, batch, C, rng, dev):
+    """Kernel C's arguments at the shapes of a ``kind`` call on
+    ``batch``: logits [M, 1] and values [M, C] around its CSR."""
+    from glam_tpu_torch.data.graph import graph_csr
+    if kind == "light":
+        (rowptr, idx), m = batch.padded_csr, batch.num_edges
+    elif kind == "gat":
+        (rowptr, idx), m = batch.self_loop_csr, batch.num_edges + \
+            batch.num_nodes
+    else:
+        (rowptr, idx), m = graph_csr(batch.n_node, batch.num_nodes), \
+            batch.num_nodes
+    return spmm_inputs(rng, rowptr, idx, m, 1, C, dev)
+
+
+def automl_width_checks(dev, card, demo, ds):
+    """Kernels A and B at (H, C) = (3, 15) and (3, 90), and C both ways
+    at (1, 15), (1, 90) over a TripletMessageLight conv's edge slots and
+    at (1, 180) over GlobalLAPool's graphs (hid 90), on a 768-molecule
+    physprop_perturb batch (the search's largest, at a trainer's budgets)
+    and on the 128-molecule demo batch: the widths the search draws, on
+    the kernels' one-lane path.  Returns {kernel: [numbers]} (off every
+    path: their errors count, their times go to PERF.md)."""
+    import numpy as np
+    from glam_tpu_torch.data.batching import GraphLoader
+    rng = np.random.RandomState(8)
+    out = {f"{k}_{w}": [] for k in ("triplet_fused", "segment_softmax_spmm")
+           for w in ("fwd", "bwd")}
+    for bname, batch in (("physprop768", next(iter(GraphLoader(
+            ds.train, 768, 1)))), ("demo128", demo_batch(demo))):
+        for C in AUTOML_TRIPLET_WIDTHS:
+            for w in ("fwd", "bwd"):
+                out[f"triplet_fused_{w}"].append(check_kernel(
+                    w, f"{bname}_h3_c{C}", batch_csr(batch), rng, dev,
+                    card, 3, C))
+        for C in AUTOML_SPMM_WIDTHS:
+            kind = "lapool" if C == 180 else "light"
+            r = check_spmm_both(f"{bname}_{kind}_h1_c{C}", spmm_call_inputs(
+                kind, batch, C, rng, dev), dev, card)
+            for w in ("fwd", "bwd"):
+                out[f"segment_softmax_spmm_{w}"].append(r[w])
+    return out
+
+
+class UtilSampler:
+    """The card's utilisation and memory, from ``nvidia-smi`` about every
+    ``period`` seconds in a thread, while it runs (a ``with`` block)."""
+
+    def __init__(self, period=0.5):
+        self.period, self.samples = period, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t = time.time()
+            r = subprocess.run(
+                ["nvidia-smi", "--query-gpu=utilization.gpu,memory.used",
+                 "--format=csv,noheader,nounits", "--id=0"],
+                capture_output=True, text=True, timeout=30)
+            if r.returncode == 0:
+                util, mem = (float(v) for v in r.stdout.split(","))
+                self.samples.append((t, util, mem))
+            self._stop.wait(max(0.0, self.period - (time.time() - t)))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            fail("the nvidia-smi sampler did not stop")
+
+    def summary(self, t0=None, t1=None):
+        s = [(u, m) for t, u, m in self.samples
+             if (t0 is None or t >= t0) and (t1 is None or t <= t1)]
+        if not s:
+            fail("no nvidia-smi utilisation sample")
+        utils = [u for u, _ in s]
+        return (f"utilisation mean {statistics.mean(utils):.1f}% median "
+                f"{statistics.median(utils):.1f}% max {max(utils):.0f}%, "
+                f"{sum(u > 0 for u in utils) / len(utils):.3f} of "
+                f"{len(utils)} samples busy; memory used up to "
+                f"{max(m for _, m in s):.0f} MiB")
+
+
+def run_search(tmp, slots, label, full):
+    """The solver on a fresh copy of physprop_perturb with
+    GLAM_TPU_TRIAL_SLOTS=slots on the one card: ``glam.main`` (low
+    fidelity, high fidelity, blend and PASP) when ``full``, else the
+    low-fidelity phase alone; the card sampled throughout; the trials'
+    output in a file.  Returns (solver, {'wall_s', 'low_s', 'util',
+    'util_low', 'launches'}): launches are this process's over the run
+    (the blend and PASP; the trials are other processes)."""
+    from glam_tpu_torch import glam
+    from glam_tpu_torch.automl.solver import GLAM
+    root = Path(tmp) / f"physprop_{label}"
+    shutil.copytree(PHYSPROP_CSV.parent, root / "raw")
+    work = Path(tmp) / f"automl_{label}"
+    work.mkdir()
+    os.environ["GLAM_TPU_TRIAL_SLOTS"] = str(slots)
+    out_path = work / "trials_stdout.txt"
+    print(f"automl search [{label}]: GLAM_TPU_TRIAL_SLOTS={slots}, seed "
+          f"{AUTOML_SEED}, {json.dumps(AUTOML_ARGS)}"
+          f"{'' if full else ' (low-fidelity phase only)'}; the trials' "
+          f"output goes to {out_path.name}", flush=True)
+    reset_counts()
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(out_path, "w") as out, UtilSampler() as sampler:
+            os.dup2(out.fileno(), 1)
+            t0 = time.time()
+            if full:
+                argv = ["--dataset", "physprop_perturb", "--dataset_root",
+                        str(root), "--seed", str(AUTOML_SEED),
+                        "--work_dir", str(work)]
+                for k, v in AUTOML_ARGS.items():
+                    argv += [f"--{k}", str(v)]
+                solver = glam.main(argv)
+            else:
+                solver = GLAM("physprop_perturb", str(root),
+                              seed=AUTOML_SEED, work_dir=str(work),
+                              **{k: v for k, v in AUTOML_ARGS.items()
+                                 if k in ("n_init_configs",
+                                          "n_low_fidelity_seed",
+                                          "low_fidelity_epochs")})
+                solver.low_fidelity_training()
+            import torch
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            sys.stdout.flush()
+    except BaseException:
+        os.dup2(saved, 1)
+        print(f"automl search [{label}] failed; the end of its output:\n"
+              f"{out_path.read_text()[-6000:]}")
+        raise
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+    launches = read_counts()
+    n_low = AUTOML_ARGS["n_init_configs"] * AUTOML_ARGS["n_low_fidelity_seed"]
+    low = solver.trials[:n_low]
+    low_end = max(t["start"] + t["seconds"] for t in low)
+    return solver, {"wall_s": wall, "low_s": low_end - t0,
+                    "util": sampler.summary(),
+                    "util_low": sampler.summary(t0, low_end),
+                    "launches": launches}
+
+
+def trial_run_dir(solver, trial):
+    """The run directory of a launched trial: the one whose result.json
+    config agrees with the trial's on every key the trial set."""
+    keys = ("note", "seed", "epochs", "mol_block", "mol_readout",
+            "hid_dim_alpha", "message_steps", "batch_size", "e_dim", "lr",
+            "optim", "loss")
+    found = []
+    for d in sorted(solver.logs_dir.iterdir()):
+        res = d / "result.json"
+        if res.is_file():
+            cfg = json.loads(res.read_text())["config"]
+            if all(cfg.get(k) == trial["config"].get(k) for k in keys):
+                found.append((d, json.loads(res.read_text())))
+    if len(found) != 1:
+        fail(f"trial {trial['config'].get('note')} seed "
+             f"{trial['config'].get('seed')}: {len(found)} run directories "
+             "match it")
+    return found[0]
+
+
+def check_trials(label, solver, dev, card, smis, n_val_b, n_test_b):
+    """Every trial of a search exited 0, wrote its final line and its
+    result.json; its own kernel launches (counted in the trial process,
+    written to result.json) are those its config implies, exactly; its
+    best_save.pt serves ``smis`` on the card as on the CPU, with the
+    launches its config implies.  Returns (launches of the trials' own
+    training, launches of serving their checkpoints here)."""
+    import numpy as np
+    from glam_tpu_torch.serve import Predictor
+    trained = dict.fromkeys(read_counts(), 0)
+    served = dict.fromkeys(read_counts(), 0)
+    if solver.failed_trials:
+        fail(f"automl [{label}]: {solver.failed_trials} trials failed")
+    for t in solver.trials:
+        cfg = t["config"]
+        if t["proc"].returncode != 0:
+            fail(f"automl [{label}]: trial {cfg['note']} exited "
+                 f"{t['proc'].returncode}")
+        run_dir, res = trial_run_dir(solver, t)
+        last = (run_dir / "log.txt").read_text().strip().splitlines()[-1]
+        parts = last.split("|")
+        if len(parts) != 3 or not all(isinstance(ast.literal_eval(q), dict)
+                                      for q in parts):
+            fail(f"automl [{label}]: {run_dir.name} lacks its final line: "
+                 f"{last!r}")
+        val = ast.literal_eval(parts[2])
+        steps, epochs = res["optimizer_steps"], res["epochs_trained"]
+        forwards = steps + (epochs + 1) * n_val_b + n_test_b
+        pf = per_forward(cfg)
+        want = {"triplet_fused_fwd": pf["triplet_fused_fwd"] * forwards,
+                "triplet_fused_bwd": pf["triplet_fused_fwd"] * steps,
+                "segment_softmax_spmm_fwd":
+                    pf["segment_softmax_spmm_fwd"] * forwards,
+                "segment_softmax_spmm_bwd":
+                    pf["segment_softmax_spmm_fwd"] * steps}
+        check_counts(f"automl [{label}] trial {cfg['note']} (its own "
+                     "process)", res["kernel_launches"], want)
+        for k, n in res["kernel_launches"].items():
+            trained[k] += n
+        if not (run_dir / "best_save.pt").is_file():
+            fail(f"automl [{label}]: {run_dir.name} saved no best_save.pt")
+        on_card = Predictor.from_checkpoint(run_dir, device=dev)
+        on_cpu = Predictor.from_checkpoint(run_dir, device="cpu")
+        reset_counts()
+        a = on_card.predict_smiles(smis)
+        got = read_counts()
+        b = on_cpu.predict_smiles(smis)
+        n_b = len(on_card.batches([g for g in on_card.featurize(smis)
+                                   if g is not None]))
+        check_counts(f"automl [{label}] serving {run_dir.name}", got,
+                     {k: n * n_b for k, n in pf.items()})
+        for k, n in got.items():
+            served[k] += n
+        err = float(np.abs(a - b).max())
+        if not (np.isfinite(a).all() and np.allclose(a, b, rtol=TOL,
+                                                     atol=TOL)):
+            fail(f"automl [{label}] {run_dir.name}: card and CPU differ by "
+                 f"{err}")
+        hid = on_card.model.cfg.hid_dim
+        print(f"  trial {cfg['note']} seed {cfg['seed']} card {cfg['gpu']}: "
+              f"{cfg['mol_block']} {cfg['mol_readout']} hid={hid} "
+              f"steps={cfg['message_steps']} batch={cfg['batch_size']} "
+              f"e_dim={cfg['e_dim']} {cfg['optim']} lr={cfg['lr']} "
+              f"loss={cfg['loss']} epochs={epochs}: wall_s="
+              f"{t['seconds']:.2f} (start-up "
+              f"{t['seconds'] - res['seconds']:.2f}, training steps "
+              f"{res['train_seconds']:.2f}, evaluation and checkpoints "
+              f"{res['seconds'] - res['train_seconds']:.2f}) "
+              f"optimizer_steps={steps} valr2="
+              f"{val.get('valr2', float('nan')):.4f} valrmse="
+              f"{val.get('valrmse', float('nan')):.4f} exit=0; own launches "
+              f"{json.dumps(res['kernel_launches'])} = per forward "
+              f"{json.dumps(pf)} x {forwards} forwards, x {steps} steps; "
+              f"best_save.pt {len(smis)} SMILES card vs CPU max_abs_err="
+              f"{err:.3e} (tol {TOL}), launches {json.dumps(got)} = x {n_b} "
+              f"batches ({card})")
+    return trained, served
+
+
+def automl_phase(dev, card, demo, tmp):
+    """The AutoML solver on physprop_perturb at the search's widths:
+    kernel checks at the widths it draws; the low-fidelity search at 1
+    slot and the whole search (``glam.main``) at 4 slots on the one card,
+    timed and the card sampled; every trial checked; the blend and PASP
+    launches (this process) exact; ``EnsemblePredictor`` card vs CPU."""
+    import numpy as np
+    from glam_tpu_torch.automl.summary import select_top_runs
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.perturb import PerturbationDataset, perturb_test
+    from glam_tpu_torch.serve import EnsemblePredictor
+
+    cuda_context_check()
+    configs = automl_configs()
+    for c in configs:
+        print(f"automl: seed {AUTOML_SEED} samples {c['mol_block']} "
+              f"{c['mol_readout']} hid={15 * c['hid_dim_alpha']} steps="
+              f"{c['message_steps']} batch={c['batch_size']} e_dim="
+              f"{c['e_dim']} {c['optim']} lr={c['lr']} loss={c['loss']}")
+    kinds = {k for c in configs for k, _, _, _ in config_calls(c)}
+    if "triplet" not in kinds or not kinds & {"light", "gat", "set2set",
+                                              "lapool"}:
+        fail(f"automl seed {AUTOML_SEED}: the sampled configurations hold "
+             f"{sorted(kinds)}: no _TripletMessage or no kernel C user")
+
+    root = Path(tmp) / "physprop_checks"
+    shutil.copytree(PHYSPROP_CSV.parent, root / "raw")
+    ds = PerturbationDataset(str(root))
+    print(f"automl: physprop_perturb {len(ds.graphs)} molecules, label "
+          f"split {len(ds.train)} / {len(ds.val)} / {len(ds.test)}")
+    widths = automl_width_checks(dev, card, demo, ds)
+
+    n_val_b = math.ceil(len(ds.val) / 32)
+    n_test_b = math.ceil(len(ds.test) / 32)
+    smis = [g.smi for g in ds.test[:37]]
+    results = {}
+    for slots, label, full in ((1, "slots1", False), (4, "slots4", True)):
+        solver, r = run_search(tmp, slots, label, full)
+        print(f"automl search [{label}]: {len(solver.trials)} trials, "
+              f"{solver.dm.num_slots} slots on {solver.dm.num_cards} card; "
+              f"low-fidelity phase wall_s={r['low_s']:.2f} ({r['util_low']});"
+              f" whole run wall_s={r['wall_s']:.2f} ({r['util']}) ({card})")
+        r["trained"], r["served"] = check_trials(
+            label, solver, dev, card, smis, n_val_b, n_test_b)
+        results[label] = (solver, r)
+    os.environ.pop("GLAM_TPU_TRIAL_SLOTS", None)
+
+    # the blend and PASP ran in this process during glam.main: their
+    # launches are those of the selected runs' forwards, exactly
+    solver, r = results["slots4"]
+    configs = [t["config"] for t in solver.trials[:len(configs)]]
+    sel = select_top_runs(solver.logs_dir, "physprop_perturb",
+                          AUTOML_ARGS["n_top_blend"])
+    sel_cfgs = [ast.literal_eval(x["config"]) for x in sel]
+    levels = {lv: perturb_test(str(root), "physprop_perturb", lv)
+              for lv in (1, 2, 3)}
+    pasp_batches = sum(math.ceil(len(m) / 32) + math.ceil(len(mp) / 32)
+                       for m, mp, _, _ in levels.values())
+    want_blend, want_pasp = dict.fromkeys(read_counts(), 0), dict.fromkeys(
+        read_counts(), 0)
+    for c in sel_cfgs:
+        for k, n in per_forward(c).items():
+            want_blend[k] += n * n_test_b
+            want_pasp[k] += n * pasp_batches
+    reset_counts()
+    again = solver.blend_and_inference()
+    blend_launches = read_counts()
+    check_counts("automl blend_and_inference", blend_launches, want_blend)
+    pasp_launches = {k: r["launches"][k] - blend_launches[k]
+                     for k in blend_launches}
+    check_counts("automl pasp_ensemble", pasp_launches, want_pasp)
+    if not all(math.isfinite(v) for v in again.values()) or any(
+            abs(again[k] - v) > 1e-6 * max(1.0, abs(v))
+            for k, v in solver.blend_result.items()):
+        fail(f"automl blend: {again} again, {solver.blend_result} in "
+             "glam.main")
+    deltas = solver.pasp_result or {}
+    if sorted(deltas) != [1, 2, 3] or not all(
+            math.isfinite(v) for v in deltas.values()):
+        fail(f"automl PASP: Delta_RMSE {deltas}")
+    print(f"automl blend of {[x['id'] for x in sel]} "
+          f"({[c['note'] + ' ' + c['mol_block'] for c in sel_cfgs]}): "
+          f"rmse={again['rmse']:.4f} r2={again['r2']:.4f} mse="
+          f"{again['mse']:.4f} ci={again['ci']:.4f}; launches "
+          f"{json.dumps(blend_launches)} = sum over the runs of "
+          f"{n_test_b} test batches x launches per forward")
+    print(f"automl PASP: Delta_RMSE level 1 {deltas[1]:.6f}, level 2 "
+          f"{deltas[2]:.6f}, level 3 {deltas[3]:.6f}; launches "
+          f"{json.dumps(pasp_launches)} = sum over the runs of "
+          f"{pasp_batches} batches (M and M' at levels 1-3) x launches per "
+          f"forward ({card})")
+
+    ens_card = EnsemblePredictor.from_runs(solver.logs_dir, n=2, device=dev)
+    ens_cpu = EnsemblePredictor.from_runs(solver.logs_dir, n=2,
+                                          device="cpu")
+    reset_counts()
+    a = ens_card.predict_smiles(smis)
+    ens_launches = read_counts()
+    b = ens_cpu.predict_smiles(smis)
+    check_counts("automl EnsemblePredictor", ens_launches, {
+        k: 2 * sum(per_forward(c)[k] for c in sel_cfgs)
+        for k in per_forward(sel_cfgs[0])})
+    if not (np.isfinite(a).all() and np.allclose(a, b, rtol=TOL, atol=TOL)):
+        fail(f"EnsemblePredictor: card and CPU differ by "
+             f"{np.abs(a - b).max()}")
+    print(f"automl EnsemblePredictor.from_runs(n=2): {len(smis)} SMILES "
+          f"card vs CPU max_abs_err={float(np.abs(a - b).max()):.3e} (tol "
+          f"rtol {TOL} + atol {TOL}); launches {json.dumps(ens_launches)}")
+
+    # each trial config's kernel calls at its trainer's batch (a first
+    # batch at the loader's budgets) and at the blend's test batch (32
+    # molecules of the test split)
+    rng = np.random.RandomState(9)
+    at = {}
+    for c in configs:
+        for where, graphs, bs in (("train", ds.train, c["batch_size"]),
+                                  ("test", ds.test, 32)):
+            batch = next(iter(GraphLoader(graphs, bs, 1, shuffle=where ==
+                                          "train", seed=12)))
+            for kind, H, C, _ in config_calls(c):
+                key = f"{where}{bs}_{kind}_c{C}"
+                if key in at:
+                    continue
+                if kind == "triplet":
+                    at[key] = {w: check_kernel(
+                        w, f"automl_{where}{bs}_h3_c{C}", batch_csr(batch),
+                        rng, dev, card, 3, C) for w in ("fwd", "bwd")}
+                else:
+                    at[key] = check_spmm_both(
+                        f"automl_{where}{bs}_{kind}_h1_c{C}",
+                        spmm_call_inputs(kind, batch, C, rng, dev), dev,
+                        card)
+    searched = dict.fromkeys(read_counts(), 0)
+    served = dict.fromkeys(read_counts(), 0)
+    for _, rr in results.values():
+        for k in searched:
+            searched[k] += rr["trained"][k]
+            served[k] += rr["served"][k]
+    return {"configs": configs, "selected": sel_cfgs, "at": at,
+            "widths": widths, "launches": {
+                "automl_search": searched, "automl_trials": served,
+                "automl_blend": r["launches"]}}
+
+
 def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
                       state=None):
     """One Adam step from the same weights on the same batch (a
@@ -1510,6 +2020,7 @@ def main() -> None:
         dti_trained, kern_dti, _ = dti_phase(dev, card, tmp)
         dti_served, kern_srv = dti_serving_phase(dev, card, demo)
         scr_trained, kern_scr = screening_phase(dev, card, tmp)
+        automl = automl_phase(dev, card, demo, tmp)
     report_traced()
 
     # each kernel's calls on each path: {path: {call: (launches per
@@ -1552,6 +2063,8 @@ def main() -> None:
                     r[w] for case, r in spmm.items()
                     if case.startswith("random")] for w in ("fwd", "bwd")}}
     off_path["segment_softmax_spmm_bwd"].append(kern_srv["gat"]["bwd"])
+    for name, checked in automl["widths"].items():
+        off_path[name] += checked
 
     pair_paths = {"train_ddi": ddi_trained, "train_dti": dti_trained,
                   "train_screening": scr_trained, "serve_dti": dti_served}
@@ -1569,6 +2082,28 @@ def main() -> None:
     for name, counts in launches.items():
         counts.update({path: n[name] for path, n in pair_paths.items()
                        if path in calls[name]})
+    # the AutoML paths: the trials' own training (counted in each trial
+    # process), serving each trial's checkpoint and the blend with PASP
+    # (this process); each config's calls timed at its trainer's batch
+    # (the search) or at the blend's test batch of 32 (the others)
+    for path, cfgs in (("automl_search", automl["configs"]),
+                       ("automl_trials", automl["configs"]),
+                       ("automl_blend", automl["selected"])):
+        for name in launches:
+            n = automl["launches"][path][name]
+            if not n:
+                continue
+            w = name.rsplit("_", 1)[1]
+            triplet = name.startswith("triplet")
+            calls[name][path] = {}
+            for c in cfgs:
+                at = (f"train{c['batch_size']}" if path == "automl_search"
+                      else "test32")
+                for kind, _, C, k in config_calls(c):
+                    if (kind == "triplet") == triplet:
+                        calls[name][path][f"{c['note']}_{at}_{kind}_c{C}"] \
+                            = (k, automl["at"][f"{at}_{kind}_c{C}"][w])
+            launches[name][path] = n
     for name, counts in launches.items():
         for path, n in counts.items():
             if n < 1:

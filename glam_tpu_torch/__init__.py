@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of ``glam_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays beside it as the reference; this package imports
-nothing of it, nor JAX.  Ported so far: the serving path of the flagship
-single-graph model (featurizer, padded batches, TripletMessage +
-GlobalPool5 ``Architecture``, ``serve.Predictor``) with the fused
-triplet-attention forward as a CUDA kernel (``csrc/triplet_fused.cu``).
+nothing of it, nor JAX.  It trains (``run``) and serves (``serve``)
+the single-graph and pair models with the whole layer library, runs the
+AutoML search with blending and PASP (``glam``, ``automl/``), and
+carries the attention in hand-written CUDA kernels (``csrc/``, built by
+``ops/kernels/build.py``).
 """

@@ -6,13 +6,19 @@ label of a classification dataset becomes -1 (``datasets.py:136-137``).
 The processed cache (``processed/dataset_<name>.npz``) and the split
 indices (``processed/split_<seed>_<name>_<split>.npz``) have the JAX
 package's names and contents, so either package reads what the other
-wrote.  ``auto_dataset`` routes the pair datasets to
-``data/pair_datasets.py``; ``physprop_perturb`` raises and names its
-ROADMAP item.
+wrote.  Both are written atomically (a temporary file in the same
+directory, then ``os.replace``), so trials started together on a fresh
+root never read a half-written file; a cache that does not load (one
+left truncated by an older writer) is rebuilt.  ``auto_dataset`` routes
+the pair datasets to ``data/pair_datasets.py`` and ``physprop_perturb``
+to ``data/perturb.py``.
 """
 from __future__ import annotations
 
 import csv
+import os
+import tempfile
+import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -56,10 +62,11 @@ TASKS: Dict[str, List[str]] = {
 
 
 def read_csv(path) -> Tuple[List[str], Dict[str, List[str]]]:
-    """(header, {column: cells}) of a CSV file, cells as strings."""
+    """(header, {column: cells}) of a CSV file, cells as strings; an
+    empty column name i is ``Unnamed: i``, as pandas names it."""
     with open(path, newline="") as f:
         reader = csv.reader(f)
-        header = next(reader)
+        header = [h or f"Unnamed: {i}" for i, h in enumerate(next(reader))]
         cols: Dict[str, List[str]] = {h: [] for h in header}
         for row in reader:
             for h, cell in zip(header, row):
@@ -120,7 +127,12 @@ class MolDataset:
                          smiles_col: str) -> List[GraphArrays]:
         cache = self._cache_path()
         if cache.exists():
-            return load_graph_cache(cache)
+            try:
+                return load_graph_cache(cache)
+            except (zipfile.BadZipFile, EOFError, ValueError, KeyError,
+                    OSError) as err:
+                print(f"[{self.dataset}] rebuilding {cache.name}: it does "
+                      f"not load ({type(err).__name__}: {err})")
         if smiles_col not in cols:
             # the physprop file uses 'SMILES'
             for alt in ("SMILES", "Smiles"):
@@ -151,8 +163,13 @@ class MolDataset:
         p = (self.processed_dir /
              f"split_{self.split_seed}_{self.dataset}_{self.split_type}.npz")
         if p.exists():
-            z = np.load(p)
-            return z["train"], z["val"], z["test"]
+            try:
+                with np.load(p) as z:
+                    return z["train"], z["val"], z["test"]
+            except (zipfile.BadZipFile, EOFError, ValueError, KeyError,
+                    OSError) as err:
+                print(f"[{self.dataset}] redrawing {p.name}: it does not "
+                      f"load ({type(err).__name__}: {err})")
         n = len(self.graphs)
         rng = np.random.RandomState(self.split_seed)
         perm = rng.permutation(n)
@@ -167,12 +184,30 @@ class MolDataset:
             tr, va, te = perm[t0], perm[v0], perm[s0]
         else:
             raise ValueError(f"Unknown split type {self.split_type!r}")
-        np.savez(p, train=tr, val=va, test=te)
+        save_npz_atomic(p, np.savez, train=tr, val=va, test=te)
         return tr, va, te
 
 
+def save_npz_atomic(path: Path, save=np.savez, **arrays) -> None:
+    """``save(file, **arrays)`` (``np.savez`` or ``np.savez_compressed``)
+    into a temporary ``.npz`` beside ``path``, then ``os.replace`` onto
+    it: a reader finds no file or a whole one, never a half-written one.
+    The temporary file is removed if the save fails."""
+    path = Path(path)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.stem}.",
+                               suffix=".npz")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            save(f, **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
+
+
 def save_graph_cache(path: Path, graphs: Sequence[GraphArrays]) -> None:
-    """Pack a graph list into one npz (ragged via concat + offsets)."""
+    """Pack a graph list into one npz (ragged via concat + offsets),
+    written atomically (:func:`save_npz_atomic`)."""
     nodes = np.concatenate([g.nodes for g in graphs], 0)
     edges = np.concatenate([g.edges for g in graphs], 0)
     senders = np.concatenate([g.senders for g in graphs])
@@ -181,17 +216,17 @@ def save_graph_cache(path: Path, graphs: Sequence[GraphArrays]) -> None:
     e_off = np.cumsum([0] + [g.senders.shape[0] for g in graphs])
     ys = np.stack([g.y for g in graphs])
     smis = np.asarray([g.smi for g in graphs])
-    np.savez_compressed(path, nodes=nodes, edges=edges, senders=senders,
-                        receivers=receivers, n_off=n_off, e_off=e_off,
-                        y=ys, smi=smis)
+    save_npz_atomic(path, np.savez_compressed, nodes=nodes, edges=edges,
+                    senders=senders, receivers=receivers, n_off=n_off,
+                    e_off=e_off, y=ys, smi=smis)
 
 
 def load_graph_cache(path: Path) -> List[GraphArrays]:
-    z = np.load(path, allow_pickle=False)
     # read each array once: indexing the NpzFile decompresses it anew
-    nodes, edges = z["nodes"], z["edges"]
-    senders, receivers = z["senders"], z["receivers"]
-    n_off, e_off, ys, smis = z["n_off"], z["e_off"], z["y"], z["smi"]
+    with np.load(path, allow_pickle=False) as z:
+        nodes, edges = z["nodes"], z["edges"]
+        senders, receivers = z["senders"], z["receivers"]
+        n_off, e_off, ys, smis = z["n_off"], z["e_off"], z["y"], z["smi"]
     out = []
     for i in range(len(n_off) - 1):
         ns, ne = n_off[i], n_off[i + 1]
@@ -239,12 +274,14 @@ def auto_dataset(args: dict):
             args["loss"] = "wce"
         return args, ds, "pair_screening"
     if name == "physprop_perturb":
-        raise NotImplementedError(
-            "physprop_perturb is not ported yet (ROADMAP A3b, 'PASP and "
-            "multitask': data/perturb.py and Trainer.pasp)")
-    ds = MolDataset(args["dataset_root"], dataset=name,
-                    split=args.get("split", "random"),
-                    split_seed=args.get("split_seed", 1234))
+        # Label-column splits (the JAX package's PerturbationDataset)
+        from .perturb import PerturbationDataset
+        ds = PerturbationDataset(args["dataset_root"], dataset=name,
+                                 split_seed=split_seed)
+    else:
+        ds = MolDataset(args["dataset_root"], dataset=name,
+                        split=args.get("split", "random"),
+                        split_seed=split_seed)
     loss = args.get("loss", "mse")
     if name in DATASET_NAMES["c"]:
         if loss in ("ce", "mtce"):

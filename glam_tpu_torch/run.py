@@ -20,9 +20,11 @@ on the CUDA card ``--gpu`` (default 0); ``--platform cpu`` trains on the
 host CPU instead.  ``--pallas``, ``--probe_compile``,
 ``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
 kernels always run on the card, and eager PyTorch compiles nothing.
-``--dtype bfloat16``, ``--n_devices > 1``, ``--pro_shards > 1`` and
-``physprop_perturb`` raise ``NotImplementedError`` naming their ROADMAP
-item; ``--pair_batch > 1`` raises ``ValueError``.
+``physprop_perturb`` trains the regression model on its Label-column
+splits (``data/perturb.py``).  ``--dtype bfloat16``, ``--n_devices > 1``
+and ``--pro_shards > 1`` raise ``NotImplementedError`` naming their
+ROADMAP item; ``--pair_batch > 1`` raises ``ValueError``.  The AutoML
+solver (``glam_tpu_torch.glam``) launches this CLI for every trial.
 """
 from __future__ import annotations
 

@@ -7,8 +7,13 @@
                                          contact_maps={seq: cmap})
     scores = pair.predict_scores([("CCO", seq), ("c1ccccc1", seq)])
 
-The port of the JAX package's ``Predictor`` and ``PairPredictor``
-(``serve.py``).  ``PairPredictor`` serves a ``PairArchitecture``
+    ens = EnsemblePredictor.from_runs("<work_dir>/log_<dataset>", n=3)
+    scores = ens.predict_scores(["CCO", "c1ccccc1"])
+
+The port of the JAX package's ``Predictor``, ``EnsemblePredictor`` and
+``PairPredictor`` (``serve.py``).  ``EnsemblePredictor`` serves the mean
+of the top runs of an AutoML search (or any log directory) as the
+solver's blend selects them.  ``PairPredictor`` serves a ``PairArchitecture``
 checkpoint: a DDI one (tasks ``pair_binary_bce``, ``pair_multiclass``)
 from (SMILES, SMILES) pairs, a DTI one from (SMILES, protein sequence)
 pairs, each sequence's residue graph made from its contact map in
@@ -186,6 +191,41 @@ class Predictor:
             ex = np.exp(logits - logits.max(-1, keepdims=True))
             return (ex / ex.sum(-1, keepdims=True))[..., 1]
         return out
+
+
+class EnsemblePredictor:
+    """Mean-score ensemble over several run checkpoints (the reference's
+    blending, metrics.py:153-186): each output is the mean of its
+    ``Predictor``s' outputs."""
+
+    def __init__(self, predictors: List[Predictor]):
+        if not predictors:
+            raise ValueError("no predictors")
+        self.predictors = predictors
+
+    @classmethod
+    def from_runs(cls, logs_dir, n: int = 3, dataset: Optional[str] = None,
+                  batch_size: int = 32, device="cuda"
+                  ) -> "EnsemblePredictor":
+        """The top ``n`` runs of ``logs_dir`` (a ``log_<dataset>``
+        directory) by their validation metric, as the solver's blend
+        selects them, each served by ``Predictor.from_checkpoint``."""
+        from .automl.summary import select_top_runs
+        logs_dir = Path(logs_dir)
+        ds = dataset or logs_dir.name.replace("log_", "")
+        sel = select_top_runs(logs_dir, ds, n)
+        return cls([Predictor.from_checkpoint(logs_dir / r["id"],
+                                              batch_size=batch_size,
+                                              device=device)
+                    for r in sel])
+
+    def predict_scores(self, smiles: Sequence[str]) -> np.ndarray:
+        return np.mean([p.predict_scores(smiles)
+                        for p in self.predictors], axis=0)
+
+    def predict_smiles(self, smiles: Sequence[str]) -> np.ndarray:
+        return np.mean([p.predict_smiles(smiles)
+                        for p in self.predictors], axis=0)
 
 
 class PairPredictor:

@@ -236,3 +236,39 @@ def multi_class_metrics(y_true, y_score, y_pred=None) -> Dict:
     prec, rec, f1 = _macro_prf(y_true, y_pred)
     return {"acc": float(np.mean(y_true == np.asarray(y_pred).reshape(-1))),
             "precision": prec, "recall": rec, "f1": f1}
+
+
+# ----------------------- ensemble blending ------------------------------
+
+def blend_regression(outputs, opt="mean", return_pred=False):
+    """outputs: list of (y_true, y_pred) arrays; blend = mean of preds."""
+    ys = [np.asarray(o[0]) for o in outputs]
+    ps = [np.asarray(o[1]) for o in outputs]
+    blended = np.mean(np.stack(ps, axis=1), axis=1)
+    if return_pred:
+        return blended
+    return regression_metrics(ys[0], blended)
+
+
+def blend_binary_classification_mt(outputs,
+                                   metrics_fn=binary_metrics_multi_target_nan):
+    """outputs: list of (y_score, y_true); blend = mean of scores."""
+    ss = [np.asarray(o[0]) for o in outputs]
+    ls = [np.asarray(o[1]) for o in outputs]
+    blended = np.mean(np.stack(ss, axis=-1), axis=-1)
+    return metrics_fn(ls[0], blended)
+
+
+def blend_binary_classification(outputs, opt="vote",
+                                metrics_fn=binary_metrics):
+    """outputs: list of (y_true, y_pred_label, y_score); the mean score and
+    a majority vote of the labels, whose ties go to the smallest label
+    (as torch's ``mode``)."""
+    ls = [np.asarray(o[0]) for o in outputs]
+    pls = [np.asarray(o[1]) for o in outputs]
+    ss = [np.asarray(o[2]) for o in outputs]
+    stack = np.stack(pls, axis=1)
+    vote = np.apply_along_axis(
+        lambda r: np.bincount(r.astype(int)).argmax(), 1, stack)
+    mean_score = np.mean(np.stack(ss, axis=1), axis=1)
+    return metrics_fn(ls[0], y_score=mean_score, y_pred=vote)

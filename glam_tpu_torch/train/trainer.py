@@ -24,7 +24,8 @@ takes batch statistics and moves its running ones), evaluation in
 
 Each run appends to ``log.txt``, whose last line is the
 ``{loss_info}|{test_result}|{val_result}`` triple of the JAX package
-(``trainer.py:682``), and writes ``result.json``.
+(``trainer.py:682``), and writes ``result.json``.  ``pasp`` evaluates
+a regression model's robustness on ``physprop_perturb``.
 
 Task trainers (one class, behaviour keyed by ``task``):
   regression       out [G,1]; criterion(out, y); RMSE/R2/CI metrics
@@ -47,6 +48,7 @@ import torch
 from ..data.batching import GraphLoader, max_graph_nodes, prefetch
 from ..data.graph import GraphBatch
 from ..nn.model import Architecture, model_config_from_args
+from ..ops.kernels import launch_counts
 from ..serve import resolve_device, save_checkpoint
 from .losses import get_loss
 from .metrics import binary_metrics_multi_target_nan, regression_metrics
@@ -66,6 +68,21 @@ def _diverged(*values) -> bool:
 def _utc_run_id(seed: int) -> str:
     ts = datetime.now(timezone.utc).strftime("%Y-%m-%d_%H:%M:%S.%f")[:-3]
     return f"{ts}_seed_{seed}"
+
+
+def _new_run_dir(logs_dir: Path, seed: int) -> Tuple[str, Path]:
+    """(run id, its directory, made now): a run id whose directory no
+    other run has made.  Trials started together (an AutoML search's)
+    can draw one millisecond's id; ``mkdir`` is atomic, so the later one
+    takes the next millisecond's instead of sharing the directory."""
+    logs_dir.mkdir(parents=True, exist_ok=True)
+    while True:
+        run_id = _utc_run_id(seed)
+        try:
+            (logs_dir / run_id).mkdir()
+            return run_id, logs_dir / run_id
+        except FileExistsError:
+            time.sleep(0.001)
 
 
 def check_supported(args: Dict) -> None:
@@ -143,10 +160,8 @@ class Trainer:
         self._early_stop_cnt = 0
 
         base = Path(work_dir) if work_dir else Path.cwd()
-        self.run_id = _utc_run_id(seed)
-        self.log_save_dir = (base / f"log_{self.args.get('dataset', 'run')}"
-                             / self.run_id)
-        self.log_save_dir.mkdir(parents=True, exist_ok=True)
+        self.run_id, self.log_save_dir = _new_run_dir(
+            base / f"log_{self.args.get('dataset', 'run')}", seed)
 
         n_params = sum(p.numel() for p in self.model.parameters())
         device_name = (torch.cuda.get_device_name(self.device)
@@ -318,7 +333,9 @@ class Trainer:
 
     def _write_structured_result(self, loss_info, test_result, val_new):
         """result.json in the run dir and a record appended to
-        <work_dir>/results.jsonl."""
+        <work_dir>/results.jsonl: the config, the results, the epochs
+        and optimizer steps trained, the seconds, and the kernels'
+        launches."""
         record = {
             "run_id": self.run_id,
             "dataset": self.args.get("dataset"),
@@ -330,6 +347,15 @@ class Trainer:
             "test": test_result,
             "val": val_new,
             "epochs_run": len(self.records["val_losses"]),
+            "epochs_trained": len(self.epoch_stats),
+            "optimizer_steps": sum(e["steps"] for e in self.epoch_stats),
+            # wall seconds since the trainer was made, and of them those
+            # of the training epochs' steps
+            "seconds": time.time() - self.start,
+            "train_seconds": sum(e["seconds"] for e in self.epoch_stats),
+            # this process's kernel launches: a trial's own, since a
+            # trial process trains one run
+            "kernel_launches": launch_counts(),
         }
         try:
             with open(self.log_save_dir / "result.json", "w") as f:
@@ -338,6 +364,34 @@ class Trainer:
                 f.write(json.dumps(record) + "\n")
         except OSError:
             pass
+
+    # ------------------------------------------------------------------
+    def pasp(self) -> Dict[int, float]:
+        """PASP robustness of a regression model (the JAX package's
+        ``Trainer.pasp``): for perturbation levels 1-3, Delta_RMSE =
+        rmse(P, P') - rmse(Q, Q'), P and P' the model's predictions on
+        the original and perturbed test molecules, Q and Q' their labels.
+        Returns {level: Delta_RMSE}."""
+        from ..data.perturb import perturb_test
+
+        results = {}
+        for level in (1, 2, 3):
+            self.log(f"Run model for perturbed test level {level}...")
+            M, M_prime, Q, Q_prime = perturb_test(
+                self.args["dataset_root"], self.args["dataset"], level)
+            saved = self.test_loader
+            self.test_loader = GraphLoader(M, 32, self.num_tasks)
+            _, P = self.valid_iterations(mode="inference")
+            self.test_loader = GraphLoader(M_prime, 32, self.num_tasks)
+            _, P_prime = self.valid_iterations(mode="inference")
+            self.test_loader = saved
+            l_pp = regression_metrics(P, P_prime)
+            l_qq = regression_metrics(Q, Q_prime)
+            self.log(f"L(P, P') is {l_pp}, and\n L(Q, Q') is {l_qq}")
+            delta = l_pp["rmse"] - l_qq["rmse"]
+            self.log(f"Delta_RMSE={delta}")
+            results[level] = delta
+        return results
 
     # ------------------------------------------------------------------
     def save_ckpt(self, epoch: int, final_save: bool = False):

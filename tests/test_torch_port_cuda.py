@@ -76,6 +76,8 @@ CASES = [
     ("empty_runs", 3, 60),    # 200 empty rows in a row, 30 at the end
     ("padded", 3, 60),        # 37 padded edges after the real ones
     ("padded", 2, 5),         # H*C = 10, C not a multiple of 4
+    ("random", 3, 15),        # the search's hid 15 and 90: one-lane path
+    ("random", 3, 90),
     ("misaligned", 3, 60),    # xp not 16-byte aligned: one channel a group
 ]
 
@@ -272,6 +274,9 @@ SPMM_CASES = [
     ("random", 1, 512),
     ("random", 1, 30),        # H*C not a multiple of 4: 4-byte copies
     ("random", 2, 30),        # C not a multiple of 4: one channel a group
+    ("random", 1, 15),        # the search's hid 15 and 90, and 180 in
+    ("random", 1, 90),        # GlobalLAPool at hid 90: 4-byte copies
+    ("random", 1, 180),
     ("misaligned", 1, 60),    # values not 16-byte aligned: 4-byte copies
     ("long_row", 1, 60),      # one row of 5,000 entries
     ("one_boundary", 1, 60),  # a row crossing exactly one block boundary

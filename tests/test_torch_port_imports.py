@@ -1,6 +1,7 @@
 """Import hygiene: every module of glam_tpu_torch, the layer library's
-convs, norms, readouts, kernel C's module and the pair families' modules
-among them, imports without JAX, flax, optax, pandas or scikit-learn, and
+convs, norms, readouts, kernel C's module, the pair families' modules and
+the AutoML solver's (``automl/``, ``glam``, ``demo``, ``data/perturb``,
+``data/transforms``) among them, imports without JAX, flax, optax, pandas or scikit-learn, and
 without any module of the JAX package (checked in a fresh interpreter).
 The card's machine has none of them."""
 import subprocess
@@ -26,7 +27,12 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.data.graph", "glam_tpu_torch.convert",
         "glam_tpu_torch.chem.proteins", "glam_tpu_torch.nn.fusion",
         "glam_tpu_torch.data.pair_datasets",
-        "glam_tpu_torch.train.pair_trainer"}
+        "glam_tpu_torch.train.pair_trainer",
+        "glam_tpu_torch.automl.search_space",
+        "glam_tpu_torch.automl.scheduler", "glam_tpu_torch.automl.summary",
+        "glam_tpu_torch.automl.ensemble", "glam_tpu_torch.automl.solver",
+        "glam_tpu_torch.glam", "glam_tpu_torch.demo",
+        "glam_tpu_torch.data.perturb", "glam_tpu_torch.data.transforms"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "glam_tpu")

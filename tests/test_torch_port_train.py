@@ -474,7 +474,7 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"],
                                   ["--n_devices", "2"],
                                   ["--pro_shards", "2"],
-                                  ["--dataset", "physprop_perturb"]])
+                                  ["--dtype", "float16"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     root = _raw_copy(tmp_path / "data", "demo", 20)
     argv = ["--dataset", "demo", "--dataset_root", str(root), "--loss",
