@@ -8,7 +8,12 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. builds every CUDA kernel of the port from ``glam_tpu_torch/csrc``
-     (one ``nvcc`` per source, all started together);
+     (one ``nvcc`` per source, all started together) and, beside them,
+     the C++ SMILES featurizer (``g++``), printing its build seconds;
+     then ``native``: the C++ featurizer against the Python one, byte
+     for byte, on the demo corpus and on ``datasets/physprop`` (12,607
+     SMILES, whose 2 hypervalent iodine SMILES both reject), with each
+     one's seconds and molecules/s;
   3. kernel phase: each kernel against its plain torch version on the
      card, device times (median of CUDA-event timings) beside the bound:
      kernel A (the triplet-attention forward, with its row statistics)
@@ -32,7 +37,19 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      served by ``Predictor(device="cuda")`` for three requests (the whole
      demo corpus, 37 molecules, and one with invalid SMILES); outputs are
      held against ``Predictor(device="cpu")`` on the same checkpoint and
-     kernel A's launch count against the batches served;
+     kernel A's launch count against the batches served; the demo
+     corpus's featurize seconds (now native) beside the Python
+     featurizer's earlier ones (PYTHON_FEATURIZE);
+     ``jax_checkpoint``: the two JAX-written checkpoints of
+     ``tests/data/jax_ckpt`` (the flagship; TripletMessageLight + Set2Set
+     with BatchNorm) served through ``Predictor.from_checkpoint(...,
+     which="best_save.ckpt")``, then ``EnsemblePredictor.from_runs`` over
+     both, scores within rtol 1e-4 + atol 1e-4 of the JAX package's own
+     (``expected.npz``), NaN rows at the invalid SMILES, launches exact
+     (A 3 a batch; C 6 a batch); ``viz``: ``Visualizer.weights`` on 8
+     SMILES over them (``hidden_node``, ``triplet_attention``,
+     ``set2set_attention``) within 1e-4 of the JAX Visualizer's, one
+     forward a molecule;
   5. training phases, each through ``glam_tpu_torch.run.main`` on the
      demo dataset at full width (the CLI's defaults otherwise: Adam,
      batch 32, Dropout(0.2) and RReLU), each final line parsed and
@@ -54,6 +71,12 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
        epoch: kernel C 4 times per forward and per step; gradients card
        vs CPU; kernel C at the trainer's batch (GAT's edges and
        self-loops, GlobalLAPool's graphs at width 120);
+     - the flagship (2 epochs) and TripletMessageLight + Set2Set (1
+       epoch) at ``--dtype bfloat16``: final lines finite, masters and
+       checkpoints float32, launches exact, one step's gradients on the
+       card as close to the float32 ones as the CPU's (BF16_GRAD_TOL),
+       the step's times
+       beside the float32 run's;
      - the CLI's default (_NNConv, GlobalPool5, _PairNorm), 1 epoch: no
        kernel; then one step of a _GCNConv model's gradients card vs CPU;
   6. the pair families, each through ``glam_tpu_torch.run.main`` on its
@@ -105,8 +128,10 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
   8. a JSON line of the kernels (times per launch on the path that
      launches each most; every path's launches, per-launch means and
      each call's numbers at its own shapes under ``by_path``, the AutoML
-     paths ``automl_search``, ``automl_trials`` and ``automl_blend``
-     among them), the card's line, then the final line.
+     paths ``automl_search``, ``automl_trials`` and ``automl_blend`` and
+     the ``train_flagship_bf16``, ``train_library_bf16``,
+     ``serve_jax_ckpt`` and ``viz`` among them), the card's line, then
+     the final line.
 
 Exits non-zero, without the final line, if anything fails.
 """
@@ -851,6 +876,9 @@ def breakdown(pred, demo):
           f"{t2 - t1:.4f} to_device_s={t3 - t2:.4f} forward_s="
           f"{t4 - t3:.4f} ({len(batches)} batches); one batch forward "
           f"device_ms={fwd_ms:.4f}")
+    print(f"serving featurize [demo_all, native]: {len(demo)} SMILES in "
+          f"{t1 - t0:.4f} s = {len(demo) / (t1 - t0):.1f} mol/s; "
+          f"{PYTHON_FEATURIZE}")
     with torch.inference_mode():
         print_profile("one batch forward", lambda: pred.model(moved[0]))
 
@@ -1015,7 +1043,7 @@ def training_phase(dev, card, tmp):
             for w in ("fwd", "bwd")}
     function_on_card_vs_cpu(dev, csr, rng)
     grads_card_vs_cpu(trainer, cfg, batch, dev)
-    step_timing(trainer, batch.to(dev), card)
+    STEP_TIMES["flagship"] = step_timing(trainer, batch.to(dev), card)
     return {k: launches[k] for k in ("triplet_fused_fwd",
                                      "triplet_fused_bwd")}, kern
 
@@ -1041,7 +1069,7 @@ def library_phase(dev, card, tmp, demo):
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
                             cfg.hid_dim, np.random.RandomState(2), dev, card)
-    step_timing(trainer, batch.to(dev), card)
+    STEP_TIMES["light_set2set"] = step_timing(trainer, batch.to(dev), card)
 
     run_dir = trainer.log_save_dir
     on_card = Predictor.from_checkpoint(run_dir, batch_size=128, device=dev)
@@ -1844,6 +1872,305 @@ def automl_phase(dev, card, demo, tmp):
                 "automl_blend": r["launches"]}}
 
 
+# ---------- native featurizer, JAX checkpoints, viz, bfloat16 training
+JAX_FIXTURES = ROOT / "tests" / "data" / "jax_ckpt"
+# the fixtures' modes (scripts/make_jax_ckpt_fixtures.py writes the JAX
+# Visualizer's weights in each)
+VIZ_MODES = {"flagship": ("hidden_node", "triplet_attention"),
+             "light_set2set_bn": ("set2set_attention",)}
+BF16_TRAIN_ARGS = TRAIN_ARGS + ["--dtype", "bfloat16"]
+BF16_LIBRARY_ARGS = ["--epochs", "1"] + LIBRARY_ARGS[2:] + ["--dtype",
+                                                            "bfloat16"]
+# card against CPU at --dtype bfloat16: both bfloat16 gradient trees
+# approximate the float32 one (bfloat16 keeps 8 bits of mantissa, and the
+# card's and the CPU's bfloat16 matmuls round partial sums differently),
+# and the card's largest distance from it, as a share of the tree's
+# largest entry, may be at most BF16_GRAD_TOL times the CPU's (plus 1e-3)
+BF16_GRAD_TOL = 2.0
+# the Python featurizer's share of serving the demo corpus, measured by
+# this script before serving featurized natively (H100 80GB HBM3, 700 W)
+PYTHON_FEATURIZE = ("Python featurizer before: 0.6465 s of 0.8761 s, "
+                    "1414.3 mol/s")
+STEP_TIMES = {}
+
+
+def _outcomes(fn, smis):
+    out = []
+    for smi in smis:
+        try:
+            out.append(fn(smi))
+        except ValueError:
+            out.append(None)
+    return out
+
+
+def native_phase(card):
+    """The C++ featurizer against the Python one, byte for byte, on the
+    demo corpus and on physprop (whose 2 hypervalent-iodine SMILES both
+    must reject); each featurizer's seconds and molecules/s."""
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    from glam_tpu_torch.chem.native import smiles_to_arrays_native
+    from glam_tpu_torch.data.datasets import read_csv
+    corpora = {"demo": read_demo(),
+               "physprop": read_csv(PHYSPROP_CSV)[1]["SMILES"]}
+    for name, smis in corpora.items():
+        res, secs = {}, {}
+        for label, fn in (("native", smiles_to_arrays_native),
+                          ("python", smiles_to_arrays)):
+            t0 = time.perf_counter()
+            res[label] = _outcomes(fn, smis)
+            secs[label] = time.perf_counter() - t0
+        bad = []
+        for smi, a, b in zip(smis, res["native"], res["python"]):
+            if (a is None) != (b is None) or (a is not None and not all(
+                    x.dtype == y.dtype and x.shape == y.shape
+                    and x.tobytes() == y.tobytes() for x, y in zip(a, b))):
+                bad.append(smi)
+        if bad:
+            fail(f"native featurizer differs from the Python one on "
+                 f"{len(bad)} {name} SMILES, e.g. {bad[:3]}")
+        rejected = [s for s, a in zip(smis, res["native"]) if a is None]
+        if name == "physprop" and (len(rejected) != 2 or not all(
+                "I" in s for s in rejected)):
+            fail(f"physprop: expected the 2 hypervalent iodine SMILES to "
+                 f"reject, got {rejected}")
+        n = len(smis)
+        print(f"native [{name}]: {n} SMILES, {len(rejected)} rejected by "
+              f"both {rejected[:2]}; byte-identical; native "
+              f"{secs['native']:.4f} s = {n / secs['native']:.1f} mol/s, "
+              f"python {secs['python']:.4f} s = "
+              f"{n / secs['python']:.1f} mol/s, "
+              f"{secs['python'] / secs['native']:.2f}x ({card})")
+
+
+def _fixture(name):
+    import numpy as np
+    d = JAX_FIXTURES / name
+    return d, np.load(d / "expected.npz")
+
+
+def _served_batches(pred, smis):
+    valid = [g for g in pred.featurize(smis) if g is not None]
+    return pred.batches(valid)
+
+
+def jax_checkpoint_phase(dev, card, tmp):
+    """Both committed JAX checkpoints served on the card through
+    ``Predictor.from_checkpoint(..., which="best_save.ckpt")``, then by
+    ``EnsemblePredictor.from_runs`` over the two: scores within TOL of
+    the JAX package's (``expected.npz``), NaN rows at the invalid SMILES,
+    launches exact.  Returns the launches and the kernel checks at the
+    first served batch's shapes."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from glam_tpu_torch.serve import EnsemblePredictor, Predictor
+
+    total = {k: 0 for k in read_counts()}
+    kern, want_all = {}, {}
+    rng = np.random.RandomState(8)
+    for name in VIZ_MODES:
+        d, exp = _fixture(name)
+        smis = [str(s) for s in exp["smiles"]]
+        pred = Predictor.from_checkpoint(d, which="best_save.ckpt",
+                                         batch_size=128, device=dev)
+        pred.predict_smiles(smis[:16])              # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = pred.predict_scores(smis)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        want = exp["scores"]
+        invalid = np.isnan(want[:, 0])
+        if not (np.isnan(got[invalid]).all() and np.isfinite(
+                got[~invalid]).all() and invalid.sum() == 3):
+            fail(f"JAX checkpoint {name}: NaN rows differ from the JAX "
+                 "package's")
+        err = float(np.nanmax(np.abs(got - want)))
+        if not np.allclose(got, want, rtol=TOL, atol=TOL, equal_nan=True):
+            fail(f"JAX checkpoint {name}: card scores differ from the JAX "
+                 f"package's by {err}")
+        batches = _served_batches(pred, smis)
+        per = per_forward(dataclasses.asdict(pred.model.cfg))
+        check_counts(f"serving JAX checkpoint {name}", launches,
+                     {k: n * len(batches) for k, n in per.items()})
+        for k, n in launches.items():
+            total[k] += n
+        want_all[name] = (want, len(batches), per)
+        cfg = pred.model.cfg
+        print(f"jax_checkpoint [{name}]: {cfg.mol_block} {cfg.mol_readout} "
+              f"hid={cfg.hid_dim} steps={cfg.message_steps} e_dim="
+              f"{cfg.e_dim} norms graph={cfg.graph_norm} flat="
+              f"{cfg.flat_norm}: {len(smis)} SMILES ({int(invalid.sum())} "
+              f"invalid, NaN rows) in {len(batches)} batches, "
+              f"{secs:.4f} s; card vs the JAX package's scores "
+              f"max_abs_err={err:.3e} (tol rtol {TOL} + atol {TOL}); "
+              f"launches {json.dumps(launches)} = per forward "
+              f"{json.dumps(per)} x {len(batches)} batches ({card})")
+        if cfg.mol_block == "_TripletMessage":
+            kern["flagship"] = check_kernel(
+                "fwd", "serve_jax_flagship128", batch_csr(batches[0]), rng,
+                dev, card)
+        else:
+            kern["set2set"] = check_spmm_calls(
+                "serve_jax", batches[0], cfg.mol_block, cfg.mol_readout,
+                cfg.hid_dim, rng, dev, card)
+
+    logs = Path(tmp) / "jax_runs" / "log_demo"
+    for i, name in enumerate(VIZ_MODES):
+        shutil.copytree(JAX_FIXTURES / name, logs / f"jax{i}_seed_0")
+    ens = EnsemblePredictor.from_runs(logs, n=2, batch_size=128,
+                                      device=dev)
+    smis = [str(s) for s in _fixture("flagship")[1]["smiles"]]
+    reset_counts()
+    got = ens.predict_scores(smis)
+    launches = read_counts()
+    want = np.mean([w for w, _, _ in want_all.values()], axis=0)
+    expect = {}
+    for _, n_b, per in want_all.values():
+        for k, n in per.items():
+            expect[k] = expect.get(k, 0) + n * n_b
+    check_counts("EnsemblePredictor over the JAX runs", launches, expect)
+    err = float(np.nanmax(np.abs(got - want)))
+    if len(ens.predictors) != 2 or not np.allclose(
+            got, want, rtol=TOL, atol=TOL, equal_nan=True):
+        fail(f"EnsemblePredictor over the JAX runs: differs from the mean "
+             f"of the JAX package's scores by {err}")
+    for k, n in launches.items():
+        total[k] += n
+    print(f"jax_checkpoint EnsemblePredictor.from_runs over both JAX runs: "
+          f"{len(smis)} SMILES, card vs the mean of the JAX package's "
+          f"scores max_abs_err={err:.3e} (tol {TOL}); launches "
+          f"{json.dumps(launches)} ({card})")
+    return total, kern
+
+
+def viz_phase(dev, card):
+    """``Visualizer.weights`` over the JAX checkpoints on the card in
+    every fixture mode: within TOL of the JAX Visualizer's weights,
+    launches exact (one forward per molecule)."""
+    import dataclasses
+    import numpy as np
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.datasets import featurize_smiles
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.serve import Predictor
+    from glam_tpu_torch.viz.attention import Visualizer
+
+    total = {k: 0 for k in read_counts()}
+    kern = {}
+    rng = np.random.RandomState(9)
+    for name, modes in VIZ_MODES.items():
+        d, exp = _fixture(name)
+        smis = [str(s) for s in exp["viz_smiles"]]
+        pred = Predictor.from_checkpoint(d, which="best_save.ckpt",
+                                         device=dev)
+        per = per_forward(dataclasses.asdict(pred.model.cfg))
+        for mode in modes:
+            reset_counts()
+            t0 = time.perf_counter()
+            weights = Visualizer(pred, mode).weights(smis)
+            secs = time.perf_counter() - t0
+            launches = read_counts()
+            errs = []
+            for i, w in enumerate(weights):
+                ref = exp[f"viz_{mode}_{i}"]
+                if w.shape != ref.shape:
+                    fail(f"viz {name} {mode}: molecule {i} weights of shape "
+                         f"{w.shape}, JAX's {ref.shape}")
+                errs.append(float(np.abs(w - ref).max()))
+            if max(errs) > TOL:
+                fail(f"viz {name} {mode}: card weights differ from the JAX "
+                     f"Visualizer's by {max(errs)}")
+            check_counts(f"viz {name} {mode}", launches,
+                         {k: n * len(smis) for k, n in per.items()})
+            for k, n in launches.items():
+                total[k] += n
+            print(f"viz [{name} {mode}]: {len(smis)} molecules, weights "
+                  f"{[list(w.shape) for w in weights][:3]}..., card vs the "
+                  f"JAX Visualizer max_abs_err={max(errs):.3e} (tol {TOL}) "
+                  f"in {secs:.4f} s; launches {json.dumps(launches)} = per "
+                  f"forward {json.dumps(per)} x {len(smis)} molecules "
+                  f"({card})")
+        x, snd, rcv, e = featurize_smiles(smis[0])
+        batch = next(iter(GraphLoader([GraphArrays(
+            x, e, snd, rcv, np.zeros(1, np.float32))], 1, 1)))
+        cfg = pred.model.cfg
+        if cfg.mol_block == "_TripletMessage":
+            kern["flagship"] = check_kernel("fwd", "viz_mol", batch_csr(
+                batch), rng, dev, card)
+        else:
+            kern["set2set"] = check_spmm_calls(
+                "viz", batch, cfg.mol_block, cfg.mol_readout, cfg.hid_dim,
+                rng, dev, card)
+    return total, kern
+
+
+def bf16_phase(dev, card, tmp, label, flags, f32_label):
+    """``glam_tpu_torch.run --dtype bfloat16``: the final line finite,
+    the masters float32 (the trainer's and its best_save.pt), the
+    launches exact, one step's gradients card vs CPU, and the step's
+    times beside the float32 run's.  Returns the launches, the trainer's
+    batch and the trainer."""
+    import dataclasses
+    import torch
+
+    trainer, launches, steps, forwards = run_cli(tmp, flags, label)
+    cfg = trainer.model.cfg
+    per = per_forward(dataclasses.asdict(cfg))
+    want = {"triplet_fused_fwd": per["triplet_fused_fwd"] * forwards,
+            "triplet_fused_bwd": per["triplet_fused_fwd"] * steps,
+            "segment_softmax_spmm_fwd": per["segment_softmax_spmm_fwd"]
+            * forwards,
+            "segment_softmax_spmm_bwd": per["segment_softmax_spmm_fwd"]
+            * steps}
+    check_counts(f"{label} training", launches, want)
+    if trainer.compute_dtype != torch.bfloat16:
+        fail(f"{label}: compute dtype {trainer.compute_dtype}")
+    saved = torch.load(trainer.log_save_dir / "best_save.pt",
+                       weights_only=True)["state_dict"]
+    dtypes = {p.dtype for p in trainer.model.parameters()} | {
+        t.dtype for t in saved.values() if t.is_floating_point()}
+    if dtypes != {torch.float32}:
+        fail(f"{label}: master parameters are {dtypes}, not float32")
+    print(f"training [{label}]: compute dtype bfloat16, master parameters "
+          f"and best_save.pt float32; launches {json.dumps(launches)} = "
+          f"per forward {json.dumps(per)} x {forwards} forwards / "
+          f"{steps} steps ({card})")
+    batch = next(iter(trainer.train_loader))
+    grads_card_vs_cpu(trainer, cfg, batch, dev,
+                      train_mode=cfg.graph_norm == "_BatchNorm")
+    timing = step_timing(trainer, batch.to(dev), card)
+    f32 = STEP_TIMES[f32_label]
+    print(f"training step [{label} vs {f32_label} float32]: step_ms "
+          f"{timing['step_ms']:.4f} vs {f32['step_ms']:.4f}, device_ms "
+          f"{timing['device_ms']:.4f} vs {f32['device_ms']:.4f}, busy_ms "
+          f"{timing['busy_ms']:.4f} vs {f32['busy_ms']:.4f}, device "
+          f"kernels {timing['kernels']} vs {f32['kernels']} ({card})")
+    return launches, batch, trainer
+
+
+def bf16_training(dev, card, tmp):
+    """The flagship (2 epochs) and TripletMessageLight + Set2Set with
+    BatchNorm (1 epoch) at --dtype bfloat16; kernels A and B, and C both
+    ways, at each trainer's batch."""
+    import numpy as np
+    launches, batch, _ = bf16_phase(dev, card, tmp, "flagship_bf16",
+                                    BF16_TRAIN_ARGS, "flagship")
+    rng = np.random.RandomState(10)
+    kern_a = {w: check_kernel(w, "train_bf16_batch", batch_csr(batch), rng,
+                              dev, card) for w in ("fwd", "bwd")}
+    lib_launches, batch, trainer = bf16_phase(
+        dev, card, tmp, "light_set2set_bf16", BF16_LIBRARY_ARGS,
+        "light_set2set")
+    cfg = trainer.model.cfg
+    kern_c = check_spmm_calls("train_bf16", batch, cfg.mol_block,
+                              cfg.mol_readout, cfg.hid_dim, rng, dev, card)
+    return launches, kern_a, lib_launches, kern_c
+
+
+
 def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
                       state=None):
     """One Adam step from the same weights on the same batch (a
@@ -1851,11 +2178,17 @@ def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
     on the CPU: the parameter gradients must agree.  In eval mode (no
     noise, so both draw none), or with ``train_mode`` in training mode
     (batch statistics in BatchNorm) with the config's dropout and RReLU
-    noise taken out.  The weights are ``state``, or the trainer's."""
+    noise taken out.  The weights are ``state``, or the trainer's.  In
+    the trainer's compute dtype (``compute_forward``); under bfloat16
+    the card's gradients must lie as close to the CPU's float32 ones as
+    the CPU's bfloat16 ones do (BF16_GRAD_TOL) instead."""
     import dataclasses
     import torch
     from glam_tpu_torch.nn.model import Architecture, PairArchitecture
     from glam_tpu_torch.train.optim import make_optimizer
+    from glam_tpu_torch.train.trainer import compute_forward
+
+    dtype = trainer.compute_dtype
 
     if train_mode:
         cfg = dataclasses.replace(
@@ -1871,13 +2204,17 @@ def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
         state = {k: v.detach().cpu().clone()
                  for k, v in trainer.model.state_dict().items()}
     grads, params = {}, {}
-    for key, d in (("cpu", "cpu"), ("card", dev)):
+    runs = [("cpu", "cpu", dtype), ("card", dev, dtype)]
+    if dtype != torch.float32:
+        runs.append(("cpu_f32", "cpu", torch.float32))
+    for key, d, dt in runs:
         model = build().to(d)
         model.load_state_dict(state)
         model.train(train_mode)
         opt = make_optimizer("Adam", model.named_parameters(), 1e-3)
         b = [p.to(d) for p in trainer._as_parts(batch)]
-        loss = trainer.loss_fn(model(*b), b[0].y, b[0].graph_mask)
+        loss = trainer.loss_fn(compute_forward(model, b, dt), b[0].y,
+                               b[0].graph_mask)
         opt.zero_grad()
         loss.backward()
         opt.step()
@@ -1886,6 +2223,34 @@ def grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=False,
                        model.named_parameters()}
     worst, worst_name, zero = 0.0, "", []
     tree = max(float(g.abs().max()) for g in grads["cpu"].values())
+    if dtype != torch.float32:
+        # both bfloat16 gradients approximate the float32 one; the card's
+        # must do so as well as the CPU's
+        ref = grads["cpu_f32"]
+        tree = max(float(g.abs().max()) for g in ref.values())
+        errs = {}
+        for key in ("card", "cpu"):
+            e = {n: float((g - ref[n]).abs().max()) / tree
+                 for n, g in grads[key].items()}
+            if any(g.dtype != torch.float32 for g in grads[key].values()):
+                fail(f"{key} gradients are not all float32")
+            errs[key] = max(e.items(), key=lambda kv: kv[1])
+        between = max(float((grads["card"][n] - g).abs().max()) / tree
+                      for n, g in grads["cpu"].items())
+        if not errs["card"][1] <= BF16_GRAD_TOL * errs["cpu"][1] + 1e-3:
+            fail(f"gradients at {dtype}: the card's lie {errs['card'][1]:.3e}"
+                 f" of the tree's largest from float32 ({errs['card'][0]}),"
+                 f" the CPU's {errs['cpu'][1]:.3e}")
+        print(f"one Adam step card vs CPU [{cfg.mol_block} "
+              f"{cfg.mol_readout}, {dtype}, "
+              f"{'train' if train_mode else 'eval'} mode] "
+              f"({len(ref)} float32 gradient tensors): distance from the "
+              f"CPU's float32 gradients, as a share of the tree's largest "
+              f"entry {tree:.3e}: card {errs['card'][1]:.3e} "
+              f"({errs['card'][0]}), CPU {errs['cpu'][1]:.3e} "
+              f"({errs['cpu'][0]}; tol card <= {BF16_GRAD_TOL} x CPU + "
+              f"1e-3); card vs CPU {between:.3e}")
+        return
     for name, gc in grads["cpu"].items():
         gg = grads["card"][name]
         scale, card = float(gc.abs().max()), float(gg.abs().max())
@@ -1998,7 +2363,25 @@ def main() -> None:
     dev = torch.device("cuda")
 
     t0 = time.perf_counter()
+    native = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native["built"] = build.build_host()
+        except Exception as err:           # reported after the join
+            native["error"] = err
+        native["s"] = time.perf_counter() - t
+
+    host = threading.Thread(target=build_native)
+    host.start()
     reports = build.build()
+    host.join()
+    if "error" in native:
+        fail(f"native featurizer build failed: {native['error']}")
+    print(f"build glam_native.cpp sha={build.host_source_hash('glam_native')}"
+          f" ({'built' if native['built'] else 'cached'}): native build "
+          f"{native['s']:.2f} s (g++, beside nvcc)")
     for name in build.SOURCES:
         print(f"build {name}.cu sha={build.source_hash(name)} "
               f"({'built' if name in reports else 'cached'})")
@@ -2008,12 +2391,17 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
     demo = read_demo()
+    native_phase(card)
     kern = kernel_phase(dev, demo, card)
     served = serving_phase(dev, demo)
     with tempfile.TemporaryDirectory() as tmp:
+        jax_served, kern_jax = jax_checkpoint_phase(dev, card, tmp)
+        viz_launches, kern_viz = viz_phase(dev, card)
         trained, kern_train = training_phase(dev, card, tmp)
         lib_trained, lib_served, kern_lib = library_phase(dev, card, tmp,
                                                           demo)
+        bf16_a, kern_bf16_a, bf16_c, kern_bf16_c = bf16_training(dev, card,
+                                                                 tmp)
         gat_trained, kern_gat = gat_phase(dev, card, tmp)
         default_phase(dev, tmp)
         ddi_trained, kern_ddi, _ = ddi_phase(dev, card, tmp)
@@ -2054,6 +2442,19 @@ def main() -> None:
             "gat": (3, kern_dti["gat"][w])}
     calls["segment_softmax_spmm_fwd"]["serve_dti"] = {
         "gat": (3, kern_srv["gat"]["fwd"])}
+    # bfloat16 training, the JAX checkpoints served, the attention
+    # weights
+    for w in ("fwd", "bwd"):
+        calls[f"triplet_fused_{w}"]["train_flagship_bf16"] = {
+            "train_bf16_batch": (3, kern_bf16_a[w])}
+        calls[f"segment_softmax_spmm_{w}"]["train_library_bf16"] = {
+            c: (3, kern_bf16_c[c][w]) for c in ("light", "set2set")}
+    calls["triplet_fused_fwd"]["serve_jax_ckpt"] = {
+        "jax_flagship128": (3, kern_jax["flagship"])}
+    calls["triplet_fused_fwd"]["viz"] = {"viz_mol": (3, kern_viz["flagship"])}
+    for path, k in (("serve_jax_ckpt", kern_jax), ("viz", kern_viz)):
+        calls["segment_softmax_spmm_fwd"][path] = {
+            c: (3, k["set2set"][c]["fwd"]) for c in ("light", "set2set")}
     del calls["segment_softmax_spmm_bwd"]["serve_light_set2set"]
     off_path = {"triplet_fused_fwd": [kern["fwd"]["hub"],
                                       kern["fwd"]["h8_c64"]],
@@ -2063,6 +2464,11 @@ def main() -> None:
                     r[w] for case, r in spmm.items()
                     if case.startswith("random")] for w in ("fwd", "bwd")}}
     off_path["segment_softmax_spmm_bwd"].append(kern_srv["gat"]["bwd"])
+    # kernel C's backward checked at the serving and viz shapes, which
+    # run no backward
+    for k in (kern_jax, kern_viz):
+        off_path["segment_softmax_spmm_bwd"] += [
+            k["set2set"][c]["bwd"] for c in ("light", "set2set")]
     for name, checked in automl["widths"].items():
         off_path[name] += checked
 
@@ -2081,6 +2487,12 @@ def main() -> None:
             "train_gat_lapool": gat_trained["segment_softmax_spmm_bwd"]}}
     for name, counts in launches.items():
         counts.update({path: n[name] for path, n in pair_paths.items()
+                       if path in calls[name]})
+    more_paths = {"train_flagship_bf16": bf16_a,
+                  "train_library_bf16": bf16_c,
+                  "serve_jax_ckpt": jax_served, "viz": viz_launches}
+    for name, counts in launches.items():
+        counts.update({path: n[name] for path, n in more_paths.items()
                        if path in calls[name]})
     # the AutoML paths: the trials' own training (counted in each trial
     # process), serving each trial's checkpoint and the blend with PASP

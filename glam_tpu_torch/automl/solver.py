@@ -14,10 +14,11 @@ glam.py ``GLAM`` and trainer.py ``GLAMHelper``):
 
 The blend and PASP run in the solver's own process, on the card
 (``platform=None``) or the CPU (``platform="cpu"``, which also passes
-``--platform cpu`` to the trials).  On the card the solver builds the
-CUDA kernels once before its first trial, so the trials load the built
-libraries instead of each running ``nvcc``; that build cache takes the
-place of the JAX package's XLA compilation cache.
+``--platform cpu`` to the trials).  Before its first trial the solver
+builds the native featurizer and, on the card, the CUDA kernels, so the
+trials load the built libraries instead of each running ``g++`` and
+``nvcc``; that build cache takes the place of the JAX package's XLA
+compilation cache.
 """
 from __future__ import annotations
 
@@ -106,22 +107,28 @@ class GLAM:
         self.failed_trials = 0
         self.blend_result: Optional[Dict] = None
         self.pasp_result: Optional[Dict] = None
-        self._kernels_built = self.device == "cpu"
+        self._kernels_built = False
         self.log(f"Solver for {dataset} start @ {time.asctime()}")
         self.log(f"{self.dm.num_slots} trial slots on "
                  f"{self.dm.num_cards} CUDA card(s); trials and blending "
                  f"on {self.device}")
 
     def _build_kernels(self) -> None:
-        """Build every CUDA kernel once, before the first trial."""
+        """Build the native featurizer and, on the card, every CUDA
+        kernel once, before the first trial."""
         if self._kernels_built:
             return
         from ..ops.kernels import build
         t0 = time.time()
-        built = build.build()
-        self.log(f"CUDA kernels: {len(built)} built, "
-                 f"{len(build.SOURCES) - len(built)} cached "
+        native = build.build_host()
+        self.log(f"native featurizer: {'built' if native else 'cached'} "
                  f"({time.time() - t0:.1f} s)")
+        if self.device != "cpu":
+            t0 = time.time()
+            built = build.build()
+            self.log(f"CUDA kernels: {len(built)} built, "
+                     f"{len(build.SOURCES) - len(built)} cached "
+                     f"({time.time() - t0:.1f} s)")
         self._kernels_built = True
 
     def _launch_on_free_device(self, config: Dict, procs: List) -> None:

@@ -16,16 +16,31 @@ tree's.  Dense, GRU and GCN/GAT kernels are stored [in, out] on
 the JAX side and are transposed to torch's [out, in]; the other weights
 (TripletMessage's, NNConv's root, Set2Set's LSTM) keep their layout.  A
 missing, extra or misshapen entry raises.
+
+``load_jax_checkpoint(path)`` reads a checkpoint the JAX trainer wrote
+(``best_save.ckpt``: flax msgpack, decoded by ``utils/msgpack.py``
+without flax) and returns ``(args, state_dict)`` for a single-graph
+model or a pair model; ``config_from_args(args)`` and
+``pair_kind(args)`` (None, ``"homo"`` for the DDI tasks, ``"hetero"``
+for the others) say which model the ``state_dict`` loads into.
 """
 from __future__ import annotations
 
+import json
 from collections.abc import Mapping
+from pathlib import Path
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .nn.model import Architecture, ModelConfig, PairArchitecture
+from .nn.model import (Architecture, ModelConfig, PairArchitecture,
+                       model_config_from_args)
+from .utils import msgpack
+
+# the DDI tasks, whose checkpoints hold the homo two-molecule model; the
+# other pair tasks' hold the hetero (molecule, protein) model
+HOMO_PAIR_TASKS = ("pair_binary_bce", "pair_multiclass")
 
 # JAX leaf name -> (port name, transpose)
 _LEAVES = {"kernel": ("weight", True), "weight": ("weight", True),
@@ -99,3 +114,33 @@ def state_dict_from_jax(params: Mapping, cfg: ModelConfig,
                  if k not in weights}
         out.update(convert_tree(batch_stats, stats, "batch statistic"))
     return out
+
+
+def pair_kind(args: Mapping) -> Optional[str]:
+    """None for a single-graph task, ``"homo"`` for a DDI pair task,
+    ``"hetero"`` for the other pair tasks."""
+    task = str(args.get("task", ""))
+    if not task.startswith("pair_"):
+        return None
+    return "homo" if task in HOMO_PAIR_TASKS else "hetero"
+
+
+def config_from_args(args: Mapping) -> ModelConfig:
+    """The model config a checkpoint's ``args`` describe."""
+    if "model_cfg" in args:
+        return ModelConfig(**args["model_cfg"])
+    return model_config_from_args(dict(args),
+                                  out_dim=args.get("out_dim", 1))
+
+
+def load_jax_checkpoint(path) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """(args, state_dict) of the JAX trainer's checkpoint at ``path``:
+    its payload ``{args, records, params, batch_stats}``, the last two
+    msgpack bytes themselves, converted by ``state_dict_from_jax``
+    (BatchNorm running statistics included)."""
+    payload = msgpack.unpackb(Path(path).read_bytes())
+    args = json.loads(payload["args"])
+    params = msgpack.unpackb(payload["params"])
+    stats = msgpack.unpackb(payload["batch_stats"])
+    return args, state_dict_from_jax(params, config_from_args(args),
+                                     stats or None, pair_kind(args))

@@ -24,9 +24,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..chem.featurize import smiles_to_arrays
+from ..chem.native import smiles_to_arrays_native
 from ..chem.scaffold import random_scaffold_split
 from .graph import GraphArrays
+
+
+def featurize_smiles(smi: str):
+    """SMILES -> (x, senders, receivers, edge_attr) through the C++
+    featurizer, byte-identical to ``chem.featurize.smiles_to_arrays``
+    (the JAX package's ``datasets.py:28-33`` without its Python
+    fallback: a featurizer that cannot be built raises)."""
+    return smiles_to_arrays_native(smi)
+
 
 DATASET_NAMES = {
     "r": ["esol", "freesolv", "lipophilicity", "physprop_perturb"],
@@ -144,7 +153,7 @@ class MolDataset:
         n_skipped = 0
         for i, smi in enumerate(cols[smiles_col]):
             try:
-                x, snd, rcv, e = smiles_to_arrays(smi)
+                x, snd, rcv, e = featurize_smiles(smi)
             except ValueError:  # SmilesError/FeaturizeError subclass it
                 n_skipped += 1
                 continue

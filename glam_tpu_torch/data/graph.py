@@ -95,6 +95,14 @@ class GraphBatch:
         return GraphBatch(**{f.name: getattr(self, f.name).to(device)
                              for f in dataclasses.fields(self)})
 
+    def cast(self, dtype: torch.dtype) -> "GraphBatch":
+        """The batch with its float features (nodes, edges) in
+        ``dtype``; itself when they already are."""
+        if self.nodes.dtype == dtype and self.edges.dtype == dtype:
+            return self
+        return dataclasses.replace(self, nodes=self.nodes.to(dtype),
+                                   edges=self.edges.to(dtype))
+
     @functools.cached_property
     def padded_csr(self):
         """Receiver CSR of every edge slot, padded ones included: (rowptr

@@ -24,10 +24,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..chem.featurize import smiles_to_arrays
 from ..chem.proteins import load_contactmap, protein_to_arrays
 from ..chem.scaffold import molecule_key
 from ..chem.smiles import exotic_stereo_counts
+from .datasets import featurize_smiles
 from .graph import GraphArrays
 
 # pandas.read_csv's default NaN spellings
@@ -41,7 +41,7 @@ def mol_graph(smi: str, y=0.0) -> Optional[GraphArrays]:
     """The molecular graph of ``smi`` with label ``y``; None where it
     cannot be featurized."""
     try:
-        x, snd, rcv, e = smiles_to_arrays(smi)
+        x, snd, rcv, e = featurize_smiles(smi)
     except ValueError:
         return None
     return GraphArrays(nodes=x, edges=e, senders=snd, receivers=rcv,

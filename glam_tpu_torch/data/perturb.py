@@ -20,8 +20,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from ..chem.featurize import smiles_to_arrays
-from .datasets import MolDataset, read_csv
+from .datasets import MolDataset, featurize_smiles, read_csv
 from .graph import GraphArrays
 
 
@@ -29,7 +28,7 @@ def _featurize_list(smiles: List[str], labels: List[float]
                     ) -> List[GraphArrays]:
     out = []
     for smi, y in zip(smiles, labels):
-        x, snd, rcv, e = smiles_to_arrays(smi)
+        x, snd, rcv, e = featurize_smiles(smi)
         out.append(GraphArrays(nodes=x, edges=e, senders=snd, receivers=rcv,
                                y=np.asarray([y], np.float32), smi=smi))
     return out

@@ -95,9 +95,13 @@ class TripletMessage(torch.nn.Module):
         a_i = torch.einsum("nhc,hc->nh", xh, w_i).contiguous()
         a_j = torch.einsum("nhc,hc->nh", xh, w_j).contiguous()
         wemat = self.head_onehot * w_e.reshape(-1, 1)      # [H*C, H]
+        # kernels A and B take float32: under a lower compute dtype the
+        # inputs go up and the output comes back (JAX ``convs.py:105``)
         aggr = triplet_attention(
-            xp, a_i, a_j, g.edges, self.weight_edge.contiguous(), wemat,
-            g.csr_rowptr, g.csr_snd, g.csr_eid, H, C, self.negative_slope)
+            xp.float(), a_i.float(), a_j.float(), g.edges.float(),
+            self.weight_edge.float().contiguous(), wemat.float(),
+            g.csr_rowptr, g.csr_snd, g.csr_eid, H, C,
+            self.negative_slope).to(xp.dtype)
         return aggr @ self.weight_scale + self.bias
 
 
@@ -133,9 +137,9 @@ class TripletMessageLight(torch.nn.Module):
                              + a_j.index_select(0, g.senders),
                              self.negative_slope)          # [E]
         rowptr, idx = g.padded_csr
-        aggr = segment_softmax_spmm(logits[:, None],
-                                    xp.index_select(0, g.senders), rowptr,
-                                    idx)
+        aggr = segment_softmax_spmm(
+            logits[:, None].float(), xp.index_select(0, g.senders).float(),
+            rowptr, idx).to(xp.dtype)
         return aggr + self.bias
 
 
@@ -237,8 +241,9 @@ class GATConv(torch.nn.Module):
                              + a_dst.index_select(0, rcv),
                              self.negative_slope)          # [E+N, H]
         rowptr, idx = g.self_loop_csr
-        out = segment_softmax_spmm(logits, xp.index_select(0, snd), rowptr,
-                                   idx)
+        out = segment_softmax_spmm(logits.float(),
+                                   xp.index_select(0, snd).float(), rowptr,
+                                   idx).to(xp.dtype)
         return out + self.bias
 
 

@@ -70,7 +70,10 @@ class BatchNorm(torch.nn.Module):
                 self.mean.copy_((1 - mom) * self.mean + mom * mean)
                 self.var.copy_((1 - mom) * self.var + mom * unbiased)
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
-        return (x - mean) * inv * self.scale + self.bias
+        # the float32 running statistics lift a lower compute dtype to
+        # float32, as in JAX; the output goes back to x's dtype, since
+        # torch's matmuls do not promote mixed dtypes as jnp's do
+        return ((x - mean) * inv * self.scale + self.bias).to(x.dtype)
 
 
 class GraphLayerNorm(torch.nn.Module):
@@ -95,9 +98,10 @@ class GraphLayerNorm(torch.nn.Module):
         else:
             G = n_node.shape[0]
             norm = n_node.to(x.dtype).clamp(min=1.0) * x.shape[-1]
-            mean = segment_sum(x.sum(-1), node_graph, G) / norm
+            mean = segment_sum(x.sum(-1), node_graph, G, True) / norm
             xc = x - mean.index_select(0, node_graph)[:, None]
-            var = segment_sum((xc * xc).sum(-1), node_graph, G) / norm
+            var = segment_sum((xc * xc).sum(-1), node_graph, G,
+                              True) / norm
             out = xc / torch.sqrt(var + self.eps).index_select(
                 0, node_graph)[:, None]
         return out * self.scale + self.bias
@@ -121,9 +125,9 @@ class PairNorm(torch.nn.Module):
             return self.scale * xc / torch.sqrt(self.eps + ms)
         G = n_node.shape[0]
         cnt = n_node.to(x.dtype).clamp(min=1.0)
-        mean = segment_sum(x, node_graph, G) / cnt[:, None]
+        mean = segment_sum(x, node_graph, G, True) / cnt[:, None]
         xc = x - mean.index_select(0, node_graph)
-        ms = segment_sum((xc * xc).sum(-1), node_graph, G) / cnt
+        ms = segment_sum((xc * xc).sum(-1), node_graph, G, True) / cnt
         inv = torch.rsqrt(self.eps + ms).index_select(0, node_graph)
         return self.scale * xc * inv[:, None]
 

@@ -32,7 +32,7 @@ class GlobalPool5(torch.nn.Module):
 
     def forward(self, x, node_graph, node_pos, n_node):
         G = n_node.shape[0]
-        total = segment_sum(x, node_graph, G)
+        total = segment_sum(x, node_graph, G, True)
         mean = total / n_node.clamp(min=1).to(x.dtype)[:, None]
         topk = segment_topk_by_channel(x, node_graph, node_pos, G,
                                        self.max_nodes, self.k)
@@ -56,7 +56,10 @@ class GlobalLAPool(torch.nn.Module):
 
     def forward(self, x, node_graph, node_pos, n_node):
         rowptr, idx = graph_csr(n_node, x.shape[0])
-        return segment_softmax_spmm(self.gate_nn(x), self.nn(x), rowptr, idx)
+        # kernel C takes float32 (see TripletMessage.forward)
+        return segment_softmax_spmm(self.gate_nn(x).float(),
+                                    self.nn(x).float(), rowptr,
+                                    idx).to(x.dtype)
 
 
 class Set2Set(torch.nn.Module):
@@ -95,7 +98,8 @@ class Set2Set(torch.nn.Module):
                              self.lstm_b_ih, self.lstm_b_hh)
             h = q
             e = (x * q.index_select(0, node_graph)).sum(-1)       # [N]
-            r = segment_softmax_spmm(e[:, None], x, rowptr, idx)  # [G, C]
+            r = segment_softmax_spmm(e[:, None].float(), x.float(), rowptr,
+                                     idx).to(x.dtype)             # [G, C]
             q_star = torch.cat([q, r], dim=-1)
         return q_star
 

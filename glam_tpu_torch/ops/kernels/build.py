@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources into shared libraries at first use.
+"""Build the port's CUDA sources, and its host library, into shared
+libraries at first use.
 
 Each ``glam_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``glam_tpu_torch/_build/<name>-<hash>.so``, keyed by a
@@ -7,6 +8,13 @@ hash of the source, the headers beside it and the flags, and loaded with
 sources have a plain C interface and include no PyTorch header, so a
 build takes seconds.  ``build()`` starts one ``nvcc`` per missing library,
 all at once.
+
+``build_host()`` compiles the C++ SMILES featurizer
+(``csrc/glam_native.cpp``) with ``g++`` and the flags of
+``native/build.sh`` into ``_build/glam_native-<hash>.so``, hashed the same
+way.  Every build writes a temporary file and ``os.replace``s it into
+place, so processes that build at once (trials started together) never
+load a half-written library.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ SOURCES = ("triplet_fused", "triplet_fused_bwd", "segment_softmax_spmm",
            "segment_softmax_spmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_SOURCES = ("glam_native",)
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -97,3 +107,50 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def find_gxx() -> str:
+    """``$CXX``, else ``g++`` on ``PATH``; raises if neither exists."""
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if not gxx:
+        raise RuntimeError("g++ not found: set CXX or put g++ on PATH to "
+                           "build the port's native featurizer")
+    return gxx
+
+
+def host_source_hash(name: str) -> str:
+    """A hash of ``csrc/<name>.cpp`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def host_library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{host_source_hash(name)}.so"
+
+
+def build_host(name: str = "glam_native") -> bool:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless it is built;
+    returns whether it was built now.  Raises if ``g++`` fails."""
+    out = host_library_path(name)
+    if out.is_file():
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([find_gxx(), *GXX_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed to build {name}.cpp (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return True
+
+
+@functools.cache
+def load_host(name: str = "glam_native") -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, built first if
+    needed."""
+    build_host(name)
+    return ctypes.CDLL(str(host_library_path(name)))

@@ -4,6 +4,14 @@ The counterparts of the JAX package's ``ops/segment.py``.  All functions
 assume the GraphBatch padding convention (padded edges point at padding
 nodes), so no masking is needed: padded contributions land in padding
 segments.  Index tensors are int64.
+
+``segment_sum`` is ``index_add_``, except for inference on the card
+(CUDA tensors, gradients off): there ``index_add_``'s float atomics sum
+each segment in the order its entries land, so two forwards of one
+checkpoint on one input differ in the last bits; instead each segment's
+entries are summed in index order (``torch.segment_reduce``), the same
+bits on every call.  Training keeps ``index_add_``, whose backward is a
+gather.
 """
 from __future__ import annotations
 
@@ -11,9 +19,57 @@ import torch
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, sorted_ids: bool = False) -> torch.Tensor:
+    """Sum of ``data``'s rows per segment.  ``sorted_ids`` says the ids
+    ascend (node rows grouped by graph, as ``pad_graphs`` lays them out):
+    it spares the card's in-order path a sort."""
+    if data.is_cuda and not torch.is_grad_enabled():
+        return segment_sum_in_order(data, segment_ids, num_segments,
+                                    sorted_ids)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, segment_ids, data)
+
+
+_PIECE = 128
+
+
+def segment_sum_in_order(data: torch.Tensor, segment_ids: torch.Tensor,
+                         num_segments: int,
+                         sorted_ids: bool = False) -> torch.Tensor:
+    """``segment_sum`` with each segment's entries summed in index order
+    (in float32 for a lower-precision ``data``): bitwise the same on
+    every call.  The rows, sorted by segment, are cut into pieces of at
+    most ``_PIECE`` rows of one segment; each piece is summed in order,
+    then each segment's pieces in order (two ``segment_reduce`` calls,
+    whose loops stay short where a segment is long, as the padding
+    graph's and the padding node's are).  No host synchronisation."""
+    n = segment_ids.shape[0]
+    dev = segment_ids.device
+    ids, rows = segment_ids, data
+    if not sorted_ids:
+        ids, order = torch.sort(segment_ids, stable=True)
+        rows = data.index_select(0, order)
+    wide = rows.float() if rows.dtype in (torch.float16,
+                                          torch.bfloat16) else rows
+    # piece starts: a segment's first row, and every _PIECE-th row of it
+    seg = torch.arange(num_segments + 1, device=dev, dtype=ids.dtype)
+    first = torch.searchsorted(ids, seg)               # [S + 1]
+    local = torch.arange(n, device=dev) - first.index_select(0, ids)
+    starts = local % _PIECE == 0
+    piece = torch.cumsum(starts, 0) - 1                # piece of each row
+    most = num_segments + -(-n // _PIECE)              # pieces at most
+    unused = num_segments                              # a dummy segment
+    piece_seg = torch.full((most,), unused, device=dev, dtype=ids.dtype)
+    piece_seg.scatter_(0, piece, ids)
+    pieces = torch.searchsorted(
+        piece, torch.arange(most + 1, device=dev, dtype=piece.dtype))
+    part = torch.segment_reduce(wide, "sum", lengths=pieces[1:] - pieces[:-1],
+                                axis=0, unsafe=True, initial=0)
+    bounds = torch.searchsorted(piece_seg, torch.arange(
+        num_segments + 2, device=dev, dtype=ids.dtype))
+    out = torch.segment_reduce(part, "sum", lengths=bounds[1:] - bounds[:-1],
+                               axis=0, unsafe=True, initial=0)
+    return out[:num_segments].to(data.dtype)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,

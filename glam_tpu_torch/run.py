@@ -21,9 +21,10 @@ host CPU instead.  ``--pallas``, ``--probe_compile``,
 ``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
 kernels always run on the card, and eager PyTorch compiles nothing.
 ``physprop_perturb`` trains the regression model on its Label-column
-splits (``data/perturb.py``).  ``--dtype bfloat16``, ``--n_devices > 1``
-and ``--pro_shards > 1`` raise ``NotImplementedError`` naming their
-ROADMAP item; ``--pair_batch > 1`` raises ``ValueError``.  The AutoML
+splits (``data/perturb.py``).  ``--dtype bfloat16`` (or ``float16``)
+trains in that compute dtype over float32 master parameters
+(``train/trainer.py``).  ``--n_devices > 1`` and ``--pro_shards > 1``
+raise ``NotImplementedError`` naming their ROADMAP item; ``--pair_batch > 1`` raises ``ValueError``.  The AutoML
 solver (``glam_tpu_torch.glam``) launches this CLI for every trial.
 """
 from __future__ import annotations
@@ -90,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run dir (or last_save.pt) to resume "
                         "mid-training from")
     p.add_argument("--dtype", default="float32", type=str,
-                   help="compute dtype; only float32 is ported")
+                   help="compute dtype of the forward and backward: "
+                        "float32, bfloat16 or float16 (master parameters "
+                        "stay float32)")
     p.add_argument("--compile_cache", default=None, type=str,
                    help="accepted for the JAX package's commands; no "
                         "effect")

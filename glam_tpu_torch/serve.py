@@ -34,6 +34,9 @@ Checkpoints are ``best_save.pt`` files written by :func:`save_checkpoint`
 with ``torch.load(weights_only=True)``.  The ``state_dict`` holds the
 BatchNorm running statistics, which the model (in ``eval()`` mode)
 normalises with, as the JAX ``Predictor`` does with its ``batch_stats``.
+``from_checkpoint`` also serves a JAX run directory: a ``which`` ending
+in ``.ckpt`` (the JAX trainer's ``best_save.ckpt``) is read by
+``convert.load_jax_checkpoint``, anything else as the port's file.
 """
 from __future__ import annotations
 
@@ -45,16 +48,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .chem.featurize import smiles_to_arrays
+from .convert import config_from_args, load_jax_checkpoint, pair_kind
 from .data.batching import GraphLoader, PairGraphLoader
+from .data.datasets import featurize_smiles
 from .data.graph import GraphArrays, GraphBatch
 from .data.pair_datasets import mol_graph, protein_graph
-from .nn.model import (Architecture, ModelConfig, PairArchitecture,
-                       model_config_from_args)
-
-# the DDI tasks, whose checkpoints hold the homo two-molecule model; the
-# other pair tasks' hold the hetero (molecule, protein) model
-HOMO_PAIR_TASKS = ("pair_binary_bce", "pair_multiclass")
+from .nn.model import Architecture, PairArchitecture
 
 
 def resolve_device(device) -> torch.device:
@@ -99,6 +98,16 @@ def save_checkpoint(run_dir, model: Union[Architecture, PairArchitecture],
     return path
 
 
+def read_checkpoint(path) -> Tuple[Dict, Dict[str, torch.Tensor]]:
+    """(args, state_dict) of a checkpoint file: the JAX trainer's where
+    the name ends in ``.ckpt``, else the port's."""
+    path = Path(path)
+    if path.suffix == ".ckpt":
+        return load_jax_checkpoint(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return json.loads(payload["args"]), payload["state_dict"]
+
+
 class Predictor:
     """Single-model predictor over molecular SMILES."""
 
@@ -118,21 +127,17 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, run_dir, which: str = "best_save.pt",
                         batch_size: int = 32, device="cuda") -> "Predictor":
+        """Serve ``run_dir/which``: the port's ``.pt`` or the JAX
+        trainer's ``.ckpt``."""
         resolve_device(device)
-        payload = torch.load(Path(run_dir) / which, map_location="cpu",
-                             weights_only=True)
-        args = json.loads(payload["args"])
-        if str(args.get("task", "")).startswith("pair_"):
+        path = Path(run_dir) / which
+        args, state = read_checkpoint(path)
+        if pair_kind(args) is not None:
             raise ValueError(
-                f"{Path(run_dir) / which} holds a pair model (task "
+                f"{path} holds a pair model (task "
                 f"{args['task']!r}); serve it with PairPredictor")
-        if "model_cfg" in args:
-            cfg = ModelConfig(**args["model_cfg"])
-        else:
-            cfg = model_config_from_args(args,
-                                         out_dim=args.get("out_dim", 1))
-        model = Architecture(cfg)
-        model.load_state_dict(payload["state_dict"])
+        model = Architecture(config_from_args(args))
+        model.load_state_dict(state)
         return cls(model, args, batch_size, device)
 
     def featurize(self, smiles: Sequence[str]) -> List[Optional[GraphArrays]]:
@@ -140,7 +145,7 @@ class Predictor:
         graphs: List[Optional[GraphArrays]] = []
         for smi in smiles:
             try:
-                x, snd, rcv, e = smiles_to_arrays(smi)
+                x, snd, rcv, e = featurize_smiles(smi)
             except ValueError:
                 graphs.append(None)
                 continue
@@ -209,15 +214,21 @@ class EnsemblePredictor:
                   ) -> "EnsemblePredictor":
         """The top ``n`` runs of ``logs_dir`` (a ``log_<dataset>``
         directory) by their validation metric, as the solver's blend
-        selects them, each served by ``Predictor.from_checkpoint``."""
+        selects them, each served by ``Predictor.from_checkpoint``: a
+        run of the port (``best_save.pt``) or of the JAX package
+        (``best_save.ckpt``)."""
         from .automl.summary import select_top_runs
         logs_dir = Path(logs_dir)
         ds = dataset or logs_dir.name.replace("log_", "")
         sel = select_top_runs(logs_dir, ds, n)
-        return cls([Predictor.from_checkpoint(logs_dir / r["id"],
-                                              batch_size=batch_size,
-                                              device=device)
-                    for r in sel])
+        predictors = []
+        for r in sel:
+            run = logs_dir / r["id"]
+            which = ("best_save.pt" if (run / "best_save.pt").is_file()
+                     else "best_save.ckpt")
+            predictors.append(Predictor.from_checkpoint(
+                run, which=which, batch_size=batch_size, device=device))
+        return cls(predictors)
 
     def predict_scores(self, smiles: Sequence[str]) -> np.ndarray:
         return np.mean([p.predict_scores(smiles)
@@ -255,15 +266,15 @@ class PairPredictor:
                         device="cuda") -> "PairPredictor":
         resolve_device(device)
         path = Path(run_dir) / which
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        args = json.loads(payload["args"])
-        task = str(args.get("task", ""))
-        if not task.startswith("pair_"):
+        args, state = read_checkpoint(path)
+        pair = pair_kind(args)
+        if pair is None:
             raise ValueError(f"{path} holds a single-graph model (task "
-                             f"{task!r}); serve it with Predictor")
-        model = PairArchitecture(ModelConfig(**args["model_cfg"]),
-                                 hetero=task not in HOMO_PAIR_TASKS)
-        model.load_state_dict(payload["state_dict"])
+                             f"{args.get('task', '')!r}); serve it with "
+                             "Predictor")
+        model = PairArchitecture(config_from_args(args),
+                                 hetero=pair == "hetero")
+        model.load_state_dict(state)
         return cls(model, args, contact_maps, batch_size, device)
 
     def _protein(self, seq: str) -> Optional[GraphArrays]:

@@ -9,6 +9,15 @@ the graph mask are the first part's.
 
 Each optimizer step is one forward, one backward and one update, on the
 trainer's device (``cuda`` unless the caller passes ``device="cpu"``).
+``--dtype`` sets the compute dtype (``float32``, ``bfloat16`` or
+``float16``), as the JAX trainer's mixed precision (``trainer.py:262-320``)
+does: the master parameters and the optimizer stay float32; the forward
+and backward, training and evaluation alike, run on cast copies of the
+parameters and of the batch's node and edge features
+(``torch.func.functional_call``), so the gradients arrive in float32
+through the casts; the loss is computed in float32 from the output cast
+up.  The kernels stay float32: each call site casts its inputs up and
+its output back (``nn/convs.py``, ``nn/readouts.py``).
 Dropout masks and RReLU slopes are drawn from the trainer's
 ``torch.Generator``, which lives on that device and is seeded from
 ``seed``.  Training steps run the model in ``train()`` mode (BatchNorm
@@ -34,6 +43,7 @@ Task trainers (one class, behaviour keyed by ``task``):
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import shutil
@@ -85,12 +95,39 @@ def _new_run_dir(logs_dir: Path, seed: int) -> Tuple[str, Path]:
             time.sleep(0.001)
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+
+
+def compute_dtype(args: Dict) -> torch.dtype:
+    """The ``--dtype`` of ``args``; raises on a name not in
+    ``COMPUTE_DTYPES``."""
+    name = str(args.get("dtype", "float32"))
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown --dtype {name!r}; have "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+def compute_forward(model: torch.nn.Module, parts, dtype: torch.dtype,
+                    generator=None) -> torch.Tensor:
+    """``model``'s float32 output on ``parts`` (a tuple of GraphBatches),
+    computed in ``dtype``: the float32 master parameters and the batches'
+    features are cast inside the differentiated computation, so
+    gradients reach the masters in float32."""
+    if dtype == torch.float32:
+        return model(*parts, generator=generator)
+    params = {n: p.to(dtype) for n, p in model.named_parameters()}
+    out = torch.func.functional_call(
+        model, params, tuple(p.cast(dtype) for p in parts),
+        {"generator": generator})
+    return out.float()
+
+
 def check_supported(args: Dict) -> None:
-    """Raise for the options whose code is not ported yet."""
-    if str(args.get("dtype", "float32")) != "float32":
-        raise NotImplementedError(
-            f"--dtype {args['dtype']} is not ported yet (ROADMAP queue A, "
-            "training slice leftovers: bf16)")
+    """Raise for the options whose code is not ported yet, and on an
+    unknown ``--dtype``."""
+    compute_dtype(args)
     if int(args.get("n_devices", 1) or 1) > 1:
         raise NotImplementedError(
             "--n_devices > 1 is not ported yet (ROADMAP queue A, 'Data "
@@ -140,6 +177,7 @@ class Trainer:
         self.print_log = print_log
         self.start = time.time()
         self.task = self.args.get("task", self.TASK)
+        self.compute_dtype = compute_dtype(self.args)
         self.num_tasks = int(self.args.get("num_tasks", 1))
         seed = int(self.args.get("seed", 1234))
 
@@ -200,12 +238,18 @@ class Trainer:
         return tuple(b.to(self.device) for b in self._as_parts(batch))
 
     # ------------------------------------------------------------------
+    def forward(self, parts, generator=None) -> torch.Tensor:
+        """The model's float32 output on ``parts`` (a tuple of
+        GraphBatches) in the compute dtype (:func:`compute_forward`)."""
+        return compute_forward(self.model, parts, self.compute_dtype,
+                               generator)
+
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a batch (a ``GraphBatch`` or a tuple of
         them) already on the device; returns the loss, still on the
         device."""
         parts = self._as_parts(batch)
-        out = self.model(*parts, generator=self.generator)
+        out = self.forward(parts, self.generator)
         loss = self.loss_fn(out, parts[0].y, parts[0].graph_mask)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -239,7 +283,7 @@ class Trainer:
         with torch.inference_mode():
             for batch in prefetch(iter(loader)):
                 parts = self._to_device(batch)
-                out = self.model(*parts)
+                out = self.forward(parts)
                 outs.append(out)
                 losses.append(self.loss_fn(out, parts[0].y,
                                            parts[0].graph_mask))
@@ -364,6 +408,49 @@ class Trainer:
                 f.write(json.dumps(record) + "\n")
         except OSError:
             pass
+
+    # ------------------------------------------------------------------
+    def gen_test_batch(self, path="other/test_batch.npz") -> str:
+        """Save the first validation batch's tensors (every field of the
+        ``GraphBatch``; ``g1_``/``g2_``-prefixed for a pair batch) with
+        ``np.savez``, as a fixture (the JAX trainer's
+        ``gen_test_batch``); returns ``path``."""
+        parts = self._as_parts(next(iter(self.valid_loader)))
+        arrays = {}
+        for i, part in enumerate(parts):
+            prefix = f"g{i + 1}_" if len(parts) > 1 else ""
+            for f in dataclasses.fields(part):
+                value = getattr(part, f.name)
+                if value is not None:
+                    arrays[prefix + f.name] = value.cpu().numpy()
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **arrays)
+        return str(path)
+
+    def write_datasets(self, out_dir=".") -> None:
+        """Write each split's SMILES and first label to
+        ``<out_dir>/{train,valid,test}.csv`` (``smiles,label``; a pair
+        split's ``smiles,partner,label``), as the JAX trainer's
+        ``write_datasets`` does with pandas."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        for name, loader in (("train", self.train_loader),
+                             ("valid", self.valid_loader),
+                             ("test", self.test_loader)):
+            if loader is None:
+                continue
+            graphs = getattr(loader, "graphs", None)
+            if graphs is not None:
+                rows = [(g.smi, float(g.y.reshape(-1)[0])) for g in graphs]
+                header = ("smiles", "label")
+            else:
+                rows = [(p[0].smi, p[1].smi, float(p[0].y.reshape(-1)[0]))
+                        for p in loader.pairs]
+                header = ("smiles", "partner", "label")
+            with open(out / f"{name}.csv", "w", newline="") as f:
+                writer = csv.writer(f, lineterminator="\n")
+                writer.writerow(header)
+                writer.writerows(rows)
 
     # ------------------------------------------------------------------
     def pasp(self) -> Dict[int, float]:

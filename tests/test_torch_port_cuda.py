@@ -530,3 +530,120 @@ def test_pair_model_step_matches_cpu(cuda, hetero):
         scale = max(float(want.abs().max()), 1e-2 * tree)
         torch.testing.assert_close(res["cuda"][1][name], want, rtol=1e-3,
                                    atol=1e-4 * scale, msg=name)
+
+
+# ------------------------------------------- bfloat16 compute on the card
+@pytest.mark.parametrize("block,readout", [
+    ("_TripletMessage", "GlobalPool5"), ("_GATConv", "GlobalLAPool"),
+    ("_TripletMessageLight", "Set2Set")])
+def test_bf16_step_matches_cpu(cuda, tmp_path, block, readout):
+    """One training-mode step (no noise) of the trainer at --dtype
+    bfloat16, on the card and on the CPU from the same weights: the
+    kernels run in float32 between casts; the output and every gradient
+    agree within 5e-2 of the largest entry (the output's, the gradient
+    tree's): bfloat16 keeps 8 bits of mantissa, and the card's and the
+    CPU's bfloat16 matmuls round their partial sums differently.  The
+    gradients and the masters are float32, and the kernels launched."""
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.datasets import featurize_smiles
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.nn.model import Architecture, ModelConfig
+    from glam_tpu_torch.ops.kernels import launch_counts
+    from glam_tpu_torch.train.trainer import Trainer
+
+    cfg = ModelConfig(mol_block=block, mol_readout=readout, e_dim=64,
+                      graph_norm="_BatchNorm", graph_do="_None()",
+                      flat_do="_None()", end_do="_None()", pre_act="CELU",
+                      graph_act="CELU", flat_act="CELU", end_act="CELU")
+    graphs = []
+    for smi in read_demo()[:32]:
+        x, snd, rcv, e = featurize_smiles(smi)
+        graphs.append(GraphArrays(x, e, snd, rcv, np.ones(1, np.float32)))
+    batch = next(iter(GraphLoader(graphs, 32, 1)))
+    state = Architecture(cfg, torch.Generator().manual_seed(0)).state_dict()
+    args = {"dtype": "bfloat16", "loss": "bcel", "task": "binary_nan_bce",
+            "num_tasks": 1}
+    res = {}
+    before = sum(launch_counts().values())
+    for dev in ("cpu", "cuda"):
+        model = Architecture(cfg)
+        model.load_state_dict(state)
+        tr = Trainer(args, model, [], [], print_log=False,
+                     work_dir=str(tmp_path / dev), device=dev)
+        tr.model.train()
+        parts = tr._to_device(batch)
+        out = tr.forward(parts)
+        tr.loss_fn(out, parts[0].y, parts[0].graph_mask).backward()
+        assert out.dtype == torch.float32
+        grads = {}
+        for n, p in tr.model.named_parameters():
+            assert p.dtype == p.grad.dtype == torch.float32, n
+            grads[n] = p.grad.cpu()
+        res[dev] = (out.detach().cpu(), grads)
+    assert sum(launch_counts().values()) > before
+    scale = float(res["cpu"][0].abs().max())
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=0,
+                               atol=5e-2 * scale)
+    tree = max(float(g.abs().max()) for g in res["cpu"][1].values())
+    for name, want in res["cpu"][1].items():
+        torch.testing.assert_close(res["cuda"][1][name], want, rtol=0,
+                                   atol=5e-2 * tree, msg=name)
+
+
+def test_native_featurizer_on_the_cards_machine():
+    """The C++ featurizer builds with this machine's g++ and matches the
+    Python featurizer byte for byte on the demo corpus."""
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    from glam_tpu_torch.chem.native import smiles_to_arrays_native
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for smi in read_demo():
+        try:
+            want = smiles_to_arrays(smi)
+        except ValueError:
+            with pytest.raises(ValueError):
+                smiles_to_arrays_native(smi)
+            continue
+        got = smiles_to_arrays_native(smi)
+        assert all(g.dtype == w.dtype and g.shape == w.shape
+                   and g.tobytes() == w.tobytes()
+                   for g, w in zip(got, want)), smi
+
+
+def test_inference_is_bitwise_reproducible(cuda):
+    """Inference on the card gives the same bits on every call: the
+    segment sums (GCN's aggregation, the graph norms, GlobalPool5) sum
+    each segment in index order under no_grad, where ``index_add_``'s
+    atomics would not; and they agree with the CPU's ``index_add_``
+    within 1e-5 (summation order)."""
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.datasets import featurize_smiles
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.nn.model import Architecture, ModelConfig
+    from glam_tpu_torch.ops.segment import segment_sum
+
+    g = torch.Generator().manual_seed(4)
+    data = torch.randn((20000, 60), generator=g)
+    ids = torch.randint(0, 300, (20000,), generator=g)
+    with torch.no_grad():
+        a = segment_sum(data.to(cuda), ids.to(cuda), 301)
+        b = segment_sum(data.to(cuda), ids.to(cuda), 301)
+    assert torch.equal(a, b)
+    want = torch.zeros((301, 60)).index_add_(0, ids, data)
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-5, atol=1e-5)
+
+    graphs = []
+    for smi in read_demo()[:64]:
+        x, snd, rcv, e = featurize_smiles(smi)
+        graphs.append(GraphArrays(x, e, snd, rcv, np.ones(1, np.float32)))
+    batch = next(iter(GraphLoader(graphs, 64, 1))).to(cuda)
+    for block, readout, norm in (("_GCNConv", "Set2Set", "_LayerNorm"),
+                                 ("_TripletMessage", "GlobalPool5",
+                                  "_PairNorm")):
+        cfg = ModelConfig(mol_block=block, mol_readout=readout, e_dim=256,
+                          graph_norm=norm)
+        model = Architecture(cfg, torch.Generator().manual_seed(0)).to(
+            cuda).eval()
+        with torch.inference_mode():
+            outs = [model(batch) for _ in range(3)]
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), block

@@ -1,9 +1,11 @@
 """Import hygiene: every module of glam_tpu_torch, the layer library's
-convs, norms, readouts, kernel C's module, the pair families' modules and
+convs, norms, readouts, kernel C's module, the pair families' modules,
 the AutoML solver's (``automl/``, ``glam``, ``demo``, ``data/perturb``,
-``data/transforms``) among them, imports without JAX, flax, optax, pandas or scikit-learn, and
-without any module of the JAX package (checked in a fresh interpreter).
-The card's machine has none of them."""
+``data/transforms``), the native featurizer's binding, the msgpack
+decoder, the PASP builder and the attention visualization among them,
+imports without JAX, flax, optax, pandas, scikit-learn, msgpack or
+matplotlib, and without any module of the JAX package (checked in a
+fresh interpreter).  The card's machine has none of them."""
 import subprocess
 import sys
 
@@ -32,10 +34,15 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.automl.scheduler", "glam_tpu_torch.automl.summary",
         "glam_tpu_torch.automl.ensemble", "glam_tpu_torch.automl.solver",
         "glam_tpu_torch.glam", "glam_tpu_torch.demo",
-        "glam_tpu_torch.data.perturb", "glam_tpu_torch.data.transforms"}
+        "glam_tpu_torch.data.perturb", "glam_tpu_torch.data.transforms",
+        "glam_tpu_torch.chem.native", "glam_tpu_torch.chem.fingerprints",
+        "glam_tpu_torch.data.perturb_builder",
+        "glam_tpu_torch.utils.msgpack", "glam_tpu_torch.viz.attention",
+        "glam_tpu_torch.viz.layout2d"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
-banned = ("jax", "flax", "optax", "pandas", "sklearn", "glam_tpu")
+banned = ("jax", "flax", "optax", "pandas", "sklearn", "msgpack",
+          "matplotlib", "glam_tpu")
 found = sorted(k for k in sys.modules
                if k in banned or k.startswith(tuple(b + "." for b in banned)))
 assert not found, found

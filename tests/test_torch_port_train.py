@@ -471,10 +471,8 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(pred.predict_smiles(["CCO", "c1ccccc1"])).all()
 
 
-@pytest.mark.parametrize("flag", [["--dtype", "bfloat16"],
-                                  ["--n_devices", "2"],
-                                  ["--pro_shards", "2"],
-                                  ["--dtype", "float16"]])
+@pytest.mark.parametrize("flag", [["--n_devices", "2"],
+                                  ["--pro_shards", "2"]])
 def test_cli_unported_options_raise(tmp_path, flag):
     root = _raw_copy(tmp_path / "data", "demo", 20)
     argv = ["--dataset", "demo", "--dataset_root", str(root), "--loss",
