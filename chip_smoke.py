@@ -31,7 +31,12 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      states (A one; B two, the d_xp fill and the kernel; C one each way,
      the backward with unlisted entries also zero-filling): the calls of
      every kernel check of the run are traced at its end, in one fresh
-     process, and the kernel lines printed then;
+     process, and the kernel lines printed then; then ``stress``:
+     kernels A and B 40 rounds over the card tests' CSRs with rows of
+     40-3,000 edges, on one stream and on two at once, every call
+     bitwise equal to the first, the autograd Function's gradients
+     against a float64 CPU reference, every ticket buffer zero after
+     every call (``--stress N`` runs it alone);
   4. serving phase: the flagship model (TripletMessage H=3 C=60, 3 steps,
      GlobalPool5, e_dim 1024, random weights from seed 0) saved and
      served by ``Predictor(device="cuda")`` for three requests (the whole
@@ -105,6 +110,22 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      - ``screening``: ALDH1 (scr_demo) with the CLI's defaults
        (GCNConv protein tower, loss wce), 1 epoch: A 3 per forward, B 3
        per step, C never; the final line has bedroc;
+  6b. the parallel layer, 2 gloo ranks sharing the card (NCCL refuses
+     two ranks on one GPU; every figure is of ranks time-sliced on one
+     card, no scaling number): ``dp``, the flagship through
+     ``python -m glam_tpu_torch.run --n_devices 2`` (batch 64, 32 a
+     rank, 1 epoch; A 3 per forward and B 3 per step on each rank,
+     exact; the final line once), then 2 ranks of
+     ``tests/torch_port_dp_worker.py`` (the card test's) for a one-step
+     parity (noise off, SGD; and the merged evaluation) against one
+     process on the card, each rank's step host and busy ms and the
+     gradient all-reduce's ms, and ``halo``: the v1 (all_gather) and v2
+     (all_to_all) halo steps on the 1,000-residue synthetic protein's
+     graph over 2 shards at C = 60, kernel C 1 launch a step a rank,
+     against the plain ``reference_halo_step`` on the card, with the
+     bytes a rank receives and each step's ms; ``dp_library`` (Light +
+     Set2Set with BatchNorm: C 6 each way) and ``dp_pair`` (DDI: A 6, B
+     6); the kernels at a rank's batch and at the halo's CSR;
   7. the AutoML solver on ``physprop_perturb`` (a fresh copy of
      ``datasets/physprop`` for each search: 12,607 molecules, label
      split 7,684 / 2,561 / 2,362): first, in a fresh process, the
@@ -130,8 +151,9 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      each call's numbers at its own shapes under ``by_path``, the AutoML
      paths ``automl_search``, ``automl_trials`` and ``automl_blend`` and
      the ``train_flagship_bf16``, ``train_library_bf16``,
-     ``serve_jax_ckpt`` and ``viz`` among them), the card's line, then
-     the final line.
+     ``serve_jax_ckpt``, ``viz``, ``train_dp``, ``train_dp_library``,
+     ``train_dp_ddi`` and ``halo`` among them), the card's line, then
+     the final line.  Each phase's wall seconds are printed.
 
 Exits non-zero, without the final line, if anything fails.
 """
@@ -754,35 +776,204 @@ def kernel_phase(dev, demo, card):
     return out
 
 
+def function_grads(host, g, H, C, dev, dtype):
+    """The gradients of the six differentiable inputs of the
+    triplet-attention Function (kernels A and B on the card, the plain
+    versions on the CPU) for the cotangent ``g``, with the float inputs
+    in ``dtype`` on ``dev``; returned on the CPU."""
+    from glam_tpu_torch.ops.kernels.triplet_fused import triplet_attention
+    t = [a.clone().to(dev) for a in host]
+    t = [a.to(dtype) if a.is_floating_point() else a for a in t]
+    for a in t[:6]:
+        a.requires_grad_(True)
+    triplet_attention(*t, H, C).backward(g.to(dev, dtype))
+    return [a.grad.cpu() for a in t[:6]]
+
+
 def function_on_card_vs_cpu(dev, csr, rng, H=3, C=60):
     """The differentiable op (kernels A and B on the card) against the
-    same op on the CPU (the plain versions), on the training batch."""
+    same op on the CPU (the plain versions, in float64: the a_i gradient
+    of a long row is a difference of nearly equal sums, which float32
+    leaves up to several times the tolerance off), on the training
+    batch."""
     import numpy as np
     import torch
-    from glam_tpu_torch.ops.kernels.triplet_fused import triplet_attention
     host = kernel_inputs(rng, *csr, H, C, "cpu")
     g = torch.from_numpy(rng.randn(host[0].shape[0], H * C).astype(
         np.float32))
-    grads = {}
-    for d in ("cpu", dev):
-        t = [a.clone().to(d) for a in host]
-        for a in t[:6]:
-            a.requires_grad_(True)
-        triplet_attention(*t, H, C).backward(g.to(d))
-        grads[d.type if isinstance(d, torch.device) else d] = [
-            a.grad.cpu() for a in t[:6]]
+    card = function_grads(host, g, H, C, dev, torch.float32)
+    want = function_grads(host, g, H, C, "cpu", torch.float64)
     worst = 0.0
     for name, a, b in zip(("xp", "a_i", "a_j", "edge_attr", "we", "wemat"),
-                          grads["cuda"], grads["cpu"]):
+                          card, want):
+        a = a.double()
         scale = max(float(b.abs().max()), 1.0)
         err = float((a - b).abs().max()) / scale
         worst = max(worst, err)
         if not torch.allclose(a, b, rtol=TOL, atol=1e-5 * scale):
             fail(f"triplet_attention gradient {name}: card and CPU differ "
                  f"by {err:.3e} of its scale")
-    print(f"triplet_attention autograd.Function card vs CPU (train_batch): "
-          f"max gradient error {worst:.3e} of each tensor's scale "
-          f"(tol rtol {TOL}, atol 1e-5 x scale)")
+    print(f"triplet_attention autograd.Function card vs CPU in float64 "
+          f"(train_batch): max gradient error {worst:.3e} of each "
+          f"tensor's scale (tol rtol {TOL}, atol 1e-5 x scale)")
+
+
+def rows_apart(got, want, rowptr, rtol, atol, most=12):
+    """The rows of ``got`` and ``want`` ([N, ...]) that differ by more
+    than atol + rtol |want|, each with its in-degree and the span of
+    32-slot chunks its CSR slots lie in (``rowptr``), as text."""
+    got = got.detach().double().cpu().reshape(got.shape[0], -1)
+    want = want.detach().double().cpu().reshape(want.shape[0], -1)
+    bad = ((got - want).abs() > atol + rtol * want.abs()).any(1)
+    bad = bad.nonzero().flatten().tolist()
+    lines = [f"{len(bad)} rows apart"]
+    for r in bad[:most]:
+        beg, end = int(rowptr[r]), int(rowptr[r + 1])
+        span = (f"chunks {beg // 32}-{(end - 1) // 32}" if end > beg
+                else "no slots")
+        lines.append(f"  row {r}: in-degree {end - beg}, {span}; got "
+                     f"{got[r, :4].tolist()} want {want[r, :4].tolist()}")
+    return "\n".join(lines)
+
+
+def tickets_zero(where):
+    """Fail unless every ticket buffer of kernels A, B and C is zero."""
+    import torch
+    from glam_tpu_torch.ops.kernels import common
+    torch.cuda.synchronize()
+    dirty = common.dirty_tickets()
+    if dirty:
+        fail(f"{where}: ticket buffers left nonzero: {dirty}")
+
+
+STRESS_ROUNDS = 40
+
+
+def stress_cases():
+    """The CSRs of the card tests' kernel A/B checks that hold rows of
+    more than 32 edges: (name, csr, H, C, seed)."""
+    import numpy as np
+    rng = np.random.RandomState(2)
+
+    def lens_csr(lens):
+        rowptr = np.zeros(len(lens) + 1, np.int32)
+        np.cumsum(lens, out=rowptr[1:])
+        S = int(rowptr[-1])
+        return (rowptr, rng.randint(0, len(lens), S).astype(np.int32),
+                rng.permutation(S).astype(np.int32),
+                rng.randn(S, 4).astype(np.float32))
+
+    hub300 = random_csr(rng, n_graphs=20, max_n=30, tail=64, hub=300)
+    return [("hub300", hub300, 3, 60, 2),
+            ("hub300_h8_c64", hub300, 8, 64, 3),
+            ("hub300_h3_c90", hub300, 3, 90, 4),
+            ("hub500", random_csr(rng, n_graphs=80), 3, 60, 5),
+            ("one_boundary", lens_csr(np.r_[np.ones(20, int), 40,
+                                            rng.randint(1, 5, 50)]),
+             3, 60, 6),
+            ("many_blocks", lens_csr(np.r_[rng.randint(0, 5, 100), 3000,
+                                           rng.randint(0, 5, 100)]),
+             3, 60, 7)]
+
+
+def ab_stress(dev, rounds=STRESS_ROUNDS, label="stress"):
+    """Kernels A and B again and again on the CSRs with long rows
+    (:func:`stress_cases`), first on one stream in the card tests'
+    order, then on two streams at once: every call's outputs bitwise
+    those of the first call (B: d_eh, d_pre, d_a_i), the autograd
+    Function's gradients within the card test's tolerance of the CPU's
+    (the rows apart printed on a failure), and every ticket buffer zero
+    after every call.  Returns the number of calls checked."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.ops.kernels.triplet_fused import (
+        triplet_attention, triplet_attention_bwd, triplet_attention_fwd)
+
+    cases, f32_worst = [], 0.0
+    for name, csr, H, C, seed in stress_cases():
+        rng = np.random.RandomState(seed)
+        host = kernel_inputs(rng, *csr, H, C, "cpu")
+        g = torch.from_numpy(rng.randn(host[0].shape[0], H * C).astype(
+            np.float32))
+        cpu_grads = function_grads(host, g, H, C, "cpu", torch.float64)
+        # the float32 CPU gradient, the reference before: how far its
+        # a_i lies from float64, at one thread and at all
+        threads = torch.get_num_threads()
+        for n in (1, threads):
+            torch.set_num_threads(n)
+            a = function_grads(host, g, H, C, "cpu", torch.float32)[1]
+            b = cpu_grads[1]
+            scale = max(float(b.abs().max()), 1.0)
+            f32_worst = max(f32_worst, float(
+                ((a - b).abs() / (1e-5 * scale + TOL * b.abs())).max()))
+        torch.set_num_threads(threads)
+        args = [a.to(dev) for a in host]
+        stats = triplet_attention_fwd(*args, H, C)
+        bwd = triplet_attention_bwd(*args, *stats, g.to(dev), H, C)
+        cases.append((name, csr, H, C, host, g.to(dev), cpu_grads, args,
+                      [t.clone() for t in stats],
+                      [t.clone() for t in bwd[1:]]))
+    tickets_zero(f"{label}: first calls")
+
+    def check(case, where):
+        name, csr, H, C, host, g, cpu_grads, args, stats, bwd = case
+        got = triplet_attention_fwd(*args, H, C)
+        back = triplet_attention_bwd(*args, *got, g, H, C)
+        return name, csr, H, C, stats, bwd, got, back, where
+
+    def verify(name, csr, H, C, stats, bwd, got, back, where):
+        for what, a, b in zip(("out", "row_max", "row_inv"), got, stats):
+            if not torch.equal(a, b):
+                fail(f"{where} [{name}]: kernel A's {what} differs from "
+                     "the first call's:\n" + rows_apart(a, b, csr[0], 0, 0))
+        for what, a, b in zip(("d_eh", "d_pre", "d_a_i"), back[1:], bwd):
+            if not torch.equal(a, b):
+                rows = csr[0] if what == "d_a_i" else None
+                fail(f"{where} [{name}]: kernel B's {what} differs from "
+                     "the first call's" + (":\n" + rows_apart(
+                         a, b, rows, 0, 0) if rows is not None else ""))
+
+    calls = 0
+    for r in range(rounds):
+        for case in cases:
+            name, csr, H, C, host, g, cpu_grads, *_ = case
+            verify(*check(case, f"{label} round {r}"))
+            grads = function_grads(host, g, H, C, dev, torch.float32)
+            for what, a, b in zip(("xp", "a_i", "a_j", "edge_attr", "we",
+                                   "wemat"), grads, cpu_grads):
+                a = a.double()
+                scale = max(float(b.abs().max()), 1.0)
+                if not torch.allclose(a, b, rtol=TOL, atol=1e-5 * scale):
+                    fail(f"{label} round {r} [{name}]: the gradient of "
+                         f"{what} card vs CPU:\n" + rows_apart(
+                             a, b, csr[0], TOL, 1e-5 * scale))
+            tickets_zero(f"{label} round {r} [{name}]")
+            calls += 4
+    # two streams at once: case i on one while case i + 1 runs on the
+    # other, no synchronisation between the launches
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for r in range(rounds):
+        for i in range(len(cases)):
+            pending = []
+            for k, s in enumerate(streams):
+                case = cases[(i + k) % len(cases)]
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    pending.append(check(case, f"{label} two streams round "
+                                         f"{r} stream {k}"))
+            torch.cuda.synchronize()
+            for p in pending:
+                verify(*p)
+            tickets_zero(f"{label} two streams round {r}")
+            calls += 4
+    print(f"{label}: kernels A and B {calls} calls over {rounds} rounds of "
+          f"{len(cases)} CSRs with rows of 40-3,000 edges, one stream then "
+          "two at once: every call bitwise equal to the first, the "
+          "Function's gradients within rtol 1e-4 + atol 1e-5 x scale of "
+          "the CPU's in float64, every ticket buffer zero after every "
+          "call; the float32 CPU gradient of a_i (the reference before) "
+          f"lies up to {f32_worst:.3f} x that tolerance from float64")
+    return calls
 
 
 def serving_phase(dev, demo):
@@ -1393,6 +1584,289 @@ def screening_phase(dev, card, tmp):
         trainer.train_loader)), np.random.RandomState(7), dev, card,
         towers=(0,))
     return launches, kern
+
+
+# ------------------------------------------------- the parallel layer
+DP_RANKS = 2
+DP_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
+           "--n_devices", str(DP_RANKS), "--batch_size", "64"]
+DP_LIBRARY_ARGS = LIBRARY_ARGS[2:] + ["--epochs", "1", "--n_devices",
+                                      str(DP_RANKS), "--batch_size", "64"]
+HALO_CHANNELS = 60
+# the one-step parity's flagship: the CLI's at full width without noise
+# (CELU, no dropout), SGD so that the update is linear in the gradient
+DP_STEP_ARGS = {"dataset": "demo", "mol_block": "_TripletMessage",
+                "hid_dim_alpha": 4, "e_dim": 1024, "message_steps": 3,
+                "graph_norm": "_PairNorm", "pre_act": "CELU",
+                "graph_act": "CELU", "flat_act": "CELU", "pre_do": "_None()",
+                "graph_do": "_None()", "flat_do": "_None()",
+                "end_do": "_None()", "task": "binary_nan_bce",
+                "loss": "bcel", "num_tasks": 1, "optim": "SGD", "lr": 0.01,
+                "batch_size": 64, "seed": 1234}
+
+
+def demo_root(tmp):
+    root = Path(tmp) / "demo"
+    if not root.exists():
+        shutil.copytree(DEMO_CSV.parent, root / "raw")
+    return root
+
+
+def run_ranks_cli(tmp, flags, label, dataset="demo"):
+    """``python -m glam_tpu_torch.run ... --n_devices 2`` as a user runs
+    it, on the card: the launcher starts the gloo ranks, each on cuda:0.
+    Checks the exit code, that the final line is printed once and parses,
+    and returns (run dir, result.json, each rank's launches, optimizer
+    steps, forwards a rank, wall s)."""
+    if dataset == "demo":
+        data = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
+                str(demo_root(tmp))]
+    else:
+        data = ["--dataset", dataset, "--dataset_root",
+                str(ROOT / "datasets" / PAIR_ROOTS[dataset])]
+    work = Path(tmp) / label
+    argv = data + ["--work_dir", str(work)] + flags
+    print(f"training [{label}]: python -m glam_tpu_torch.run "
+          f"{' '.join(argv)}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "glam_tpu_torch.run",
+                           *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode:
+        print(out[-6000:])
+        fail(f"{label}: run --n_devices {DP_RANKS} exited "
+             f"{proc.returncode}")
+    for line in out.splitlines():
+        if line.startswith(("[distributed]", "[launcher]")):
+            print(f"  {line}")
+    finals = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith("{'testloss'")]
+    if len(finals) != 1:
+        fail(f"{label}: the final line printed {len(finals)} times")
+    runs = [d for d in (work / f"log_{dataset}").iterdir() if d.is_dir()]
+    if len(runs) != 1:
+        fail(f"{label}: {len(runs)} run directories, expected rank 0's one")
+    last = (runs[0] / "log.txt").read_text().strip().splitlines()[-1]
+    parse_final_line(last)
+    result = json.loads((runs[0] / "result.json").read_text())
+    by_rank = result["kernel_launches_by_rank"]
+    if len(by_rank) != DP_RANKS:
+        fail(f"{label}: launches of {len(by_rank)} ranks")
+    steps, b = result["optimizer_steps"], result["batches"]
+    forwards = steps + result["epochs_trained"] * b["valid"] + b["valid"] \
+        + b["test"]
+    print(f"training [{label}]: {DP_RANKS} ranks, {steps} optimizer steps, "
+          f"{forwards} forwards a rank, wall_s={wall:.2f}; launches by "
+          f"rank {json.dumps(by_rank)}")
+    print(f"final line [{label}]: {last}")
+    return runs[0], result, by_rank, steps, forwards, wall
+
+
+def check_rank_counts(label, by_rank, want):
+    for k, counts in enumerate(by_rank):
+        check_counts(f"{label} rank {k}", counts, want)
+
+
+def rank_batch(tmp, args, rank=0):
+    """Rank ``rank``'s first sub-batch of the trainer's training loader
+    for the demo dataset (``args`` the CLI's, batch 64 over 2 ranks)."""
+    from glam_tpu_torch.data.batching import GraphLoader
+    from glam_tpu_torch.data.datasets import MolDataset
+    ds = MolDataset(str(demo_root(tmp)), "demo")
+    return next(iter(GraphLoader(ds.train, 64, 1, shuffle=True, seed=1234,
+                                 n_devices=DP_RANKS, rank=rank)))
+
+
+def dp_worker():
+    """``tests/torch_port_dp_worker.py``: the rank worker of the port's
+    data-parallel and halo checks, which the card test runs too."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_port_dp_worker
+    return torch_port_dp_worker
+
+
+def halo_inputs():
+    """The halo phase's graph: the 1,000-residue synthetic protein's
+    contact graph, its 49 residue features projected to HALO_CHANNELS by
+    a seeded matrix (to unit scale), split over DP_RANKS shards, the v2
+    plan, and the step's parameters from seed 0; on the CPU."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.chem.proteins import protein_to_arrays
+    from glam_tpu_torch.parallel import graph_partition as gp
+    seq, cm = synthetic_protein()
+    nodes, snd, rcv, edges = protein_to_arrays(seq, cm)
+    x = nodes @ np.random.RandomState(0).randn(nodes.shape[1],
+                                               HALO_CHANNELS)
+    x = (x / x.std()).astype(np.float32)             # unit scale
+    ns, es, sg, rl, em = gp.split_large_graph(x, edges, snd, rcv, DP_RANKS)
+    send_idx, _, snd_l, H = gp.build_halo_exchange(sg, em, ns.shape[1])
+    params = gp.init_halo_params(torch.Generator().manual_seed(0),
+                                 HALO_CHANNELS, edges.shape[1])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    shards = {"nodes": ns, "edges": es, "senders_global": sg,
+              "receivers": rl, "edge_mask": em, "senders_local": snd_l,
+              "send_idx": send_idx}
+    return (params, {k: t(v) for k, v in shards.items()},
+            tuple(t(a) for a in (x, edges, snd, rcv)), H)
+
+
+def halo_csr(shards, rank):
+    """Kernel C's CSR in the halo step of shard ``rank``: (rowptr, idx,
+    entries), the shard's real edges by receiver."""
+    import numpy as np
+    from glam_tpu_torch.data.graph import receiver_csr
+    em = shards["edge_mask"][rank].cpu().numpy()
+    rcv = shards["receivers"][rank].cpu().numpy()[em]
+    rowptr, _, eid = receiver_csr(np.zeros_like(rcv), rcv,
+                                  shards["nodes"].shape[1])
+    return rowptr, eid, len(rcv)
+
+
+def dp_phase(dev, card, tmp):
+    """Data parallelism over 2 gloo ranks on the one card: the flagship
+    through ``run --n_devices 2`` (A and B per rank exact), the one-step
+    parity against one process on the card with each rank's times and
+    the gradient all-reduce's, the library model (C both ways per rank)
+    and DDI; then the halo steps v1 and v2 (C per rank exact, outputs
+    against the plain reference on the card).  Returns each path's
+    launches and kernel numbers."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.parallel.distributed import backend_for
+    backend, why = backend_for("cuda", DP_RANKS, torch.cuda.device_count())
+    print(f"dp: {DP_RANKS} ranks on {torch.cuda.device_count()} card(s): "
+          f"backend {backend} ({why}); every figure below is from 2 ranks "
+          f"time-sliced on one card, not a scaling number ({card})")
+    out = {"launches": {}, "kern": {}, "secs": {}}
+
+    t0 = time.perf_counter()
+    _, _, by_rank, steps, forwards, _ = run_ranks_cli(tmp, DP_ARGS, "dp")
+    check_rank_counts("dp", by_rank, {"triplet_fused_fwd": 3 * forwards,
+                                      "triplet_fused_bwd": 3 * steps})
+    out["launches"]["train_dp"] = by_rank
+    rng = np.random.RandomState(11)
+    csr = batch_csr(rank_batch(tmp, DP_ARGS))
+    out["kern"]["train_dp"] = {w: check_kernel(w, "dp_rank_batch", csr, rng,
+                                               dev, card)
+                               for w in ("fwd", "bwd")}
+    out["secs"]["dp"] = time.perf_counter() - t0
+
+    # the one-step parity, the ranks' times, and the halo steps, by
+    # the ranks of the port's data-parallel checks on the card
+    from glam_tpu_torch.parallel import graph_partition as gp
+    worker = dp_worker()
+    t0 = time.perf_counter()
+    work = Path(tmp) / "dp_ranks"
+    work.mkdir(parents=True)
+    params, shards, whole, H = halo_inputs()
+    torch.save(dict(shards, params=params), work / "halo.pt")
+    (work / "plan.json").write_text(json.dumps({
+        "tasks": ["step", "halo", "time"], "root": str(demo_root(tmp)),
+        "configs": {"flagship_demo": DP_STEP_ARGS}}))
+    procs = worker.spawn_ranks(work, "cuda", DP_RANKS)
+    single = worker.step_and_eval(worker.trainer(
+        "flagship_demo", 1, work, dev, DP_STEP_ARGS, demo_root(tmp)))
+    got = worker.wait_ranks(procs, work, timeout=600)
+    for k in range(DP_RANKS):
+        for line in (work / f"rank{k}.out").read_text().splitlines():
+            if line.startswith(("rank ", "profile", "  ", "[distributed]")):
+                print(f"  [rank {k}] {line}")
+    step, times = got["step_flagship_demo"], got["time"]
+    worst = 0.0
+    for k, want in single["state"].items():
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((step["state"][k] - want).abs().max()) / scale
+        worst = max(worst, err)
+        if not torch.allclose(step["state"][k], want, rtol=TOL,
+                              atol=1e-6 * scale):
+            fail(f"dp one-step parity: {k} differs by {err:.3e} of its "
+                 "scale from one process")
+    out_err = float(np.abs(step["out"] - single["out"]).max())
+    if not (np.allclose(step["out"], single["out"], rtol=TOL, atol=TOL)
+            and math.isclose(step["loss"], single["loss"], rel_tol=TOL)):
+        fail(f"dp merged evaluation: outputs differ by {out_err:.3e}, loss "
+             f"{step['loss']} against one process's {single['loss']}")
+    for k, launches in enumerate(step["launches"]):
+        check_counts(f"dp step rank {k}", launches,
+                     {"triplet_fused_fwd": 3, "triplet_fused_bwd": 3})
+    print(f"dp one-step parity [flagship, SGD, no noise]: {DP_RANKS} gloo "
+          f"ranks, each on {dev}, against one process on the card, batch "
+          f"64: max error {worst:.3e} of each tensor's scale (tol rtol "
+          f"{TOL}, atol 1e-6 x scale); the merged evaluation's outputs "
+          f"within {out_err:.3e}, loss {step['loss']:.6f} against "
+          f"{single['loss']:.6f} (tol {TOL})")
+    for k, r in enumerate(times):
+        print(f"dp step rank {k}: host_ms={r['host_ms']:.4f} busy_ms="
+              f"{r['busy']['busy_ms']:.4f} over {r['busy']['kernels']} "
+              f"kernels; gradient all_reduce of {r['all_reduce_floats']} "
+              f"floats ({r['all_reduce_floats'] * 4 / 1e6:.2f} MB) "
+              f"all_reduce_ms={r['all_reduce_ms']:.4f}, medians of 20 "
+              f"(2 ranks time-sliced on one card; {card})")
+    out["secs"]["dp_step"] = time.perf_counter() - t0
+
+    # the halo steps
+    for k, launches in enumerate(got["halo"]["launches"]):
+        check_counts(f"halo rank {k}", launches,
+                     {"segment_softmax_spmm_fwd": 2})
+    ref = gp.reference_halo_step({k: v.to(dev) for k, v in params.items()},
+                                 *(a.to(dev) for a in whole)).cpu()
+    N = ref.shape[0]
+    err, close = [], True
+    for v in ("v1", "v2"):
+        g = got["halo"][v].reshape(-1, HALO_CHANNELS)[:N]
+        err.append(float((g - ref).abs().max()))
+        close = close and torch.allclose(g, ref, rtol=1e-5, atol=1e-5)
+    if not close:
+        fail(f"halo steps against reference_halo_step: v1 {err[0]:.3e}, "
+             f"v2 {err[1]:.3e} (tol rtol 1e-5 + atol 1e-5; largest entry "
+             f"{float(ref.abs().max()):.3e})")
+    n_local = shards["nodes"].shape[1]
+    b1, b2 = gp.halo_bytes(n_local, H, HALO_CHANNELS, DP_RANKS)
+    print(f"halo [synthetic protein, 1,000 residues, {DP_RANKS} shards of "
+          f"{n_local} rows, C={HALO_CHANNELS}, halo budget H={H}]: v1 "
+          f"(all_gather) max_abs_err={err[0]:.3e}, v2 (all_to_all) "
+          f"{err[1]:.3e} against the plain reference on the card (tol rtol "
+          f"1e-5 + atol 1e-5; largest entry {float(ref.abs().max()):.3e}); "
+          f"features received a rank a step: v1 {b1} bytes, v2 {b2} bytes; "
+          f"step ms by rank "
+          f"{[[round(x, 4) for x in r['halo_ms']] for r in times]} "
+          f"(v1, v2, medians of 20; gloo ranks on one card; {card})")
+    out["launches"]["halo"] = got["halo"]["launches"]
+    rowptr, idx, m = halo_csr(shards, 0)
+    out["kern"]["halo"] = check_spmm_both(
+        "halo_shard0", spmm_inputs(np.random.RandomState(12), rowptr, idx, m,
+                                   1, HALO_CHANNELS, dev), dev, card)
+
+    t0 = time.perf_counter()
+    _, _, by_rank, steps, forwards, _ = run_ranks_cli(
+        tmp, DP_LIBRARY_ARGS, "dp_library")
+    check_rank_counts("dp_library", by_rank, {
+        "segment_softmax_spmm_fwd": 6 * forwards,
+        "segment_softmax_spmm_bwd": 6 * steps})
+    out["launches"]["train_dp_library"] = by_rank
+    out["kern"]["train_dp_library"] = check_spmm_calls(
+        "dp_rank", rank_batch(tmp, DP_LIBRARY_ARGS), "_TripletMessageLight",
+        "Set2Set", 60, np.random.RandomState(13), dev, card)
+    out["secs"]["dp_library"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, _, by_rank, steps, forwards, _ = run_ranks_cli(
+        tmp, DP_ARGS, "dp_pair", "drugbank_caster")
+    check_rank_counts("dp_pair", by_rank, {"triplet_fused_fwd": 6 * forwards,
+                                           "triplet_fused_bwd": 6 * steps})
+    out["launches"]["train_dp_ddi"] = by_rank
+    from glam_tpu_torch.data.batching import PairGraphLoader
+    from glam_tpu_torch.data.pair_datasets import DDIDataset
+    ds = DDIDataset(str(ROOT / "datasets" / PAIR_ROOTS["drugbank_caster"]))
+    pair = next(iter(PairGraphLoader(ds.train, 64, 1, shuffle=True,
+                                     seed=1234, n_devices=DP_RANKS, rank=0)))
+    out["kern"]["train_dp_ddi"] = check_triplet_towers(
+        "dp_ddi", pair, np.random.RandomState(14), dev, card)
+    out["secs"]["dp_pair"] = time.perf_counter() - t0
+    return out
 
 
 def cuda_context_check():
@@ -2333,6 +2807,14 @@ def step_timing(trainer, batch, card, top=8):
                 step_ms=wall_ms, device_ms=dev_ms)
 
 
+def phase(label, fn, *args):
+    """``fn(*args)``, its wall seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2346,6 +2828,10 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--trace"]:
         trace_main(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--stress"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ab_stress(torch.device("cuda"), int(sys.argv[2]))
         return
     from glam_tpu_torch.ops.kernels import build
 
@@ -2391,25 +2877,32 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
     demo = read_demo()
-    native_phase(card)
-    kern = kernel_phase(dev, demo, card)
-    served = serving_phase(dev, demo)
+    phase("native", native_phase, card)
+    kern = phase("kernels", kernel_phase, dev, demo, card)
+    phase("stress", ab_stress, dev, STRESS_ROUNDS)
+    served = phase("serving", serving_phase, dev, demo)
     with tempfile.TemporaryDirectory() as tmp:
-        jax_served, kern_jax = jax_checkpoint_phase(dev, card, tmp)
-        viz_launches, kern_viz = viz_phase(dev, card)
-        trained, kern_train = training_phase(dev, card, tmp)
-        lib_trained, lib_served, kern_lib = library_phase(dev, card, tmp,
-                                                          demo)
-        bf16_a, kern_bf16_a, bf16_c, kern_bf16_c = bf16_training(dev, card,
-                                                                 tmp)
-        gat_trained, kern_gat = gat_phase(dev, card, tmp)
-        default_phase(dev, tmp)
-        ddi_trained, kern_ddi, _ = ddi_phase(dev, card, tmp)
-        dti_trained, kern_dti, _ = dti_phase(dev, card, tmp)
-        dti_served, kern_srv = dti_serving_phase(dev, card, demo)
-        scr_trained, kern_scr = screening_phase(dev, card, tmp)
-        automl = automl_phase(dev, card, demo, tmp)
-    report_traced()
+        jax_served, kern_jax = phase("jax_checkpoint", jax_checkpoint_phase,
+                                     dev, card, tmp)
+        viz_launches, kern_viz = phase("viz", viz_phase, dev, card)
+        trained, kern_train = phase("training", training_phase, dev, card,
+                                    tmp)
+        lib_trained, lib_served, kern_lib = phase(
+            "library", library_phase, dev, card, tmp, demo)
+        bf16_a, kern_bf16_a, bf16_c, kern_bf16_c = phase(
+            "bf16", bf16_training, dev, card, tmp)
+        gat_trained, kern_gat = phase("gat", gat_phase, dev, card, tmp)
+        phase("default", default_phase, dev, tmp)
+        ddi_trained, kern_ddi, _ = phase("ddi", ddi_phase, dev, card, tmp)
+        dti_trained, kern_dti, _ = phase("dti", dti_phase, dev, card, tmp)
+        dti_served, kern_srv = phase("dti_serving", dti_serving_phase, dev,
+                                     card, demo)
+        scr_trained, kern_scr = phase("screening", screening_phase, dev,
+                                      card, tmp)
+        par = phase("dp, halo, dp_library, dp_pair", dp_phase, dev, card,
+                    tmp)
+        automl = phase("automl", automl_phase, dev, card, demo, tmp)
+    phase("traced kernel checks", report_traced)
 
     # each kernel's calls on each path: {path: {call: (launches per
     # forward, the numbers measured at that call's shapes)}}; then the
@@ -2516,10 +3009,6 @@ def main() -> None:
                         calls[name][path][f"{c['note']}_{at}_{kind}_c{C}"] \
                             = (k, automl["at"][f"{at}_{kind}_c{C}"][w])
             launches[name][path] = n
-    for name, counts in launches.items():
-        for path, n in counts.items():
-            if n < 1:
-                fail(f"{name} never launched on the {path} path")
     # a kernel's times are per launch on the path that launches it most:
     # the mean over that path's calls, each weighted by its launches per
     # forward; by_path holds every path's launches, those means and each
@@ -2537,6 +3026,28 @@ def main() -> None:
                 "(XLA autodiff; the TPU kernel "
                 f"{pallas}/segment_mxu.py:100 is forward-only)")}
     kernels = []
+    # the parallel layer's paths: every rank's launches; the kernels at
+    # a rank's batch (the halo: shard 0's CSR)
+    pk = par["kern"]
+    for w in ("fwd", "bwd"):
+        calls[f"triplet_fused_{w}"]["train_dp"] = {
+            "dp_rank_batch": (3, pk["train_dp"][w])}
+        calls[f"triplet_fused_{w}"]["train_dp_ddi"] = {
+            t: (3, r[w]) for t, r in pk["train_dp_ddi"].items()}
+        calls[f"segment_softmax_spmm_{w}"]["train_dp_library"] = {
+            c: (3, pk["train_dp_library"][c][w]) for c in ("light",
+                                                          "set2set")}
+    calls["segment_softmax_spmm_fwd"]["halo"] = {
+        "halo_shard0": (1, pk["halo"]["fwd"])}
+    off_path["segment_softmax_spmm_bwd"].append(pk["halo"]["bwd"])
+    for path, by_rank in par["launches"].items():
+        for name in launches:
+            if path in calls[name]:
+                launches[name][path] = sum(r.get(name, 0) for r in by_rank)
+    for name, counts in launches.items():
+        for path, n in counts.items():
+            if n < 1:
+                fail(f"{name} never launched on the {path} path")
     for name, (src, replaces) in meta.items():
         counts = launches[name]
         by_path = {path: dict(per_launch(calls[name][path]), launches=n,

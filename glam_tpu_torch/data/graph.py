@@ -157,16 +157,20 @@ def receiver_csr(senders: np.ndarray, receivers: np.ndarray,
 
 def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
                num_nodes: int, num_edges: int,
-               num_tasks: int | None = None) -> GraphBatch:
+               num_tasks: int | None = None, node_dim: int | None = None,
+               edge_dim: int | None = None) -> GraphBatch:
     """Pack ``graphs`` into one static-shape :class:`GraphBatch` on the
     CPU.
 
     ``num_graphs`` counts only real graph slots; one extra padding-graph
     slot is appended, so the result has ``G = num_graphs + 1`` graphs.
-    Raises if the batch does not fit the requested budget.
+    Raises if the batch does not fit the requested budget.  An empty
+    ``graphs`` gives an all-padding batch (graph_mask all False), the
+    data-parallel loaders' trailing sub-batches; it needs ``node_dim``,
+    ``edge_dim`` and ``num_tasks``.
     """
-    if not graphs:
-        raise ValueError("pad_graphs needs at least one graph")
+    if not graphs and (node_dim is None or num_tasks is None):
+        raise ValueError("an empty batch needs node_dim and num_tasks")
     g_real = len(graphs)
     if g_real > num_graphs:
         raise ValueError(f"{g_real} graphs > budget {num_graphs}")
@@ -176,8 +180,11 @@ def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
         raise ValueError(
             f"batch needs ({tot_n} nodes, {tot_e} edges) > budget "
             f"({num_nodes}, {num_edges})")
-    fn = graphs[0].nodes.shape[1]
-    fe = graphs[0].edges.shape[1] if graphs[0].edges.ndim == 2 else 0
+    if graphs:
+        fn = graphs[0].nodes.shape[1]
+        fe = graphs[0].edges.shape[1] if graphs[0].edges.ndim == 2 else 0
+    else:
+        fn, fe = node_dim, edge_dim or 0
     nt = num_tasks if num_tasks is not None else graphs[0].y.shape[-1]
     G = num_graphs + 1
 

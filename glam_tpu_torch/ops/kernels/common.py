@@ -38,6 +38,19 @@ def tickets(dev, stream: int, n: int) -> torch.Tensor:
     return buf
 
 
+def dirty_tickets():
+    """{(device index, stream): {index: value}} of every nonzero ticket
+    (at most 16 a buffer); empty when every buffer is zero, as the
+    kernels leave them.  Reads the buffers: synchronizes with the
+    device."""
+    out = {}
+    for key, buf in _TICKETS.items():
+        nz = torch.nonzero(buf).flatten()[:16].tolist()
+        if nz:
+            out[key] = dict(zip(nz, buf[nz].tolist()))
+    return out
+
+
 @functools.cache
 def sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count

@@ -1,0 +1,186 @@
+"""Scaling harness of data-parallel training: edges/s at 1 to N ranks, the
+counterpart of the JAX package's ``parallel/bench_scaling.py``.
+
+    python -m glam_tpu_torch.parallel.bench_scaling [--devices 1 2 4]
+        [--graphs_per_device 512] [--n_iter 30] [--platform cpu]
+
+prints one JSON line per rank count and a scaling-efficiency line.  Each
+count runs the flagship at full width (TripletMessage, hid 60, 3 steps,
+e_dim 1024, GlobalPool5, no noise; Adam, mse) on ``graphs_per_device``
+molecules a rank, one process per rank (``parallel/data_parallel.py``),
+on the cards (``cuda:(rank % cards)``) unless ``--platform cpu``.  Ranks
+that share a card are time-sliced on it, so their rate is no scaling
+number.  :func:`measure` starts the ranks as processes of this module
+with the ``GLAM_*`` variables set (``distributed.spawn_ranks``); such a
+process measures as its rank.  ``--analytic`` (the JAX package's model of the node-sharded
+tower's halo traffic) waits for that tower (ROADMAP A11) and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+SMILES = ("CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C(=O)N2C)C",
+          "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "Clc1cc2c(Oc3ccccc3C3CN(CC32)C)cc1")
+
+
+def _graphs(n: int):
+    from ..data.datasets import featurize_smiles
+    from ..data.graph import GraphArrays
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(n):
+        x, s, r, e = featurize_smiles(SMILES[i % len(SMILES)])
+        out.append(GraphArrays(x, e, s, r, np.asarray([rng.randn()],
+                                                      np.float32)))
+    return out
+
+
+def _measure_rank(n_devices: int, graphs_per_device: int, n_iter: int,
+                  platform: str) -> dict:
+    """This rank's part of :func:`measure`, in a process group of
+    ``n_devices`` ranks (or alone for 1)."""
+    from ..data.batching import GraphLoader
+    from ..nn.model import Architecture, ModelConfig
+    from ..train.optim import make_optimizer
+    from ..train.trainer import make_loss_fn
+    from . import data_parallel, distributed
+
+    rank, ranks = distributed.world()
+    if ranks != n_devices:
+        raise RuntimeError(f"measure({n_devices}) in a group of {ranks}")
+    dev = distributed.rank_device(rank, platform)
+    graphs = _graphs(graphs_per_device * n_devices)
+    batch = next(iter(GraphLoader(graphs, graphs_per_device * n_devices, 1,
+                                  n_devices=n_devices, rank=rank)))
+    batch = batch.to(dev)
+    cfg = ModelConfig(mol_block="_TripletMessage", mol_readout="GlobalPool5",
+                      hid_dim_alpha=4, e_dim=1024, message_steps=3,
+                      max_nodes=40, graph_do="_None()", flat_do="_None()",
+                      end_do="_None()", pre_act="CELU", graph_act="CELU",
+                      flat_act="CELU")
+    model = Architecture(cfg, torch.Generator().manual_seed(0)).to(dev)
+    model.train()
+    opt = make_optimizer("Adam", model.named_parameters(), 1e-3)
+    loss_fn = make_loss_fn("regression", "mse", 1)
+    if n_devices > 1:
+        step = data_parallel.make_dp_train_step(model, loss_fn, opt)
+    else:
+        def step(parts):
+            loss = loss_fn(model(*parts), parts[0].y, parts[0].graph_mask)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    step((batch,))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        step((batch,))
+    sync()
+    seconds, edges = time.perf_counter() - t0, float(batch.num_real_edges)
+    if n_devices > 1:        # the slowest rank's time, every rank's edges
+        every = [None] * n_devices
+        torch.distributed.all_gather_object(every, (seconds, edges))
+        seconds = max(e[0] for e in every)
+        edges = sum(e[1] for e in every)
+    return {"devices": n_devices, "platform": dev.type,
+            "edges_per_sec": edges * n_iter / seconds,
+            "step_ms": seconds / n_iter * 1e3}
+
+
+def measure(n_devices: int, graphs_per_device: int = 512, n_iter: int = 30,
+            platform: str = "cuda") -> dict:
+    """{devices, platform, edges_per_sec, step_ms} of data-parallel
+    training steps over ``n_devices`` ranks.  Inside a process group of
+    ``n_devices`` ranks it measures as this rank; else it runs alone (1)
+    or starts the ranks (this module's ``main``) and returns rank 0's
+    result."""
+    from . import distributed
+    if n_devices == 1 or distributed.world()[1] == n_devices:
+        return _measure_rank(n_devices, graphs_per_device, n_iter, platform)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        rc = distributed.wait_ranks(distributed.spawn_ranks(
+            [sys.executable, "-m", "glam_tpu_torch.parallel.bench_scaling",
+             "--devices", str(n_devices), "--graphs_per_device",
+             str(graphs_per_device), "--n_iter", str(n_iter), "--platform",
+             platform, "--out", out], n_devices, logs=tmp))
+        if rc:
+            logs = "".join(open(os.path.join(tmp, f"rank{k}.out")).read()
+                           for k in range(n_devices))
+            raise RuntimeError(f"measure({n_devices}): a rank exited with "
+                               f"{rc}:\n{logs[-4000:]}")
+        with open(out) as f:
+            return json.load(f)
+
+
+def _rank_main(args):
+    """One rank of a job that :func:`measure` started: measures its
+    count with the others, rank 0 writes the result to ``--out``."""
+    from . import distributed
+    distributed.initialize_distributed(platform=args.platform)
+    result = _measure_rank(args.devices[0], args.graphs_per_device,
+                           args.n_iter, args.platform)
+    if distributed.world()[0] == 0:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    torch.distributed.destroy_process_group()
+    return [result]
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--devices", type=int, nargs="+", default=None)
+    p.add_argument("--graphs_per_device", type=int, default=512)
+    p.add_argument("--n_iter", type=int, default=30)
+    p.add_argument("--platform", default="cuda",
+                   help="'cpu' runs gloo ranks on the CPU")
+    p.add_argument("--out", default=None,
+                   help="where a rank of measure()'s job writes rank 0's "
+                        "result")
+    p.add_argument("--analytic", action="store_true",
+                   help="the node-sharded tower's analytic model "
+                        "(not ported)")
+    args = p.parse_args(argv)
+    if args.analytic:
+        raise NotImplementedError(
+            "--analytic models the node-sharded tower's halo traffic, which "
+            "is not ported yet (ROADMAP queue A, A11 'Node-sharded "
+            "giant-graph tower')")
+    from .distributed import ENV_PROCESS_ID
+    if ENV_PROCESS_ID in os.environ:
+        return _rank_main(args)
+    avail = ((os.cpu_count() or 1) if args.platform == "cpu"
+             else torch.cuda.device_count())
+    counts: List[int] = args.devices or [d for d in (1, 2, 4, 8)
+                                         if d <= avail]
+    results = []
+    for d in counts:
+        r = measure(d, args.graphs_per_device, args.n_iter, args.platform)
+        results.append(r)
+        print(json.dumps(r))
+    if len(results) > 1:
+        base = results[0]["edges_per_sec"] / results[0]["devices"]
+        eff = (results[-1]["edges_per_sec"] / results[-1]["devices"]) / base
+        print(json.dumps({"metric": "scaling_efficiency", "value": eff,
+                          "from_devices": results[0]["devices"],
+                          "to_devices": results[-1]["devices"]}))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -23,13 +23,28 @@ kernels always run on the card, and eager PyTorch compiles nothing.
 ``physprop_perturb`` trains the regression model on its Label-column
 splits (``data/perturb.py``).  ``--dtype bfloat16`` (or ``float16``)
 trains in that compute dtype over float32 master parameters
-(``train/trainer.py``).  ``--n_devices > 1`` and ``--pro_shards > 1``
-raise ``NotImplementedError`` naming their ROADMAP item; ``--pair_batch > 1`` raises ``ValueError``.  The AutoML
-solver (``glam_tpu_torch.glam``) launches this CLI for every trial.
+(``train/trainer.py``).  ``--pro_shards > 1`` raises
+``NotImplementedError`` naming its ROADMAP item; ``--pair_batch > 1``
+raises ``ValueError``.  The AutoML solver (``glam_tpu_torch.glam``)
+launches this CLI for every trial.
+
+``--n_devices D`` > 1 trains data-parallel over D ranks, one process
+each (``parallel/distributed.py``, ``train/trainer.py``).  Where
+``GLAM_COORDINATOR``, ``GLAM_NUM_PROCESSES`` and ``GLAM_PROCESS_ID`` are
+unset, this process is the launcher: it builds the kernels once (on the
+card), starts D rank processes of the same command on a free local port
+with the variables set, waits for all of them and exits non-zero if any
+rank does (stopping the others).  Where they are set, it runs as that
+rank, so a multi-host launch sets them on each host.  On the card the
+ranks use ``cuda:(rank % cards)``; ``--platform cpu`` runs gloo ranks on
+the CPU.  Rank 0 alone writes the log, checkpoints and the final line.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,7 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the JAX package's commands; no "
                         "effect")
     p.add_argument("--n_devices", default=1, type=int,
-                   help="data-parallel training; only 1 is ported")
+                   help="data-parallel ranks, one process each")
     p.add_argument("--halo", default="a2a", type=str,
                    help="halo plan for --pro_shards (not ported)")
     p.add_argument("--pro_shards", default=1, type=int,
@@ -125,23 +140,73 @@ def resolve_run_device(args) -> str:
     return f"cuda:{int(args.get('gpu') or 0)}"
 
 
+def launch_ranks(argv, args) -> int:
+    """Start ``--n_devices`` rank processes of this command and wait for
+    them; returns the first nonzero exit code (the others are stopped
+    then), else 0."""
+    from .parallel import distributed
+    n = int(args["n_devices"])
+    platform = resolve_run_device(args)
+    if platform != "cpu":
+        # the ranks' cards; raises without one
+        distributed.rank_device(0, "cuda")
+        from .ops.kernels import build
+        t0 = time.time()
+        built = build.build()
+        print(f"[launcher] CUDA kernels: {len(built)} built, "
+              f"{len(build.SOURCES) - len(built)} cached "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    rc = distributed.wait_ranks(distributed.spawn_ranks(
+        [sys.executable, "-m", "glam_tpu_torch.run", *argv], n))
+    if rc:
+        print(f"[launcher] a rank exited with {rc}; the others were "
+              "stopped", file=sys.stderr, flush=True)
+    return rc
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = vars(build_parser().parse_args(argv))
-    device = resolve_run_device(args)
-    from .data.datasets import auto_dataset
-    from .train.pair_trainer import make_auto_trainer
+    from .parallel import distributed
     from .train.trainer import check_supported
-    from .utils.seed import seed_everything
 
     check_supported(args)
     if int(args.get("pair_batch", 1)) > 1:
         raise ValueError("--pair_batch applies to --pro_shards runs "
                          "only (dense trainers batch via --batch_size)")
+    n = int(args.get("n_devices") or 1)
+    rank = 0
+    if n > 1 and distributed.ENV_PROCESS_ID not in os.environ:
+        rc = launch_ranks(argv, args)
+        if rc:
+            raise SystemExit(rc)
+        return None
+    if n > 1:
+        platform = resolve_run_device(args)
+        platform = "cpu" if platform == "cpu" else "cuda"
+        distributed.initialize_distributed(num_processes=n,
+                                           platform=platform)
+        rank = distributed.world()[0]
+        device = distributed.rank_device(rank, platform)
+    else:
+        device = resolve_run_device(args)
+    import torch
+    from .data.datasets import auto_dataset
+    from .train.pair_trainer import make_auto_trainer
+    from .utils.seed import seed_everything
+
     args.pop("compile_cache", None)
     seed_everything(args["seed"])
-    print("Loading dataset...")
+    if rank == 0:
+        print("Loading dataset...")
+    # rank 0 first: it writes the dataset cache that the others read
+    if rank > 0:
+        torch.distributed.barrier()
     args, dataset, trainer_kind = auto_dataset(args)
-    print("Training init...")
+    if n > 1 and rank == 0:
+        torch.distributed.barrier()
+    if rank == 0:
+        print("Training init...")
     resume = args.pop("resume", None)
     trainer = make_auto_trainer(args, dataset, trainer_kind,
                                 work_dir=args.get("work_dir"),

@@ -28,7 +28,7 @@ from ..nn.model import PairArchitecture, model_config_from_args
 from .losses import bce_logits, cross_entropy, get_loss
 from .metrics import (binary_metrics, multi_class_metrics,
                       regression_metrics, screening_metrics)
-from .trainer import Trainer, make_trainer
+from .trainer import Trainer, make_trainer, make_weight_fn
 
 
 def make_pair_loss_fn(task: str, loss_name: str, class_weights=None,
@@ -86,14 +86,37 @@ class PairTrainer(Trainer):
         nt = self.num_tasks
         self.train_loader = PairGraphLoader(
             train_pairs, int(self.args.get("batch_size", 32)), nt,
-            shuffle=True, seed=int(self.args.get("seed", 1234)))
-        self.valid_loader = PairGraphLoader(valid_pairs, 32, nt)
-        self.test_loader = (PairGraphLoader(test_pairs, 32, nt)
+            shuffle=True, seed=int(self.args.get("seed", 1234)),
+            **self._split())
+        self.valid_loader = self._eval_loader(valid_pairs)
+        self.test_loader = (self._eval_loader(test_pairs)
                             if test_pairs else None)
+
+    def _eval_loader(self, pairs):
+        return PairGraphLoader(pairs, self.eval_batch, self.num_tasks,
+                               **self._split())
 
     def _make_loss(self):
         return make_pair_loss_fn(self.task, self.args.get("loss", "bcel"),
                                  self.class_weights, self.device)
+
+    def _make_weight(self):
+        """A rank's loss weight (the JAX pair trainer's ``_make_weight``):
+        for class-weighted ``wce``, the class weights of its real pairs'
+        targets summed, else the count of real pairs."""
+        loss_name = self.args.get("loss", "bcel")
+        name = (loss_name if loss_name in ("ce", "wce", "focal")
+                else ("wce" if self.task == "pair_screening" else "ce"))
+        if self.task in ("pair_binary", "pair_screening") \
+                and name == "wce" and self.class_weights is not None:
+            cw = torch.as_tensor(np.asarray(self.class_weights),
+                                 dtype=torch.float32, device=self.device)
+
+            def weight_fn(y, gmask):
+                tgt = y[:, 0].long().clamp(0, cw.shape[0] - 1)
+                return (cw[tgt] * gmask.float()).sum()
+            return weight_fn
+        return make_weight_fn(self.task)
 
     def valid_iterations(self, mode: str = "valid"):
         out, y, mean_loss = self._gather(

@@ -31,6 +31,22 @@ takes batch statistics and moves its running ones), evaluation in
   final_save.pt  the same, after the last epoch
   last_save.pt   the whole training state, for ``resume``
 
+Data parallelism (``--n_devices`` D > 1; the JAX trainer's
+``_build_dp_steps``, ``trainer.py:354-420``): the trainer is one rank of
+a process group of D ranks (``parallel/distributed.py``), each on its own
+device and sub-batch of every global batch (``data/batching.py``), with
+the weighted steps of ``parallel/data_parallel.py`` (weights from
+:func:`make_weight_fn`, or the pair trainer's).  A rank reseeds its noise
+generator before every step from (seed, step * D + rank), the
+counterpart of ``fold_in(rng, step * D + axis_index)``.  Evaluation runs
+at a batch of ``max((32 // D) * D, D)``; the outputs are gathered in the
+JAX package's order (each global batch rank 0's sub-batch first) and the
+loss is sum over ranks of loss w / W, so every rank reaches the same
+metrics, learning rate and early stop.  Rank 0 makes the run directory
+and alone writes the log, the checkpoints and ``result.json``
+(``kernel_launches_by_rank`` holds every rank's launches); every rank
+reads the best checkpoint back.
+
 Each run appends to ``log.txt``, whose last line is the
 ``{loss_info}|{test_result}|{val_result}`` triple of the JAX package
 (``trainer.py:682``), and writes ``result.json``.  ``pasp`` evaluates
@@ -59,6 +75,7 @@ from ..data.batching import GraphLoader, max_graph_nodes, prefetch
 from ..data.graph import GraphBatch
 from ..nn.model import Architecture, model_config_from_args
 from ..ops.kernels import launch_counts
+from ..parallel import data_parallel, distributed
 from ..serve import resolve_device, save_checkpoint
 from .losses import get_loss
 from .metrics import binary_metrics_multi_target_nan, regression_metrics
@@ -128,10 +145,6 @@ def check_supported(args: Dict) -> None:
     """Raise for the options whose code is not ported yet, and on an
     unknown ``--dtype``."""
     compute_dtype(args)
-    if int(args.get("n_devices", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--n_devices > 1 is not ported yet (ROADMAP queue A, 'Data "
-            "parallelism')")
     if int(args.get("pro_shards", 1) or 1) > 1:
         raise NotImplementedError(
             "--pro_shards > 1 is not ported yet (ROADMAP queue A, "
@@ -162,6 +175,26 @@ def make_loss_fn(task: str, loss_name: str, num_tasks: int):
     return loss_fn
 
 
+def make_weight_fn(task: str):
+    """A rank's loss weight, the denominator of its loss's weighted mean
+    (the JAX trainer's ``make_weight_fn``): the count of labelled targets
+    of real graphs for ``binary_nan``/``binary_nan_bce``, else of real
+    graphs."""
+    if task in ("binary_nan", "binary_nan_bce"):
+        def weight_fn(y, gmask):
+            return ((y >= 0) & gmask[:, None]).float().sum()
+    else:
+        def weight_fn(y, gmask):
+            return gmask.float().sum()
+    return weight_fn
+
+
+def noise_seed(seed: int, index: int) -> int:
+    """The noise generator's seed for step-and-rank ``index`` of a
+    data-parallel run seeded with ``seed``."""
+    return (int(seed) % 2 ** 31) * 2 ** 32 + int(index)
+
+
 class Trainer:
     """Single-graph trainer; see the module docstring."""
 
@@ -180,6 +213,19 @@ class Trainer:
         self.compute_dtype = compute_dtype(self.args)
         self.num_tasks = int(self.args.get("num_tasks", 1))
         seed = int(self.args.get("seed", 1234))
+        self.n_devices = int(self.args.get("n_devices", 1) or 1)
+        self.rank = 0
+        if self.n_devices > 1:
+            self.rank, ranks = distributed.world()
+            if ranks != self.n_devices:
+                raise RuntimeError(
+                    f"--n_devices {self.n_devices} needs a process group "
+                    f"of {self.n_devices} ranks (found {ranks}): launch "
+                    "through glam_tpu_torch.run, or call parallel."
+                    "distributed.initialize_distributed in each rank")
+        self.is_main = self.rank == 0
+        self.eval_batch = max((32 // self.n_devices) * self.n_devices,
+                              self.n_devices)
 
         self._make_loaders(train_graphs, valid_graphs, test_graphs)
         self.loss_fn = self._make_loss()
@@ -191,6 +237,16 @@ class Trainer:
             patience=int(self.args.get("lr_reduce_patience", 20)),
             min_lr=1e-6)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.step = 0            # optimizer steps taken
+        if self.n_devices > 1:
+            data_parallel.broadcast_state(self.model)
+            weight_fn = self._make_weight()
+            self._dp_train = data_parallel.make_dp_train_step(
+                self.model, self.loss_fn, self.optimizer,
+                weight_fn=weight_fn, forward=self.forward)
+            self._dp_eval = data_parallel.make_dp_eval_step(
+                self.model, self.loss_fn, weight_fn=weight_fn,
+                forward=self.forward)
         self.records: Dict[str, List] = {"val_losses": []}
         # per epoch: optimizer steps, molecules and seconds of training
         self.epoch_stats: List[Dict] = []
@@ -198,8 +254,11 @@ class Trainer:
         self._early_stop_cnt = 0
 
         base = Path(work_dir) if work_dir else Path.cwd()
-        self.run_id, self.log_save_dir = _new_run_dir(
-            base / f"log_{self.args.get('dataset', 'run')}", seed)
+        logs = base / f"log_{self.args.get('dataset', 'run')}"
+        run_id = [_new_run_dir(logs, seed)[0] if self.is_main else None]
+        if self.n_devices > 1:
+            torch.distributed.broadcast_object_list(run_id, 0)
+        self.run_id, self.log_save_dir = run_id[0], logs / run_id[0]
 
         n_params = sum(p.numel() for p in self.model.parameters())
         device_name = (torch.cuda.get_device_name(self.device)
@@ -213,18 +272,30 @@ class Trainer:
         self.log("total parameters:" + str(n_params))
 
     # -- wiring hooks (PairTrainer replaces these) ----------------------
+    def _split(self):
+        """The loaders' data-parallel arguments."""
+        return {"n_devices": self.n_devices, "rank": self.rank}
+
     def _make_loaders(self, train_graphs, valid_graphs, test_graphs):
         nt = self.num_tasks
         self.train_loader = GraphLoader(
             train_graphs, int(self.args.get("batch_size", 32)), nt,
-            shuffle=True, seed=int(self.args.get("seed", 1234)))
-        self.valid_loader = GraphLoader(valid_graphs, 32, nt)
-        self.test_loader = (GraphLoader(test_graphs, 32, nt)
+            shuffle=True, seed=int(self.args.get("seed", 1234)),
+            **self._split())
+        self.valid_loader = self._eval_loader(valid_graphs)
+        self.test_loader = (self._eval_loader(test_graphs)
                             if test_graphs else None)
+
+    def _eval_loader(self, graphs):
+        return GraphLoader(graphs, self.eval_batch, self.num_tasks,
+                           **self._split())
 
     def _make_loss(self):
         return make_loss_fn(self.task, self.args.get("loss", "mse"),
                             self.num_tasks)
+
+    def _make_weight(self):
+        return make_weight_fn(self.task)
 
     @staticmethod
     def _as_parts(batch) -> Tuple[GraphBatch, ...]:
@@ -247,8 +318,15 @@ class Trainer:
     def train_step(self, batch) -> torch.Tensor:
         """One optimizer step on a batch (a ``GraphBatch`` or a tuple of
         them) already on the device; returns the loss, still on the
-        device."""
+        device (with data parallelism: the global batch's, this rank's
+        batch being its sub-batch)."""
         parts = self._as_parts(batch)
+        self.step += 1
+        if self.n_devices > 1:
+            self.generator.manual_seed(noise_seed(
+                self.args.get("seed", 1234),
+                (self.step - 1) * self.n_devices + self.rank))
+            return self._dp_train(parts, self.generator).detach()
         out = self.forward(parts, self.generator)
         loss = self.loss_fn(out, parts[0].y, parts[0].graph_mask)
         self.optimizer.zero_grad(set_to_none=True)
@@ -265,6 +343,9 @@ class Trainer:
             losses.append(self.train_step(parts))
             n_mol += int(self._as_parts(batch)[0].graph_mask.sum())
         values = torch.stack(losses).tolist() if losses else []
+        if self.n_devices > 1:      # the global batches' molecules
+            n_mol = int(distributed.all_reduce_sum(
+                torch.tensor([n_mol], device=self.device)).item())
         dt = time.perf_counter() - t0
         self.epoch_stats.append({"steps": len(values), "molecules": n_mol,
                                  "seconds": dt})
@@ -283,17 +364,35 @@ class Trainer:
         with torch.inference_mode():
             for batch in prefetch(iter(loader)):
                 parts = self._to_device(batch)
-                out = self.forward(parts)
-                outs.append(out)
-                losses.append(self.loss_fn(out, parts[0].y,
-                                           parts[0].graph_mask))
-                host = self._as_parts(batch)[0]
-                ys.append(host.y.numpy())
-                masks.append(host.graph_mask.numpy())
-            out = torch.cat(outs).float().cpu().numpy()
+                if self.n_devices > 1:
+                    out, loss = self._dp_eval(parts)
+                else:
+                    out = self.forward(parts)
+                    loss = self.loss_fn(out, parts[0].y,
+                                        parts[0].graph_mask)
+                outs.append(out.float())
+                losses.append(loss)
+                ys.append(parts[0].y)
+                masks.append(parts[0].graph_mask)
             loss = torch.stack(losses).double().cpu().numpy()
-        m = np.concatenate(masks)
-        return out[m], np.concatenate(ys)[m], float(np.mean(loss))
+            if self.n_devices > 1:
+                outs, ys, masks = self._merge_ranks(outs, ys, masks)
+            out = torch.cat(outs).cpu().numpy()
+            y = torch.cat(ys).cpu().numpy()
+            m = torch.cat(masks).cpu().numpy()
+        return out[m], y[m], float(np.mean(loss))
+
+    def _merge_ranks(self, outs, ys, masks):
+        """Every rank's per-batch outputs, labels and graph masks, in the
+        JAX package's ``_merge_devices`` order: each batch's sub-batches
+        in rank order.  One all_gather; every rank gets them all."""
+        width, tasks = outs[0].shape[1], ys[0].shape[1]
+        local = torch.stack([torch.cat([o, y, m[:, None].float()], 1)
+                             for o, y, m in zip(outs, ys, masks)])
+        every = distributed.all_gather(local)       # [D, batches, G, ...]
+        rows = every.transpose(0, 1).reshape(-1, local.shape[-1])
+        return ([rows[:, :width]], [rows[:, width:width + tasks]],
+                [rows[:, -1] > 0.5])
 
     def valid_iterations(self, mode: str = "valid"):
         out, y, mean_loss = self._gather(
@@ -372,14 +471,21 @@ class Trainer:
         loss_info = {"testloss": float(test_loss), "valloss": float(val_loss)}
         val_new = {"val" + k: v for k, v in val_result.items()}
         self.log(f"{loss_info}|{test_result}|{val_new}")
-        self._write_structured_result(loss_info, test_result, val_new)
+        by_rank = [launch_counts()]
+        if self.n_devices > 1:
+            by_rank = [None] * self.n_devices
+            torch.distributed.all_gather_object(by_rank, launch_counts())
+        if self.is_main:
+            self._write_structured_result(loss_info, test_result, val_new,
+                                          by_rank)
         return loss_info, test_result, val_new
 
-    def _write_structured_result(self, loss_info, test_result, val_new):
+    def _write_structured_result(self, loss_info, test_result, val_new,
+                                 launches_by_rank):
         """result.json in the run dir and a record appended to
         <work_dir>/results.jsonl: the config, the results, the epochs
         and optimizer steps trained, the seconds, and the kernels'
-        launches."""
+        launches (this process's, and every rank's)."""
         record = {
             "run_id": self.run_id,
             "dataset": self.args.get("dataset"),
@@ -393,6 +499,11 @@ class Trainer:
             "epochs_run": len(self.records["val_losses"]),
             "epochs_trained": len(self.epoch_stats),
             "optimizer_steps": sum(e["steps"] for e in self.epoch_stats),
+            # each loader's batches (global batches with data parallelism)
+            "batches": {"train": len(self.train_loader),
+                        "valid": len(self.valid_loader),
+                        "test": len(self.test_loader)
+                        if self.test_loader else 0},
             # wall seconds since the trainer was made, and of them those
             # of the training epochs' steps
             "seconds": time.time() - self.start,
@@ -400,6 +511,7 @@ class Trainer:
             # this process's kernel launches: a trial's own, since a
             # trial process trains one run
             "kernel_launches": launch_counts(),
+            "kernel_launches_by_rank": launches_by_rank,
         }
         try:
             with open(self.log_save_dir / "result.json", "w") as f:
@@ -467,9 +579,9 @@ class Trainer:
             M, M_prime, Q, Q_prime = perturb_test(
                 self.args["dataset_root"], self.args["dataset"], level)
             saved = self.test_loader
-            self.test_loader = GraphLoader(M, 32, self.num_tasks)
+            self.test_loader = self._eval_loader(M)
             _, P = self.valid_iterations(mode="inference")
-            self.test_loader = GraphLoader(M_prime, 32, self.num_tasks)
+            self.test_loader = self._eval_loader(M_prime)
             _, P_prime = self.valid_iterations(mode="inference")
             self.test_loader = saved
             l_pp = regression_metrics(P, P_prime)
@@ -482,6 +594,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_ckpt(self, epoch: int, final_save: bool = False):
+        if not self.is_main:
+            return
         name = "final_save.pt" if final_save else "best_save.pt"
         save_checkpoint(self.log_save_dir, self.model, self.args, which=name,
                         records=self.records)
@@ -492,6 +606,8 @@ class Trainer:
         straight-through run would: weights, optimizer state (learning
         rate included), scheduler, noise generator, early-stop counter
         and epoch."""
+        if not self.is_main:
+            return
         payload = {
             "args": json.dumps(self.args),
             "records": json.dumps(self.records),
@@ -502,6 +618,7 @@ class Trainer:
             "generator": self.generator.get_state(),
             "epoch": epoch,
             "early_stop_cnt": early_stop_cnt,
+            "step": self.step,
         }
         torch.save(payload, self.log_save_dir / "last_save.pt")
 
@@ -529,15 +646,18 @@ class Trainer:
         self.generator.set_state(payload["generator"])
         self._early_stop_cnt = int(payload["early_stop_cnt"])
         self._start_epoch = int(payload["epoch"]) + 1
+        self.step = int(payload.get("step", 0))
         fresh = self.log_save_dir
         self.log_save_dir = path.parent
-        if fresh != self.log_save_dir:
+        if fresh != self.log_save_dir and self.is_main:
             shutil.rmtree(fresh, ignore_errors=True)
         self.run_id = self.log_save_dir.name
         self.log(f"Resumed from {path} at epoch {self._start_epoch}")
         return self._start_epoch
 
     def load_best_ckpt(self):
+        if self.n_devices > 1:      # rank 0 has written it
+            torch.distributed.barrier()
         path = self.log_save_dir / "best_save.pt"
         if not path.exists():
             # a run that diverged before its first finite val loss saved
@@ -557,7 +677,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def log(self, msg=None, msgs=None, with_time=False):
-        if not self.print_log:
+        if not self.print_log or not self.is_main:
             return
         if with_time and msg is not None:
             el = time.time() - self.start

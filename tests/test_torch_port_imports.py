@@ -2,12 +2,14 @@
 convs, norms, readouts, kernel C's module, the pair families' modules,
 the AutoML solver's (``automl/``, ``glam``, ``demo``, ``data/perturb``,
 ``data/transforms``), the native featurizer's binding, the msgpack
-decoder, the PASP builder and the attention visualization among them,
+decoder, the PASP builder, the attention visualization and the parallel
+layer (``parallel/*``) among them,
 imports without JAX, flax, optax, pandas, scikit-learn, msgpack or
 matplotlib, and without any module of the JAX package (checked in a
 fresh interpreter).  The card's machine has none of them."""
 import subprocess
 import sys
+from pathlib import Path
 
 _CHECK = r"""
 import importlib, pkgutil, sys
@@ -38,7 +40,11 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.chem.native", "glam_tpu_torch.chem.fingerprints",
         "glam_tpu_torch.data.perturb_builder",
         "glam_tpu_torch.utils.msgpack", "glam_tpu_torch.viz.attention",
-        "glam_tpu_torch.viz.layout2d"}
+        "glam_tpu_torch.viz.layout2d", "glam_tpu_torch.parallel",
+        "glam_tpu_torch.parallel.distributed",
+        "glam_tpu_torch.parallel.data_parallel",
+        "glam_tpu_torch.parallel.graph_partition",
+        "glam_tpu_torch.parallel.bench_scaling"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "msgpack",
@@ -69,5 +75,22 @@ print("ok", len(names))
 def test_port_imports_no_jax_and_no_reference_package():
     res = subprocess.run([sys.executable, "-c", _CHECK], capture_output=True,
                          text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    """The card's smoke run imports none of them either (its helpers,
+    imported by the card tests, included)."""
+    check = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+             "chip_smoke.stress_cases(); "
+             "banned = ('jax', 'flax', 'optax', 'pandas', 'sklearn', "
+             "'glam_tpu'); "
+             "found = sorted(k for k in sys.modules if k in banned or "
+             "k.startswith(tuple(b + '.' for b in banned))); "
+             "assert not found, found; print('ok')")
+    res = subprocess.run([sys.executable, "-c", check], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parents[1]))
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.startswith("ok")

@@ -471,9 +471,11 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(pred.predict_smiles(["CCO", "c1ccccc1"])).all()
 
 
-@pytest.mark.parametrize("flag", [["--n_devices", "2"],
+@pytest.mark.parametrize("flag", [["--n_devices", "2", "--pro_shards", "2"],
                                   ["--pro_shards", "2"]])
 def test_cli_unported_options_raise(tmp_path, flag):
+    """The node-sharded tower (A11), with or without data parallelism,
+    raises before any rank starts."""
     root = _raw_copy(tmp_path / "data", "demo", 20)
     argv = ["--dataset", "demo", "--dataset_root", str(root), "--loss",
             "bcel", "--platform", "cpu", "--work_dir", str(tmp_path)] + flag
