@@ -125,7 +125,22 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      against the plain ``reference_halo_step`` on the card, with the
      bytes a rank receives and each step's ms; ``dp_library`` (Light +
      Set2Set with BatchNorm: C 6 each way) and ``dp_pair`` (DDI: A 6, B
-     6); the kernels at a rank's batch and at the halo's CSR;
+     6); the kernels at a rank's batch and at the halo's CSR; then the
+     node-sharded protein tower on 2 gloo ranks of the card:
+     ``sharded_dti`` and ``sharded_ring`` (``python -m
+     glam_tpu_torch.run --dataset bindingdb_c ... --pro_shards 2``, the
+     second with ``--halo ring --pair_batch 4``, 1 epoch, the
+     TripletMessage molecule tower and the GAT protein tower: launches
+     of A, B, C and C's backward exact on each rank, the final line
+     once, the checkpoint served by ``PairPredictor`` on the card as on
+     the CPU) and ``sharded_protein`` (the 1,000-residue synthetic
+     protein at full width over 2 shards with a demo molecule, GAT and
+     TripletMessage towers, a2a and ring: the sharded pair forward and
+     gradients against the dense model on the card, the ranks equal
+     after one Adam step, each rank's step host and busy ms, the halo
+     exchange's bytes and ms and the gradient's extra collectives); the
+     kernels at those paths' shapes (A and B over the 1,000-residue
+     shard's [local ; halo] table); ``bench_scaling --analytic``'s lines;
   7. the AutoML solver on ``physprop_perturb`` (a fresh copy of
      ``datasets/physprop`` for each search: 12,607 molecules, label
      split 7,684 / 2,561 / 2,362): first, in a fresh process, the
@@ -152,8 +167,9 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      paths ``automl_search``, ``automl_trials`` and ``automl_blend`` and
      the ``train_flagship_bf16``, ``train_library_bf16``,
      ``serve_jax_ckpt``, ``viz``, ``train_dp``, ``train_dp_library``,
-     ``train_dp_ddi`` and ``halo`` among them), the card's line, then
-     the final line.  Each phase's wall seconds are printed.
+     ``train_dp_ddi``, ``halo``, ``train_sharded_dti``,
+     ``train_sharded_ring`` and ``sharded_protein`` among them), the
+     card's line, then the final line.  Each phase's wall seconds are printed.
 
 Exits non-zero, without the final line, if anything fails.
 """
@@ -1613,8 +1629,9 @@ def demo_root(tmp):
 
 
 def run_ranks_cli(tmp, flags, label, dataset="demo"):
-    """``python -m glam_tpu_torch.run ... --n_devices 2`` as a user runs
-    it, on the card: the launcher starts the gloo ranks, each on cuda:0.
+    """``python -m glam_tpu_torch.run ... --n_devices 2`` (or
+    ``--pro_shards 2``) as a user runs it, on the card: the launcher
+    starts the gloo ranks, each on cuda:0.
     Checks the exit code, that the final line is printed once and parses,
     and returns (run dir, result.json, each rank's launches, optimizer
     steps, forwards a rank, wall s)."""
@@ -1636,7 +1653,7 @@ def run_ranks_cli(tmp, flags, label, dataset="demo"):
     out = proc.stdout + proc.stderr
     if proc.returncode:
         print(out[-6000:])
-        fail(f"{label}: run --n_devices {DP_RANKS} exited "
+        fail(f"{label}: run with {DP_RANKS} ranks exited "
              f"{proc.returncode}")
     for line in out.splitlines():
         if line.startswith(("[distributed]", "[launcher]")):
@@ -1654,9 +1671,13 @@ def run_ranks_cli(tmp, flags, label, dataset="demo"):
     by_rank = result["kernel_launches_by_rank"]
     if len(by_rank) != DP_RANKS:
         fail(f"{label}: launches of {len(by_rank)} ranks")
-    steps, b = result["optimizer_steps"], result["batches"]
-    forwards = steps + result["epochs_trained"] * b["valid"] + b["valid"] \
-        + b["test"]
+    steps = result["optimizer_steps"]
+    if "forwards" in result:            # the sharded trainer counts them
+        forwards = result["forwards"]
+    else:
+        b = result["batches"]
+        forwards = steps + result["epochs_trained"] * b["valid"] \
+            + b["valid"] + b["test"]
     print(f"training [{label}]: {DP_RANKS} ranks, {steps} optimizer steps, "
           f"{forwards} forwards a rank, wall_s={wall:.2f}; launches by "
           f"rank {json.dumps(by_rank)}")
@@ -1866,6 +1887,247 @@ def dp_phase(dev, card, tmp):
     out["kern"]["train_dp_ddi"] = check_triplet_towers(
         "dp_ddi", pair, np.random.RandomState(14), dev, card)
     out["secs"]["dp_pair"] = time.perf_counter() - t0
+    return out
+
+
+SHARDED_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
+                "--pro_block", "_GATConv", "--pro_shards", str(DP_RANKS)]
+SHARDED_RING_ARGS = SHARDED_ARGS + ["--halo", "ring", "--pair_batch", "4"]
+# the 1,000-residue step: the CLI's full-width model (hid 60, 3 steps,
+# e_dim 1024, GlobalPool5 readouts) in evaluation mode, weights from
+# seed 0
+SHARDED_PROTEIN_TOWERS = ("_GATConv", "_TripletMessage")
+
+
+def sharded_protein_cases(length=1000, hid_alpha=4, e_dim=1024, time=True):
+    """The worker's ``sharded.pt`` cases of the 1,000-residue synthetic
+    protein paired with a demo molecule, one a protein tower: a2a and
+    ring, one Adam step (the ranks' parameters), and on the card their
+    times (``time``); with each case's dense reference inputs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from glam_tpu_torch.chem.featurize import smiles_to_arrays
+    from glam_tpu_torch.chem.proteins import protein_to_arrays
+    from glam_tpu_torch.nn.model import ModelConfig, PairArchitecture
+    seq, cm = synthetic_protein(length=length)
+    nodes, snd, rcv, edges = protein_to_arrays(seq, cm)
+    smi = "CC(=O)Oc1ccccc1C(=O)O"
+    x, s, r, e = smiles_to_arrays(smi)
+    mol = (x, e, s, r, np.zeros(1, np.float32), smi)
+    cases = {}
+    for pro in SHARDED_PROTEIN_TOWERS:
+        cfg = ModelConfig(mol_block="_TripletMessage", pro_block=pro,
+                          pro_in_dim=nodes.shape[1],
+                          pro_edge_in_dim=edges.shape[1],
+                          hid_dim_alpha=hid_alpha, e_dim=e_dim, out_dim=2,
+                          max_nodes=64, pro_max_nodes=max(1024, length))
+        model = PairArchitecture(cfg, hetero=True,
+                                 generator=torch.Generator().manual_seed(0))
+        cases[f"protein{length}{pro}"] = dict(
+            kind="pair", cfg=dataclasses.asdict(cfg),
+            state=model.state_dict(), graphs=[(nodes, edges, snd, rcv)],
+            mols=[mol], ring=True, adam=True, time=time)
+    return cases
+
+
+def dense_pair_reference(case, dev):
+    """The dense PairArchitecture of a ``sharded.pt`` case on ``dev`` in
+    evaluation mode: its output on the case's first pair and the
+    gradients of the worker's loss (mean squared error to 0.3)."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.data.graph import GraphArrays, pad_graphs
+    from glam_tpu_torch.nn.model import ModelConfig, PairArchitecture
+    model = PairArchitecture(ModelConfig(**case["cfg"]), hetero=True)
+    model.load_state_dict(case["state"])
+    model = model.to(dev).eval()
+    pro = GraphArrays(*case["graphs"][0], y=np.zeros(1, np.float32))
+    g1 = pad_graphs([GraphArrays(*case["mols"][0])], 1, 64, 128,
+                    num_tasks=1).to(dev)
+    n = 8 * -(-(pro.nodes.shape[0] + 1) // 8)
+    g2 = pad_graphs([pro], 1, n, 8 * -(-pro.senders.shape[0] // 8) + 8,
+                    num_tasks=1).to(dev)
+    out = model(g1, g2)[:1]
+    ((out - 0.3) ** 2).mean().backward()
+    return out.detach().cpu(), {k: p.grad.detach().cpu()
+                                for k, p in model.named_parameters()
+                                if p.grad is not None}
+
+
+def hold_sharded(label, got, out, grads):
+    """Fail unless the sharded output is within rtol/atol 1e-4 of the
+    dense one and every gradient within rtol 2e-4 + atol 5e-5 x its
+    leaf's scale; returns the worst (output error, gradient error of its
+    scale)."""
+    import torch
+    if not torch.allclose(got["out"], out, rtol=TOL, atol=TOL):
+        fail(f"{label}: sharded output differs from dense by "
+             f"{float((got['out'] - out).abs().max()):.3e}")
+    worst = 0.0
+    for k, want in grads.items():
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((got["grads"][k] - want).abs().max()) / scale
+        worst = max(worst, err)
+        if not torch.allclose(got["grads"][k], want, rtol=2e-4,
+                              atol=5e-5 * scale):
+            fail(f"{label}: gradient {k} differs from dense by {err:.3e} "
+                 "of its scale")
+    return float((got["out"] - out).abs().max()), worst
+
+
+def shard_kernel_inputs(case, rank=0):
+    """Rank ``rank``'s packed shard (2 shards, a2a) of a case's protein,
+    on the CPU."""
+    import numpy as np
+    from glam_tpu_torch.data.graph import GraphArrays
+    from glam_tpu_torch.parallel import sharded_model as sm
+    g = GraphArrays(*case["graphs"][0], y=np.zeros(1, np.float32))
+    return sm.pack_shards([sm.shard_at(g, DP_RANKS, rank, sm.corpus_budgets(
+        [g], DP_RANKS))], DP_RANKS)
+
+
+def sharded_phase(dev, card, tmp):
+    """The node-sharded protein tower over 2 gloo ranks on the one card:
+    ``sharded_dti`` and ``sharded_ring`` through ``run --pro_shards 2``
+    (launches of A, B, C and C's backward exact on each rank, the final
+    line once, the checkpoint served on the card as on the CPU), then
+    ``sharded_protein``: the 1,000-residue protein's sharded pair forward
+    and gradients against the dense model on the card (GAT and
+    TripletMessage towers, a2a and ring), one Adam step leaving the ranks
+    equal, each rank's step, halo and collective times; kernels at the
+    shards' shapes; ``bench_scaling --analytic``."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.data.graph import pad_graphs
+    from glam_tpu_torch.data.pair_datasets import BindingDBDataset
+    from glam_tpu_torch.parallel import sharded_model as sm
+    out = {"launches": {}, "kern": {}}
+    print(f"sharded: {DP_RANKS} gloo ranks on one card; every figure below "
+          f"is from ranks time-sliced on one card, not a scaling number "
+          f"({card})")
+    ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
+    test_pairs = [(g1.smi, g2.smi) for g1, g2 in ds.test]
+    rng = np.random.RandomState(21)
+    for label, flags, path, B in (
+            ("sharded_dti", SHARDED_ARGS, "train_sharded_dti", 1),
+            ("sharded_ring", SHARDED_RING_ARGS, "train_sharded_ring", 4)):
+        t0 = time.perf_counter()
+        run_dir, result, by_rank, steps, forwards, _ = run_ranks_cli(
+            tmp, flags, label, "bindingdb_c")
+        check_rank_counts(label, by_rank, {
+            "triplet_fused_fwd": 3 * forwards,
+            "triplet_fused_bwd": 3 * steps,
+            "segment_softmax_spmm_fwd": 3 * forwards,
+            "segment_softmax_spmm_bwd": 3 * steps})
+        print(f"training [{label}]: launches exact on each rank: A and C "
+              f"3 x {forwards} forwards, B and C's backward 3 x {steps} "
+              f"steps")
+        serve_card_vs_cpu(label, run_dir, test_pairs, dev, ds.contact_maps)
+        out["launches"][path] = by_rank
+        # the kernels at this path's shapes: A and B at a step's molecule
+        # batch, C at rank 0's GAT shard of the first training protein
+        # (the trainer's first B pairs, its corpus budgets, rank 0)
+        pairs = ds.train[:B]
+        mol_b = pad_graphs([p[0] for p in pairs], B, B * 64, B * 128,
+                           num_tasks=1)
+        budgets = sm.corpus_budgets(
+            [p[1] for p in ds.train + ds.val + ds.test], DP_RANKS,
+            "ring" if "ring" in flags else "a2a")
+        shard = sm.pack_shards([sm.shard_at(p[1], DP_RANKS, 0, budgets)
+                                for p in pairs], DP_RANKS)
+        kern = {w: check_kernel(w, f"{label}_mol_batch", batch_csr(mol_b),
+                                rng, dev, card) for w in ("fwd", "bwd")}
+        kern["gat"] = check_spmm_both(f"{label}_gat_shard0", spmm_inputs(
+            rng, shard.loop_rowptr.numpy(), shard.loop_idx.numpy(),
+            shard.edges.shape[0] + B * shard.n_local, 1, 60, dev), dev,
+            card)
+        out["kern"][path] = kern
+        print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    worker = dp_worker()
+    work = Path(tmp) / "sharded_ranks"
+    work.mkdir(parents=True)
+    cases = sharded_protein_cases()
+    torch.save(cases, work / "sharded.pt")
+    (work / "plan.json").write_text(json.dumps({
+        "tasks": ["sharded", "sharded_time"]}))
+    procs = worker.spawn_ranks(work, "cuda", DP_RANKS)
+    dense = {name: dense_pair_reference(case, dev)
+             for name, case in cases.items()}
+    got = worker.wait_ranks(procs, work, timeout=600)
+    for k in range(DP_RANKS):
+        for line in (work / f"rank{k}.out").read_text().splitlines():
+            if line.startswith(("profile", "[distributed]")):
+                print(f"  [rank {k}] {line}")
+    launches = [{} for _ in range(DP_RANKS)]
+    for name in cases:
+        for halo in ("a2a", "ring"):
+            r = got["sharded"][name][halo]
+            out_err, grad_err = hold_sharded(f"sharded_protein {name} {halo}",
+                                             r, *dense[name])
+            print(f"sharded_protein [{name} {halo}]: 1,000-residue protein "
+                  f"over {DP_RANKS} shards, full width; output within "
+                  f"{out_err:.3e} of the dense model on the card at outputs "
+                  f"up to {float(dense[name][0].abs().max()):.3e} (tol rtol "
+                  f"{TOL} + atol {TOL}), gradients within {grad_err:.3e} of "
+                  f"each leaf's scale (tol rtol 2e-4 + atol 5e-5 x scale)")
+        states = got["sharded"][name]["adam"]
+        if not all(torch.equal(states[0][k], states[1][k])
+                   for k in states[0]):
+            fail(f"sharded_protein {name}: the ranks' parameters differ "
+                 "after one Adam step")
+        print(f"sharded_protein [{name}]: after one Adam step both ranks' "
+              f"{len(states[0])} tensors are bitwise equal")
+        # one forward and backward of the two towers, 3 message steps
+        a = 6 if name.endswith("_TripletMessage") else 3
+        c = 3 if name.endswith("_GATConv") else 0
+        for k, counts in enumerate(got["sharded"][name]["launches"]):
+            check_counts(f"sharded_protein {name} rank {k}", counts, {
+                "triplet_fused_fwd": a, "triplet_fused_bwd": a,
+                "segment_softmax_spmm_fwd": c,
+                "segment_softmax_spmm_bwd": c})
+            for n, v in counts.items():
+                launches[k][n] = launches[k].get(n, 0) + v
+    for k, r in enumerate(got["sharded_time"]):
+        for key, t in r.items():
+            print(f"sharded step rank {k} [{key}]: host_ms="
+                  f"{t['host_ms']:.4f} busy_ms={t['busy']['busy_ms']:.4f} "
+                  f"over {t['busy']['kernels']} kernels; halo exchange of "
+                  f"{t['halo_rows']} rows = {t['halo_bytes']} bytes "
+                  f"received a message step (x3 steps, x2 with the "
+                  f"backward) halo_ms={t['halo_ms']:.4f}; the gradient's "
+                  f"extra collectives: all_reduce of "
+                  f"{t['grad_all_reduce_floats']} floats "
+                  f"{t['grad_all_reduce_ms']:.4f} ms, broadcast of "
+                  f"{t['grad_broadcast_floats']} floats "
+                  f"{t['grad_broadcast_ms']:.4f} ms; medians (2 gloo ranks "
+                  f"time-sliced on one card, not a scaling number; {card})")
+    # each rank's a2a forward and backward of each tower
+    out["launches"]["sharded_protein"] = launches
+    gat, triplet = (f"protein1000{t}" for t in SHARDED_PROTEIN_TOWERS)
+    shard = shard_kernel_inputs(cases[triplet])
+    csr = (shard.csr_rowptr.numpy(), shard.csr_snd.numpy(),
+           shard.csr_eid.numpy(), shard.edges.numpy())
+    kern = {w: check_kernel(w, "protein1000_table_shard0", csr, rng, dev,
+                            card) for w in ("fwd", "bwd")}
+    gshard = shard_kernel_inputs(cases[gat])
+    kern["gat"] = check_spmm_both("protein1000_gat_shard0", spmm_inputs(
+        rng, gshard.loop_rowptr.numpy(), gshard.loop_idx.numpy(),
+        gshard.edges.shape[0] + gshard.n_local, 1, 60, dev), dev, card)
+    out["kern"]["sharded_protein"] = kern
+    print(f"phase sharded_protein: {time.perf_counter() - t0:.2f} s")
+    res = subprocess.run([sys.executable, "-m",
+                          "glam_tpu_torch.parallel.bench_scaling",
+                          "--analytic"], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode:
+        print(res.stdout[-3000:] + res.stderr[-3000:])
+        fail("bench_scaling --analytic failed")
+    for line in res.stdout.strip().splitlines():
+        print(f"bench_scaling --analytic: {line}")
     return out
 
 
@@ -2901,6 +3163,8 @@ def main() -> None:
                                       card, tmp)
         par = phase("dp, halo, dp_library, dp_pair", dp_phase, dev, card,
                     tmp)
+        shd = phase("sharded_dti, sharded_ring, sharded_protein",
+                    sharded_phase, dev, card, tmp)
         automl = phase("automl", automl_phase, dev, card, demo, tmp)
     phase("traced kernel checks", report_traced)
 
@@ -3040,7 +3304,21 @@ def main() -> None:
     calls["segment_softmax_spmm_fwd"]["halo"] = {
         "halo_shard0": (1, pk["halo"]["fwd"])}
     off_path["segment_softmax_spmm_bwd"].append(pk["halo"]["bwd"])
-    for path, by_rank in par["launches"].items():
+    # the sharded paths: A and B at a step's molecule batch or the
+    # TripletMessage protein shard's table, C at a GAT shard's
+    sk = shd["kern"]
+    for w in ("fwd", "bwd"):
+        for path in ("train_sharded_dti", "train_sharded_ring"):
+            calls[f"triplet_fused_{w}"][path] = {
+                "mol_batch": (3, sk[path][w])}
+            calls[f"segment_softmax_spmm_{w}"][path] = {
+                "gat_shard0": (3, sk[path]["gat"][w])}
+        calls[f"triplet_fused_{w}"]["sharded_protein"] = {
+            "protein1000_table_shard0": (3, sk["sharded_protein"][w])}
+        calls[f"segment_softmax_spmm_{w}"]["sharded_protein"] = {
+            "protein1000_gat_shard0": (3, sk["sharded_protein"]["gat"][w])}
+    for path, by_rank in list(par["launches"].items()) \
+            + list(shd["launches"].items()):
         for name in launches:
             if path in calls[name]:
                 launches[name][path] = sum(r.get(name, 0) for r in by_rank)

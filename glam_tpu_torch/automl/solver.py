@@ -84,10 +84,6 @@ class GLAM:
             raise ValueError(
                 f"pair_batch={self.pair_batch} requires pro_shards > 1 "
                 "(dense trials batch via the searched batch_size)")
-        if self.pro_shards > 1:
-            raise NotImplementedError(
-                "pro_shards > 1 is not ported yet (ROADMAP queue A, A11 "
-                "'Node-sharded giant-graph tower')")
         self.work_dir = Path(work_dir)
         self.env = env
         self.dm = DeviceManager()
@@ -154,6 +150,12 @@ class GLAM:
         if self.probe_compile > 0:
             # accepted by the run CLI and ignored: no compile to probe
             argv += ["--probe_compile", str(self.probe_compile)]
+        if self.pro_shards > 1:
+            argv += ["--pro_shards", str(self.pro_shards)]
+            if self.halo != "a2a":
+                argv += ["--halo", self.halo]
+            if self.pair_batch > 1:
+                argv += ["--pair_batch", str(self.pair_batch)]
         # the trial imports the package this solver runs, wherever the
         # solver was started from
         env = dict(os.environ if self.env is None else self.env)
@@ -168,12 +170,20 @@ class GLAM:
             if t["seconds"] is None and t["proc"].poll() is not None:
                 t["seconds"] = time.time() - t["start"]
 
+    def _config_ok(self, config: Dict) -> bool:
+        """Whether the trial can train ``config``: with ``pro_shards`` the
+        sharded path's subset (:func:`sharded_config_ok`), else any."""
+        if self.pro_shards > 1:
+            from ..train.sharded_pair_trainer import sharded_config_ok
+            return sharded_config_ok(config)
+        return True
+
     def low_fidelity_training(self):
         procs = []
         for i in range(self.n_init_configs):
             config, cid = sample_config(self.dataset, self.dataset_root,
                                         self.seed, self.split_seed, self.rng)
-            while cid in self.searched:
+            while cid in self.searched or not self._config_ok(config):
                 config, cid = sample_config(self.dataset, self.dataset_root,
                                             self.seed, self.split_seed,
                                             self.rng)

@@ -9,7 +9,9 @@ Trials and the blend run on the CUDA cards; ``--platform cpu`` runs both
 on the host CPU.  ``GLAM_TPU_TRIAL_SLOTS`` sets how many trials run at
 once (default: one per card); slot s trains on card s % cards.
 ``--probe_compile`` is passed on to the trials, whose CLI ignores it;
-``--pro_shards > 1`` raises ``NotImplementedError`` (ROADMAP A11).
+``--pro_shards N`` (with ``--halo`` and ``--pair_batch``) trains every
+trial with its protein tower sharded over N ranks, and the sampled
+configurations are resampled to the sharded path's subset.
 """
 from __future__ import annotations
 

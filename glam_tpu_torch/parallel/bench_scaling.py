@@ -12,8 +12,14 @@ on the cards (``cuda:(rank % cards)``) unless ``--platform cpu``.  Ranks
 that share a card are time-sliced on it, so their rate is no scaling
 number.  :func:`measure` starts the ranks as processes of this module
 with the ``GLAM_*`` variables set (``distributed.spawn_ranks``); such a
-process measures as its rank.  ``--analytic`` (the JAX package's model of the node-sharded
-tower's halo traffic) waits for that tower (ROADMAP A11) and raises.
+process measures as its rank.
+
+    python -m glam_tpu_torch.parallel.bench_scaling --analytic
+
+prints :func:`analytic`, the JAX package's model of the node-sharded
+tower's compute against its halo traffic (one JSON line a shard count),
+at an H100's rates, then the card's name and power limit
+(``nvidia-smi``) where there is a card.
 """
 from __future__ import annotations
 
@@ -142,6 +148,120 @@ def _rank_main(args):
     return [result]
 
 
+# NVIDIA's H100 SXM data sheet: NVLink 900 GB/s a card, both directions
+# together (450 GB/s each way); 67 TFLOP/s float32 outside the tensor
+# cores (the port's matmuls run float32, TF32 off)
+H100_LINK_BYTES_PER_S = 4.5e11
+H100_F32_FLOPS = 6.7e13
+
+
+def analytic(L: int = 900, C: int = 60, heads: int = 3, steps: int = 3,
+             shard_counts=(2, 4, 8), band: int = 6,
+             long_range_frac: float = 0.05,
+             link_bytes_per_sec: float = H100_LINK_BYTES_PER_S,
+             flops_per_sec: float = H100_F32_FLOPS, seed: int = 0,
+             fusion_nm: int = 40) -> List[dict]:
+    """The analytic compute/communication model of a sharded protein
+    tower's training step, the JAX package's ``analytic`` with its
+    arithmetic unchanged and the rates given (default: an H100's, each
+    one way of its links and its float32 rate; see the constants above).
+
+    An L-residue contact-map-like graph (backbone, banded contacts and
+    ``long_range_frac`` random long-range ones) is partitioned by
+    ``split_large_graph`` and ``build_halo_exchange``; for each shard
+    count, a shard's step: the matmul FLOPs of a TripletMessage tower
+    (forward and backward ~ 3x the forward), the bytes its a2a halo
+    receives (projected rows and attention scalars, both ways), the
+    efficiency t_comp / (t_comp + t_comm) without overlap and with the
+    work that does not wait on the halo hidden behind it, and the same
+    for the ring plan.  Values unrounded."""
+    from .graph_partition import (build_halo_exchange,
+                                  build_halo_exchange_ring,
+                                  split_large_graph)
+
+    rng = np.random.RandomState(seed)
+    snd, rcv = [], []
+    for i in range(L - 1):  # backbone i <-> i+1
+        snd += [i, i + 1]
+        rcv += [i + 1, i]
+    for i in range(L):      # banded contacts
+        for j in range(i + 2, min(L, i + band + 1)):
+            snd += [i, j]
+            rcv += [j, i]
+    for _ in range(int(long_range_frac * L)):  # long-range contacts
+        i, j = rng.randint(0, L, 2)
+        if abs(i - j) > band:
+            snd += [i, j]
+            rcv += [j, i]
+    snd = np.asarray(snd, np.int32)
+    rcv = np.asarray(rcv, np.int32)
+    E = len(snd)
+    nodes = rng.randn(L, 49).astype(np.float32)
+    edges = rng.randn(E, 8).astype(np.float32)
+    out = []
+    for D in shard_counts:
+        nsh, esh, sg, rl, emask = split_large_graph(nodes, edges, snd,
+                                                    rcv, D)
+        n_local, e_local = nsh.shape[1], esh.shape[1]
+        _, send_mask, _, H = build_halo_exchange(sg, emask, n_local)
+        HC = heads * C
+        fwd = (n_local * C * HC * 2          # xp = x @ wn
+               + e_local * 8 * HC * 2        # eh = e @ we
+               + 2 * n_local * HC * 2        # a_i, a_j
+               + e_local * HC * 2            # a_e
+               + e_local * heads * C * 3     # alpha * eh * xh
+               + n_local * HC * C * 2        # aggr @ wscale
+               + n_local * C * 3 * C * 2 * 2   # GRU's two matmuls
+               + fusion_nm * n_local * C * 2)  # the pair fusion's product
+        flops_step = 3 * fwd * steps
+        # work that does not wait on the halo: eh, a_i, a_e in every
+        # step; the previous step's fusion behind the next exchange
+        ov_core = e_local * 8 * HC * 2 + n_local * HC * 2 + e_local * HC * 2
+        ov_fusion = fusion_nm * n_local * C * 2
+        ov_step = 3 * (ov_core * steps + ov_fusion * max(steps - 1, 0))
+        bytes_fwd = D * H * (heads * C + heads) * 4
+        bytes_step = 2 * bytes_fwd * steps   # the backward's a2a too
+        t_comp = flops_step / flops_per_sec
+        t_comm = bytes_step / link_bytes_per_sec
+        t_ov = ov_step / flops_per_sec
+        _, budgets, _ = build_halo_exchange_ring(sg, emask, n_local)
+        ring_rows = int(sum(budgets))
+        ring_step = 2 * ring_rows * (heads * C + heads) * 4 * steps
+        t_ring = ring_step / link_bytes_per_sec
+        out.append({
+            "shards": D, "L": L, "edges": E, "halo_budget_H": int(H),
+            "real_halo_rows": int(send_mask.sum()),
+            "flops_per_shard_step": int(flops_step),
+            "link_bytes_per_shard_step": int(bytes_step),
+            "t_compute_us": t_comp * 1e6,
+            "t_comm_us": t_comm * 1e6,
+            "predicted_efficiency": t_comp / (t_comp + t_comm),
+            "t_overlap_us": t_ov * 1e6,
+            "overlap_predicted_efficiency":
+                t_comp / (t_comp + max(0.0, t_comm - t_ov)),
+            "ring_halo_rows": ring_rows,
+            "ring_link_bytes_per_shard_step": int(ring_step),
+            "ring_t_comm_us": t_ring * 1e6,
+            "ring_predicted_efficiency": t_comp / (t_comp + t_ring),
+            "ring_overlap_predicted_efficiency":
+                t_comp / (t_comp + max(0.0, t_ring - t_ov)),
+        })
+    return out
+
+
+def card_line() -> str:
+    """The card's ``name, power limit`` from ``nvidia-smi``, or why there
+    is none."""
+    import subprocess
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "no card: nvidia-smi gave no name and power limit"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--devices", type=int, nargs="+", default=None)
@@ -153,14 +273,18 @@ def main(argv=None):
                    help="where a rank of measure()'s job writes rank 0's "
                         "result")
     p.add_argument("--analytic", action="store_true",
-                   help="the node-sharded tower's analytic model "
-                        "(not ported)")
+                   help="print the node-sharded tower's analytic "
+                        "compute/halo model at an H100's rates instead of "
+                        "measuring")
     args = p.parse_args(argv)
     if args.analytic:
-        raise NotImplementedError(
-            "--analytic models the node-sharded tower's halo traffic, which "
-            "is not ported yet (ROADMAP queue A, A11 'Node-sharded "
-            "giant-graph tower')")
+        rows = analytic()
+        for row in rows:
+            print(json.dumps(row))
+        print(f"rates: links {H100_LINK_BYTES_PER_S:.3e} B/s, float32 "
+              f"{H100_F32_FLOPS:.3e} FLOP/s (H100 SXM data sheet, at 700 W);"
+              f" card: {card_line()}")
+        return rows
     from .distributed import ENV_PROCESS_ID
     if ENV_PROCESS_ID in os.environ:
         return _rank_main(args)

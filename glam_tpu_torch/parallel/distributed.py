@@ -6,7 +6,9 @@ one process per rank over ``torch.distributed``: every rank runs the same
 program on its own device, as the JAX package's hosts each run one
 program.  ``initialize_distributed`` wires a rank from the arguments or
 the same environment variables (``GLAM_COORDINATOR`` host:port,
-``GLAM_NUM_PROCESSES``, ``GLAM_PROCESS_ID``), over ``tcp://``.
+``GLAM_NUM_PROCESSES``, ``GLAM_PROCESS_ID``), over ``tcp://``; a rank on
+the CPU takes its share of the host's cores as its threads unless
+``OMP_NUM_THREADS`` sets them.
 
 The backend follows one rule (:func:`backend_for`): ``nccl`` when every
 rank on this host has a card of its own, ``gloo`` when ranks share a card
@@ -23,6 +25,41 @@ visible cards into trial groups, and ``global_mesh`` is the ordered list
 of the ranks' devices.  ``spawn_ranks`` and ``wait_ranks`` start the
 ranks of one job on this host and wait for them; ``run.py``,
 ``bench_scaling.py`` and the checks use them.
+
+Differentiable collectives.  JAX differentiates one program over the
+mesh; here every rank runs its own backward, so each collective states
+what its result feeds.  The rule (Megatron's f and g):
+
+  * :func:`reduce_to_replicated` (g): a shard's partial sum becomes a
+    value every rank holds and uses alike (pooled readouts, fusion
+    statistics).  Forward all-reduce sum, backward identity: each rank's
+    cotangent is already the whole one.
+  * :func:`enter_local` (f): a replicated tensor (a parameter, the
+    molecule tower's node states) enters shard-local work.  Forward
+    identity, backward all-reduce sum: each rank holds only its shard's
+    part of the gradient.  It takes many tensors and reduces their
+    gradients in one all-reduce.
+  * :func:`reduce_to_local` (f after g): a partial sum whose result
+    feeds shard-local work again (the norms' statistics).  All-reduce
+    sum both ways.
+  * :func:`all_to_all_grad`: its transpose is the same exchange of the
+    cotangent, which carries the halo rows' gradient back to the shard
+    that owns them.
+  * :func:`all_gather_replicated`: gathers the shards' rows into a value
+    every rank uses alike; backward takes this rank's slice.
+    :func:`all_gather_local`: gathers them for shard-local work;
+    backward sums the cotangents over the ranks, then takes this rank's
+    slice.
+  * :func:`ring_shift`: the ring plan's send to rank ``+k``; its
+    transpose sends the cotangent back by ``-k``.  Under gloo, which
+    aborts the process on send/recv of CUDA tensors, it stages through
+    CPU tensors; under nccl it stays on the device.
+  * :func:`all_reduce_max` takes no gradient (the softmax shifts cancel;
+    the fusion max routes its gradient through the owner shard).
+
+With them, every rank's backward yields the whole gradient of every
+parameter, replicated or not, and no replicated parameter's gradient is
+summed twice.  :func:`broadcast_` sends rank 0's tensor to the others.
 """
 from __future__ import annotations
 
@@ -97,6 +134,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         torch.cuda.device_count() if device.type == "cuda" else 0)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    elif "OMP_NUM_THREADS" not in os.environ:
+        # the host's cores shared among its ranks: a rank with all of
+        # them spins its threads while another waits for it
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
     dist.init_process_group(
         backend, init_method=f"tcp://{addr}", world_size=world, rank=rank,
         timeout=TIMEOUT)
@@ -231,3 +272,159 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` summed over the ranks, in place."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max over the ranks of ``t``, detached (no
+    gradient)."""
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank, in place."""
+    dist.broadcast(t, src, group=group)
+    return t
+
+
+class _ReduceToReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ReduceToLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class _EnterLocal(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        ctx.shapes = [(t.shape, t.dtype, t.device) for t in ts]
+        return tuple(t.clone() for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        parts = [g.reshape(-1) if g is not None else
+                 torch.zeros(shape.numel(), dtype=dtype, device=device)
+                 for g, (shape, dtype, device) in zip(gs, ctx.shapes)]
+        flat = torch.cat(parts)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.group)
+        out, at = [], 0
+        for shape, _, _ in ctx.shapes:
+            out.append(flat[at:at + shape.numel()].view(shape))
+            at += shape.numel()
+        return (None, *out)
+
+
+def reduce_to_replicated(t: torch.Tensor, group=None) -> torch.Tensor:
+    """g: all-reduce sum forward, identity backward (the result feeds
+    work every rank does alike)."""
+    return _ReduceToReplicated.apply(t, group)
+
+
+def reduce_to_local(t: torch.Tensor, group=None) -> torch.Tensor:
+    """f after g: all-reduce sum forward and backward (the result feeds
+    shard-local work)."""
+    return _ReduceToLocal.apply(t, group)
+
+
+def enter_local(*ts: torch.Tensor, group=None):
+    """f: the replicated tensors ``ts`` as they enter shard-local work;
+    identity forward, one all-reduce sum of all their gradients backward.
+    Returns a tuple."""
+    return _EnterLocal.apply(group, *ts)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g.contiguous(), ctx.group), None
+
+
+def all_to_all_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`all_to_all`, differentiable: the backward sends each row of
+    the cotangent back to the rank it came from."""
+    return _AllToAll.apply(t, group)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, local, group):
+        ctx.local, ctx.group = local, group
+        return all_gather(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.local:
+            g = g.clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g[dist.get_rank(ctx.group)], None, None
+
+
+def all_gather_replicated(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[ranks, *t.shape] for work every rank does alike; backward takes
+    this rank's slice of the cotangent."""
+    return _AllGather.apply(t, False, group)
+
+
+def all_gather_local(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[ranks, *t.shape] for shard-local work; backward sums the
+    cotangents over the ranks and takes this rank's slice."""
+    return _AllGather.apply(t, True, group)
+
+
+def _shift(t: torch.Tensor, k: int, group) -> torch.Tensor:
+    """Send ``t`` to rank (r + k) % D, receive the same shape from rank
+    (r - k) % D; staged through the CPU under gloo for CUDA tensors."""
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    stage = t.is_cuda and dist.get_backend(group) == "gloo"
+    send = (t.cpu() if stage else t).contiguous()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, (rank + k) % n, group),
+           dist.P2POp(dist.irecv, recv, (rank - k) % n, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv.to(t.device) if stage else recv
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, k, group):
+        ctx.k, ctx.group = k, group
+        return _shift(t, k, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.k, ctx.group), None, None
+
+
+def ring_shift(t: torch.Tensor, k: int, group=None) -> torch.Tensor:
+    """The ring plan's permute at distance ``k``, differentiable: rows
+    from rank (r - k) % D; the backward sends the cotangent back."""
+    return _RingShift.apply(t, k, group)

@@ -12,9 +12,13 @@ Host plans (numpy, equal to the JAX package's bit for bit):
     remapped into [local ; halo from shard 0 ; ... ; shard D-1]) and
     :func:`build_halo_exchange_ring` (v3: a budget per ring distance).
 
-Message steps, one rank per shard over ``torch.distributed``, forward
-only (their gradients through the collectives come with the node-sharded
-tower, ROADMAP A11):
+Message steps, one rank per shard over ``torch.distributed``,
+differentiable through the collectives of ``parallel/distributed.py``:
+the parameters enter the shard's work through ``enter_local`` and the
+table through ``all_gather_local`` (v1) or ``all_to_all_grad`` (v2), so
+that, for a loss summed over the shards (``reduce_to_replicated``), each
+rank's backward yields the whole gradient of the parameters and its
+shard's of the node features:
   * :func:`make_halo_message_step` (v1): all_gather of the projected
     node features, then the aggregation over the gathered table;
   * :func:`make_halo_message_step_v2`: one all_to_all of the
@@ -37,8 +41,8 @@ import numpy as np
 import torch
 
 from ..data.graph import GraphArrays, GraphBatch, pad_graphs
-from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm_fwd
-from .distributed import all_gather, all_to_all
+from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm
+from .distributed import all_gather_local, all_to_all_grad, enter_local
 
 
 def partition_graphs(graphs: Sequence[GraphArrays], n_parts: int,
@@ -270,10 +274,16 @@ def _aggregate(params, xp_l, table, edges_l, snd, rcv_l, emask):
     order = torch.sort(r, stable=True).indices
     rowptr = torch.zeros(Nl + 1, dtype=torch.int32, device=xp_l.device)
     rowptr[1:] = torch.cumsum(torch.bincount(r, minlength=Nl), 0)
-    out, _, _ = segment_softmax_spmm_fwd(
+    return segment_softmax_spmm(
         logits[:, None].contiguous(), table[s].contiguous(), rowptr,
         order.to(torch.int32))
-    return out
+
+
+def _local(params, group):
+    """The step's parameters as they enter the shard's work (f)."""
+    names = sorted(params)
+    return dict(zip(names, enter_local(*[params[n] for n in names],
+                                       group=group)))
 
 
 def make_halo_message_step(group=None):
@@ -283,8 +293,9 @@ def make_halo_message_step(group=None):
     projected features of every shard all-gathered into the global table,
     then the aggregation against it."""
     def step(params, nodes_l, edges_l, snd_g, rcv_l, emask):
+        params = _local(params, group)
         xp_l = nodes_l @ params["weight_node"]          # local projection
-        table = all_gather(xp_l, group).reshape(-1, xp_l.shape[1])
+        table = all_gather_local(xp_l, group).reshape(-1, xp_l.shape[1])
         return _aggregate(params, xp_l, table, edges_l, snd_g, rcv_l,
                           emask)
 
@@ -298,8 +309,9 @@ def make_halo_message_step_v2(group=None):
     rows ``send_idx[d]`` of the local projection go to shard d in one
     all_to_all, and the aggregation runs against [xp_l ; halo]."""
     def step(params, nodes_l, edges_l, snd_l, rcv_l, emask, send_idx):
+        params = _local(params, group)
         xp_l = nodes_l @ params["weight_node"]
-        halo = all_to_all(xp_l[send_idx.long()], group)     # [D, H, C]
+        halo = all_to_all_grad(xp_l[send_idx.long()], group)  # [D, H, C]
         table = torch.cat([xp_l, halo.reshape(-1, xp_l.shape[1])])
         return _aggregate(params, xp_l, table, edges_l, snd_l, rcv_l,
                           emask)

@@ -23,21 +23,26 @@ kernels always run on the card, and eager PyTorch compiles nothing.
 ``physprop_perturb`` trains the regression model on its Label-column
 splits (``data/perturb.py``).  ``--dtype bfloat16`` (or ``float16``)
 trains in that compute dtype over float32 master parameters
-(``train/trainer.py``).  ``--pro_shards > 1`` raises
-``NotImplementedError`` naming its ROADMAP item; ``--pair_batch > 1``
-raises ``ValueError``.  The AutoML solver (``glam_tpu_torch.glam``)
+(``train/trainer.py``).  The AutoML solver (``glam_tpu_torch.glam``)
 launches this CLI for every trial.
 
 ``--n_devices D`` > 1 trains data-parallel over D ranks, one process
-each (``parallel/distributed.py``, ``train/trainer.py``).  Where
+each (``parallel/distributed.py``, ``train/trainer.py``).
+``--pro_shards N`` > 1 trains a DTI dataset (BindingDB, LIT-PCBA) with
+its protein tower node-sharded over N ranks
+(``train/sharded_pair_trainer.py``), ``--halo`` its halo plan (a2a, ring
+or auto), ``--pair_batch B`` pairs a step; the two options exclude each
+other, and ``--pair_batch > 1`` needs ``--pro_shards``.  Where
 ``GLAM_COORDINATOR``, ``GLAM_NUM_PROCESSES`` and ``GLAM_PROCESS_ID`` are
-unset, this process is the launcher: it builds the kernels once (on the
-card), starts D rank processes of the same command on a free local port
-with the variables set, waits for all of them and exits non-zero if any
-rank does (stopping the others).  Where they are set, it runs as that
-rank, so a multi-host launch sets them on each host.  On the card the
-ranks use ``cuda:(rank % cards)``; ``--platform cpu`` runs gloo ranks on
-the CPU.  Rank 0 alone writes the log, checkpoints and the final line.
+unset, this process is the launcher: it checks the options, builds the
+kernels once (on the card), starts the rank processes of the same
+command on a free local port with the variables set, waits for all of
+them and exits non-zero if any rank does (stopping the others).  Where
+they are set, it runs as that rank, so a multi-host launch sets them on
+each host.  On the card the ranks use ``cuda:(rank % cards)`` (gloo where
+ranks share a card, nccl where each has its own); ``--platform cpu``
+runs gloo ranks on the CPU.  Rank 0 alone writes the log, checkpoints
+and the final line.
 """
 from __future__ import annotations
 
@@ -121,9 +126,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_devices", default=1, type=int,
                    help="data-parallel ranks, one process each")
     p.add_argument("--halo", default="a2a", type=str,
-                   help="halo plan for --pro_shards (not ported)")
+                   help="halo plan for --pro_shards: 'a2a' (one "
+                        "all_to_all), 'ring' (one send a ring distance) "
+                        "or 'auto' (ring where it halves the rows)")
     p.add_argument("--pro_shards", default=1, type=int,
-                   help="node-sharded DTI protein tower; only 1 is ported")
+                   help="DTI datasets: the protein tower node-sharded over "
+                        "N ranks, one process each; excludes --n_devices")
     p.add_argument("--pair_batch", default=1, type=int,
                    help="pairs per optimizer step with --pro_shards")
     return p
@@ -140,12 +148,32 @@ def resolve_run_device(args) -> str:
     return f"cuda:{int(args.get('gpu') or 0)}"
 
 
-def launch_ranks(argv, args) -> int:
-    """Start ``--n_devices`` rank processes of this command and wait for
-    them; returns the first nonzero exit code (the others are stopped
-    then), else 0."""
+def check_ranks(args) -> int:
+    """The rank count (``--n_devices`` or ``--pro_shards``), after the JAX
+    CLI's checks of the two options and ``--pair_batch``."""
+    pro_shards = int(args.get("pro_shards") or 1)
+    if pro_shards > 1:
+        if int(args.get("n_devices") or 1) > 1:
+            raise ValueError("--pro_shards and --n_devices are "
+                             "mutually exclusive")
+        from .data.datasets import PAIR_DATASET_NAMES, auto_dataset
+        if args["dataset"] not in (PAIR_DATASET_NAMES["dti"]
+                                   + PAIR_DATASET_NAMES["scr"]):
+            _, _, kind = auto_dataset(dict(args))
+            raise ValueError("--pro_shards applies to DTI datasets "
+                             f"only (got trainer kind {kind})")
+        return pro_shards
+    if int(args.get("pair_batch", 1)) > 1:
+        raise ValueError("--pair_batch applies to --pro_shards runs "
+                         "only (dense trainers batch via --batch_size)")
+    return int(args.get("n_devices") or 1)
+
+
+def launch_ranks(argv, args, n: int) -> int:
+    """Start ``n`` rank processes of this command and wait for them;
+    returns the first nonzero exit code (the others are stopped then),
+    else 0."""
     from .parallel import distributed
-    n = int(args["n_devices"])
     platform = resolve_run_device(args)
     if platform != "cpu":
         # the ranks' cards; raises without one
@@ -171,13 +199,10 @@ def main(argv=None):
     from .train.trainer import check_supported
 
     check_supported(args)
-    if int(args.get("pair_batch", 1)) > 1:
-        raise ValueError("--pair_batch applies to --pro_shards runs "
-                         "only (dense trainers batch via --batch_size)")
-    n = int(args.get("n_devices") or 1)
+    n = check_ranks(args)
     rank = 0
     if n > 1 and distributed.ENV_PROCESS_ID not in os.environ:
-        rc = launch_ranks(argv, args)
+        rc = launch_ranks(argv, args, n)
         if rc:
             raise SystemExit(rc)
         return None
@@ -208,9 +233,15 @@ def main(argv=None):
     if rank == 0:
         print("Training init...")
     resume = args.pop("resume", None)
-    trainer = make_auto_trainer(args, dataset, trainer_kind,
-                                work_dir=args.get("work_dir"),
-                                device=device)
+    if int(args.get("pro_shards") or 1) > 1:
+        from .train.sharded_pair_trainer import ShardedPairTrainer
+        trainer = ShardedPairTrainer(args, dataset, task=trainer_kind,
+                                     work_dir=args.get("work_dir"),
+                                     device=device)
+    else:
+        trainer = make_auto_trainer(args, dataset, trainer_kind,
+                                    work_dir=args.get("work_dir"),
+                                    device=device)
     if resume:
         trainer.resume(resume)
     trainer.train_and_test()

@@ -97,14 +97,16 @@ def _utc_run_id(seed: int) -> str:
     return f"{ts}_seed_{seed}"
 
 
-def _new_run_dir(logs_dir: Path, seed: int) -> Tuple[str, Path]:
-    """(run id, its directory, made now): a run id whose directory no
-    other run has made.  Trials started together (an AutoML search's)
-    can draw one millisecond's id; ``mkdir`` is atomic, so the later one
-    takes the next millisecond's instead of sharing the directory."""
+def _new_run_dir(logs_dir: Path, seed: int,
+                 suffix: str = "") -> Tuple[str, Path]:
+    """(run id, its directory, made now): a run id (ending in ``suffix``)
+    whose directory no other run has made.  Trials started together (an
+    AutoML search's) can draw one millisecond's id; ``mkdir`` is atomic,
+    so the later one takes the next millisecond's instead of sharing the
+    directory."""
     logs_dir.mkdir(parents=True, exist_ok=True)
     while True:
-        run_id = _utc_run_id(seed)
+        run_id = _utc_run_id(seed) + suffix
         try:
             (logs_dir / run_id).mkdir()
             return run_id, logs_dir / run_id
@@ -142,13 +144,8 @@ def compute_forward(model: torch.nn.Module, parts, dtype: torch.dtype,
 
 
 def check_supported(args: Dict) -> None:
-    """Raise for the options whose code is not ported yet, and on an
-    unknown ``--dtype``."""
+    """Raise on an unknown ``--dtype``."""
     compute_dtype(args)
-    if int(args.get("pro_shards", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--pro_shards > 1 is not ported yet (ROADMAP queue A, "
-            "'Node-sharded giant-graph tower')")
 
 
 def make_loss_fn(task: str, loss_name: str, num_tasks: int):

@@ -290,8 +290,10 @@ def test_glam_cli_parser_matches_jax():
 def test_solver_options_fail_early(tmp_path):
     kw = dict(dataset="demo", dataset_root=str(tmp_path),
               work_dir=str(tmp_path), platform="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        GLAM(pro_shards=2, **kw)
+    # the sharded trials take their halo plan and pair batch
+    solver = GLAM(pro_shards=2, halo="ring", pair_batch=2, **kw)
+    assert (solver.pro_shards, solver.halo, solver.pair_batch) == \
+        (2, "ring", 2)
     with pytest.raises(ValueError, match="pro_shards"):
         GLAM(halo="ring", **kw)
     with pytest.raises(ValueError, match="pro_shards"):

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions: the
 triplet-attention forward and backward (A, B) and the segment-softmax
-SpMM forward and backward (kernel C); and training steps of the model on
-the card against the CPU.  Every test here is marked ``cuda`` and skips
+SpMM forward and backward (kernel C); training steps of the model on
+the card against the CPU; kernels A and B over a shard's halo table and
+a node-sharded pair step of 2 ranks against the dense one.  Every test here is marked ``cuda`` and skips
 without a CUDA device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -725,3 +726,66 @@ def test_dp_step_with_two_ranks_on_one_card(cuda, tmp_path):
     np.testing.assert_allclose(got["out"], single["out"], rtol=1e-5,
                                atol=1e-5)
     assert got["loss"] == pytest.approx(single["loss"], rel=1e-5)
+
+
+def test_triplet_kernels_over_a_halo_table(cuda):
+    """Kernels A and B as the node-sharded TripletMessage tower calls
+    them: ``xp`` is a shard's [local ; halo] table, the halo rows are
+    empty CSR rows (their a_i zero), against the plain versions in
+    float64; B's d_xp reaches the halo rows."""
+    from chip_smoke import sharded_protein_cases, shard_kernel_inputs
+    H, C = 3, 60
+    cases = sharded_protein_cases(length=300, e_dim=32, time=False)
+    shard = shard_kernel_inputs(cases["protein300_TripletMessage"])
+    R = shard.n_pairs * shard.n_local
+    csr = (shard.csr_rowptr.numpy(), shard.csr_snd.numpy(),
+           shard.csr_eid.numpy(), shard.edges.numpy())
+    assert shard.halo_rows > 0 and (np.diff(csr[0])[R:] == 0).all()
+    rng = np.random.RandomState(3)
+    args = kernel_inputs(rng, *csr, H, C, cuda)
+    args[1][R:] = 0
+    T = args[0].shape[0]
+    g = torch.from_numpy(rng.randn(T, H * C).astype(np.float32)).to(cuda)
+    got = triplet_attention_fwd(*args, H, C)
+    got_b = triplet_attention_bwd(*args, *got, g, H, C)
+    d64 = [a.cpu().double() if a.is_floating_point() else a.cpu()
+           for a in args]
+    want = triplet_attention_plain(*d64, H, C)
+    want_b = triplet_attention_bwd_plain(*d64, *want, g.cpu().double(), H,
+                                         C)
+    for name, a, b in zip(("out", "row_max", "row_inv", "d_xp", "d_eh",
+                           "d_pre", "d_a_i"), got + got_b, want + want_b):
+        torch.testing.assert_close(a.cpu().double(), b, rtol=1e-4,
+                                   atol=1e-4, msg=name)
+    assert float(got_b[0][R:].abs().max()) > 0      # the halo rows' grads
+    assert (got[0][R:] == 0).all()
+
+
+def test_sharded_pair_step_with_two_ranks_on_one_card(cuda, tmp_path):
+    """One sharded pair step of 2 gloo ranks on cuda:0
+    (``tests/torch_port_dp_worker.py``, task ``sharded``) against the
+    dense model's on the card, a 300-residue protein with GAT and
+    TripletMessage towers, a2a and ring: the output within 1e-4, every
+    gradient within rtol 2e-4 + atol 5e-5 x its leaf's scale; after one
+    Adam step both ranks' parameters are bitwise equal."""
+    from chip_smoke import dense_pair_reference, sharded_protein_cases
+    from torch_port_dp_worker import spawn_ranks, wait_ranks
+    cases = sharded_protein_cases(length=300, e_dim=64, time=False)
+    torch.save(cases, tmp_path / "sharded.pt")
+    (tmp_path / "plan.json").write_text('{"tasks": ["sharded"]}')
+    procs = spawn_ranks(tmp_path, "cuda")
+    dense = {name: dense_pair_reference(case, cuda)
+             for name, case in cases.items()}
+    got = wait_ranks(procs, tmp_path, timeout=600)["sharded"]
+    for name, (out, grads) in dense.items():
+        for halo in ("a2a", "ring"):
+            r = got[name][halo]
+            torch.testing.assert_close(r["out"], out, rtol=1e-4, atol=1e-4)
+            for k, want in grads.items():
+                scale = max(float(want.abs().max()), 1.0)
+                torch.testing.assert_close(r["grads"][k], want, rtol=2e-4,
+                                           atol=5e-5 * scale,
+                                           msg=f"{name} {halo} {k}")
+        states = got[name]["adam"]
+        for k in states[0]:
+            assert torch.equal(states[0][k], states[1][k]), k

@@ -150,3 +150,27 @@ def test_halo_steps_match_both_references(halo_run):
 
 def test_halo_bytes():
     assert gp.halo_bytes(64, 8, 60, 2) == (64 * 60 * 4, 8 * 60 * 4)
+
+
+@pytest.mark.parametrize("name", ["v1", "v2"])
+def test_halo_step_gradients_match_the_reference(halo_run, name):
+    """Each rank's backward through the collectives gives the whole
+    parameter gradient and its shard's node gradient."""
+    got, params, (nodes, edges, snd, rcv) = halo_run
+    N, C = nodes.shape[0], params["weight_node"].shape[1]
+    g = got["grads"][name]
+    n_pad = g["nodes"].shape[0] * g["nodes"].shape[1]
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    x = torch.zeros(n_pad, nodes.shape[1])
+    x[:N] = torch.from_numpy(nodes)
+    x.requires_grad_()
+    out = gp.reference_halo_step(p, x[:N], torch.from_numpy(edges),
+                                 torch.from_numpy(snd),
+                                 torch.from_numpy(rcv))
+    w = torch.randn(n_pad, C, generator=torch.Generator().manual_seed(3))
+    (out * w[:N]).sum().backward()
+    for k in params:
+        torch.testing.assert_close(g["params"][k], p[k].grad, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    torch.testing.assert_close(g["nodes"].reshape(n_pad, -1), x.grad,
+                               rtol=1e-4, atol=1e-5)

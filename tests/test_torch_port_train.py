@@ -471,15 +471,26 @@ def test_cli_trains_on_the_cpu(tmp_path, capsys):
     assert np.isfinite(pred.predict_smiles(["CCO", "c1ccccc1"])).all()
 
 
-@pytest.mark.parametrize("flag", [["--n_devices", "2", "--pro_shards", "2"],
-                                  ["--pro_shards", "2"]])
-def test_cli_unported_options_raise(tmp_path, flag):
-    """The node-sharded tower (A11), with or without data parallelism,
-    raises before any rank starts."""
+def _pro_shards_argv(tmp_path, flag):
     root = _raw_copy(tmp_path / "data", "demo", 20)
-    argv = ["--dataset", "demo", "--dataset_root", str(root), "--loss",
+    return ["--dataset", "demo", "--dataset_root", str(root), "--loss",
             "bcel", "--platform", "cpu", "--work_dir", str(tmp_path)] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+
+
+def test_cli_pro_shards_excludes_n_devices(tmp_path):
+    """``--pro_shards`` with ``--n_devices`` raises the JAX CLI's error
+    before any rank starts."""
+    argv = _pro_shards_argv(tmp_path, ["--n_devices", "2", "--pro_shards",
+                                       "2"])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        run.main(argv)
+
+
+def test_cli_pro_shards_needs_a_dti_dataset(tmp_path):
+    """``--pro_shards`` on a property dataset raises the JAX CLI's error
+    before any rank starts."""
+    argv = _pro_shards_argv(tmp_path, ["--pro_shards", "2"])
+    with pytest.raises(ValueError, match="DTI datasets only"):
         run.main(argv)
 
 

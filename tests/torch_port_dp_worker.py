@@ -1,7 +1,10 @@
-"""One rank of the port's data-parallel and halo checks, started by
-``tests/test_torch_port_dp.py`` and ``tests/test_torch_port_partition.py``
-(gloo ranks on the CPU), by ``tests/test_torch_port_cuda.py`` and by
-``chip_smoke.py`` (gloo ranks sharing one card), with ``GLAM_COORDINATOR``,
+"""One rank of the port's data-parallel, halo and node-sharded checks,
+started by ``tests/test_torch_port_dp.py``,
+``tests/test_torch_port_partition.py``, ``tests/test_torch_port_sharded.py``
+and ``tests/test_torch_port_sharded_trainer.py`` (gloo ranks on the CPU),
+by ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py`` (gloo ranks
+sharing one card) and by ``scripts/sharded_cards.py`` (one card a rank),
+with ``GLAM_COORDINATOR``,
 ``GLAM_NUM_PROCESSES`` and ``GLAM_PROCESS_ID`` set (``spawn_ranks``):
 
     python tests/torch_port_dp_worker.py <work dir> <cpu|cuda>
@@ -28,7 +31,13 @@ computed to ``<work dir>/rank0.pt``:
            k alone (so each has a gradient on one rank only);
   halo     the v1 and v2 halo message steps on this rank's shard of
            ``halo.pt`` (parameters, the split graph and the v2 plan),
-           every rank's output gathered, and each rank's launches.
+           every rank's output gathered, and each rank's launches;
+  sharded  the node-sharded tower (``parallel/sharded_model.py``) on the
+           cases of ``sharded.pt`` (:func:`task_sharded`), and on the
+           card its step's, halo's and collectives' times
+           (``sharded_time``, :func:`task_sharded_time`);
+  strainer the sharded DTI trainer (``train/sharded_pair_trainer.py``)
+           on the runs of ``strainer.pt`` (:func:`task_strainer`).
 """
 from __future__ import annotations
 
@@ -289,18 +298,278 @@ def _halo_steps(work, dev):
                        s["receivers"], s["edge_mask"], s["send_idx"]))
 
 
+def _halo_grads(work, dev):
+    """Each halo step's gradient of sum(out * w) over every shard (w
+    [ranks * Nl, C] from seed 3): the parameters' on this rank, every
+    rank's node rows' gathered."""
+    from glam_tpu_torch.parallel import graph_partition as gp
+    rank, ranks = distributed.world()
+    h = torch.load(work / "halo.pt")
+    s = {k: v[rank].to(dev) for k, v in h.items() if k != "params"}
+    Nl, C = s["nodes"].shape[0], h["params"]["weight_node"].shape[1]
+    w = torch.randn(ranks * Nl, C, generator=torch.Generator().manual_seed(
+        3))[rank * Nl:(rank + 1) * Nl].to(dev)
+    out = {}
+    for name, step, snd, extra in (
+            ("v1", gp.make_halo_message_step(), "senders_global", ()),
+            ("v2", gp.make_halo_message_step_v2(), "senders_local",
+             (s["send_idx"],))):
+        p = {k: v.to(dev).clone().requires_grad_()
+             for k, v in h["params"].items()}
+        x = s["nodes"].clone().requires_grad_()
+        y = step(p, x, s["edges"], s[snd], s["receivers"], s["edge_mask"],
+                 *extra)
+        distributed.reduce_to_replicated((y * w).sum()).backward()
+        out[name] = {"params": {k: v.grad.cpu() for k, v in p.items()},
+                     "nodes": distributed.all_gather(x.grad).cpu()}
+    return out
+
+
 def task_halo(work, plan, dev):
     before = launch_counts()
     v1, v2 = (step() for step in _halo_steps(work, dev))
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     return {"halo": {"v1": distributed.all_gather(v1).cpu(),
                      "v2": distributed.all_gather(v2).cpu(),
-                     "launches": _by_rank(launches)}}
+                     "launches": _by_rank(launches),
+                     "grads": _halo_grads(work, dev)}}
+
+
+# ------------------------------------------------- the node-sharded tower
+def _grads(model):
+    return {k: (p.grad.detach().cpu().clone() if p.grad is not None
+                else torch.zeros_like(p).cpu())
+            for k, p in model.named_parameters()}
+
+
+def _sharded_model(case, dev):
+    from glam_tpu_torch.nn.model import (Architecture, ModelConfig,
+                                         PairArchitecture)
+    cfg = ModelConfig(**case["cfg"])
+    model = (PairArchitecture(cfg, hetero=True) if case["kind"] == "pair"
+             else Architecture(cfg))
+    model.load_state_dict(case["state"])
+    return model.to(dev).train(case.get("train", False))
+
+
+def sharded_case(case, dev, group=None, halo=None, pairs=None, noise=None,
+                 generator_seed=None):
+    """One case's sharded forward on this rank (over ``group``, default
+    every rank), its loss (mean squared error to 0.3) backward: {out,
+    grads, buffers}.  ``pairs``: indices into the case's proteins packed
+    as one step (default [0])."""
+    from glam_tpu_torch.data.graph import GraphArrays, pad_graphs
+    from glam_tpu_torch.parallel import sharded_model as sm
+    rank, D = (torch.distributed.get_rank(group),
+               torch.distributed.get_world_size(group))
+    model = _sharded_model(case, dev)
+    before = launch_counts()
+    halo = halo or case.get("halo", "a2a")
+    pairs = pairs if pairs is not None else [0]
+    graphs = [GraphArrays(*case["graphs"][i], y=np.zeros(1, np.float32))
+              for i in pairs]
+    budgets = sm.corpus_budgets(graphs, D, halo)
+    shard = sm.pack_shards([sm.shard_at(g, D, rank, budgets)
+                            for g in graphs], D).to(dev)
+    if noise is not None:                 # (seed, rate)
+        gen = torch.Generator().manual_seed(noise[0])
+        cfg = model.cfg
+        draws = [sm.make_stochastic_inputs(
+            gen, g.nodes.shape[0], cfg.hid_dim, cfg.message_steps, D,
+            rate=noise[1]) for g in graphs]
+        noise = tuple(t.to(dev) for t in sm.local_noise(draws, rank))
+    if case["kind"] == "pair":
+        mols = [GraphArrays(*case["mols"][i]) for i in pairs]
+        mol_b = pad_graphs(mols, len(mols), 64 * len(mols),
+                           128 * len(mols), num_tasks=1).to(dev)
+        out = sm.make_sharded_pair_forward(model, group)(
+            mol_b, shard, noise=noise)
+    else:
+        out = sm.make_sharded_forward(model, group)(shard, noise=noise)
+    ((out - 0.3) ** 2).mean().backward()
+    return {"out": out.detach().cpu(), "grads": _grads(model),
+            "launches": {k: v - before[k]
+                         for k, v in launch_counts().items()},
+            "buffers": {k: v.cpu().clone() for k, v in model.named_buffers()
+                        if k.endswith((".mean", ".var"))}}
+
+
+def _first_pair(case, dev, halo="a2a"):
+    """(model, molecule batch or None, this rank's shard) of a case's
+    first graph, over every rank."""
+    from glam_tpu_torch.data.graph import GraphArrays, pad_graphs
+    from glam_tpu_torch.parallel import sharded_model as sm
+    rank, D = distributed.world()
+    g = GraphArrays(*case["graphs"][0], y=np.zeros(1, np.float32))
+    shard = sm.pack_shards([sm.shard_at(
+        g, D, rank, sm.corpus_budgets([g], D, halo))], D).to(dev)
+    mol_b = (pad_graphs([GraphArrays(*case["mols"][0])], 1, 64, 128,
+                        num_tasks=1).to(dev) if case["kind"] == "pair"
+             else None)
+    return _sharded_model(case, dev), mol_b, shard
+
+
+def task_sharded(work, plan, dev):
+    """Every case of ``sharded.pt`` ({name: {kind, cfg, state, graphs
+    (nodes, edges, senders, receivers) a protein, mols, train, halo}}):
+    the forward and gradients at a2a (and ring where the case asks),
+    two pairs packed in one step against each alone, the noise at 2
+    shards against 1 (rank 0 alone) and at rate 0, and one Adam step's
+    parameters on each rank."""
+    from glam_tpu_torch.parallel import sharded_model as sm
+    rank = distributed.world()[0]
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    solo = torch.distributed.new_group([0])
+    out = {}
+    for name, case in cases.items():
+        got = {"a2a": sharded_case(case, dev)}
+        got["launches"] = _by_rank(got["a2a"]["launches"])
+        if case.get("ring"):
+            got["ring"] = sharded_case(case, dev, halo="ring")
+        if case.get("batched"):
+            got["both"] = sharded_case(case, dev, pairs=[0, 1])
+            got["alone"] = [sharded_case(case, dev, pairs=[i])
+                            for i in (0, 1)]
+        if case.get("noise"):
+            got["noise_d2"] = sharded_case(case, dev, noise=(5, 0.2))
+            got["rate0"] = sharded_case(case, dev, noise=(5, 0.0))
+            if rank == 0:
+                got["noise_d1"] = sharded_case(case, dev, group=solo,
+                                               noise=(5, 0.2))
+        if case.get("sgd"):          # one make_sharded_*_train_step
+            model, mol_b, shard = _first_pair(case, dev)
+            y = torch.full((1, model.cfg.out_dim), 0.3, device=dev)
+            if case["kind"] == "pair":
+                sm.make_sharded_pair_train_step(model, lr=0.1)(mol_b, shard,
+                                                               y)
+            else:
+                sm.make_sharded_train_step(model, lr=0.1)(shard, y)
+            got["sgd"] = {k: v.detach().cpu().clone()
+                          for k, v in model.state_dict().items()}
+        if case.get("adam"):
+            model, mol_b, shard = _first_pair(case, dev)
+            fwd = sm.make_sharded_pair_forward(model)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+            ((fwd(mol_b, shard) - 0.3) ** 2).mean().backward()
+            sm.sync_grads(model)
+            opt.step()
+            got["adam"] = _by_rank({k: v.detach().cpu().clone()
+                                    for k, v in model.state_dict().items()})
+        out[name] = got
+    return {"sharded": out}
+
+
+def task_sharded_time(work, plan, dev):
+    """On the card, for each case of ``sharded.pt`` marked ``time`` and
+    each plan (a2a, ring): one Adam step's host ms (median of 10) and the
+    profile's busy ms; one message step's halo exchange (ms, median of
+    20, and the bytes this rank receives); the gradient's extra
+    collectives: the all-reduce of the protein tower's shard-local
+    parameter and molecule-state gradients (``enter_local``) and the
+    broadcast of every gradient (``sync_grads``), ms and floats."""
+    from chip_smoke import print_profile
+    from glam_tpu_torch.parallel import sharded_model as sm
+    if dev.type != "cuda":
+        raise ValueError("the sharded_time task measures on the card")
+    rank = distributed.world()[0]
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        if not case.get("time"):
+            continue
+        for halo in ("a2a", "ring"):
+            model, mol_b, shard = _first_pair(case, dev, halo)
+            fwd = sm.make_sharded_pair_forward(model)
+            opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+            def step():
+                loss = ((fwd(mol_b, shard) - 0.3) ** 2).mean()
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                sm.sync_grads(model)
+                opt.step()
+
+            for _ in range(3):
+                step()
+            got = {"host_ms": _median_ms(step, reps=10),
+                   "busy": print_profile(f"rank {rank} sharded step "
+                                         f"[{name} {halo}]", step)}
+            tower = sm.ShardedTower(model.mol2, model.cfg,
+                                    model.cfg.pro_block,
+                                    model.cfg.pro_readout)
+            conv = tower.conv
+            width = (conv.heads * conv.channels
+                     if model.cfg.pro_block.strip() == "_TripletMessage"
+                     else model.cfg.hid_dim)
+            z = torch.randn(shard.n_pairs * shard.n_local, width,
+                            device=dev)
+            got["halo_ms"] = _median_ms(lambda: tower.halo(z, shard))
+            got["halo_rows"] = shard.halo_rows
+            got["halo_bytes"] = shard.halo_rows * width * 4
+            n_local = sum(tower.params[k].numel()
+                          for k in tower.local_names)
+            n_mol = model.cfg.message_steps * model.cfg.max_nodes \
+                * model.cfg.hid_dim
+            n_all = sum(p.numel() for p in model.parameters())
+            flat = torch.zeros(n_local + n_mol, device=dev)
+            every = torch.zeros(n_all, device=dev)
+            got["grad_all_reduce_floats"] = n_local + n_mol
+            got["grad_all_reduce_ms"] = _median_ms(
+                lambda: distributed.all_reduce_sum(flat))
+            got["grad_broadcast_floats"] = n_all
+            got["grad_broadcast_ms"] = _median_ms(
+                lambda: distributed.broadcast_(every))
+            out[f"{name}_{halo}"] = got
+    return {"sharded_time": _by_rank(out)}
+
+
+def task_strainer(work, plan, dev):
+    """The sharded DTI trainer on each run of ``strainer.pt`` ({name:
+    {args, root, init (state_dict or None), epochs, resume_from (a run
+    name)}}), in order: records, final line, and the best checkpoint's
+    run dir; with ``logits``, the test split's logits in evaluation mode
+    after training; with ``params``, the final state."""
+    from glam_tpu_torch.data.datasets import auto_dataset
+    from glam_tpu_torch.train.sharded_pair_trainer import ShardedPairTrainer
+    runs = torch.load(work / "strainer.pt", weights_only=False)
+    out, dirs = {}, {}
+    for name, run in runs.items():
+        args, ds, kind = auto_dataset(dict(run["args"],
+                                           dataset_root=run["root"]))
+        tr = ShardedPairTrainer(args, ds, task=kind,
+                                work_dir=str(work / "strainer" / name),
+                                device=dev)
+        if run.get("init") is not None:
+            tr.model.load_state_dict(run["init"])
+            tr._best_state = tr._state_copy()
+        if run.get("resume_from"):
+            tr.resume(dirs[run["resume_from"]])
+        got = {}
+        if run.get("train_only"):
+            tr.train()
+        else:
+            got["final"] = tr.train_and_test()
+        got.update(records=tr.records, run_dir=str(tr.log_save_dir))
+        dirs[name] = tr.log_save_dir
+        if run.get("logits"):
+            logits = []
+            for pair in tr.splits["test"]:
+                mol_b, shard, y, _ = tr._collate([pair])
+                logits.append(tr.infer(mol_b, shard, y)[0].cpu())
+            got["logits"] = torch.cat(logits)
+            got["test_pairs"] = [(m.smi, p.smi) for m, p in
+                                 tr.splits["test"]]
+        got["params"] = _by_rank({k: v.detach().cpu().clone()
+                                  for k, v in tr.model.state_dict().items()})
+        out[name] = got
+    return {"strainer": out}
 
 
 TASKS = {"step": task_step, "time": task_time, "ddi": task_ddi,
          "dist": task_dist, "measure": task_measure,
-         "partial": task_partial, "halo": task_halo}
+         "partial": task_partial, "halo": task_halo,
+         "sharded": task_sharded, "sharded_time": task_sharded_time,
+         "strainer": task_strainer}
 
 
 # --------------------------------------------------- started by the callers
@@ -326,7 +595,9 @@ def wait_ranks(procs, work, timeout=300):
 
 
 def main(work: str, platform: str):
-    torch.set_num_threads(2)
+    # one thread a CPU rank: the test workers share the host, and a rank
+    # whose threads wait for cores stalls its peer at every collective
+    torch.set_num_threads(1 if platform == "cpu" else 2)
     work = Path(work)
     plan = json.loads((work / "plan.json").read_text())
     distributed.initialize_distributed(platform=platform)
