@@ -57,13 +57,33 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      forward a molecule;
   5. training phases, each through ``glam_tpu_torch.run.main`` on the
      demo dataset at full width (the CLI's defaults otherwise: Adam,
-     batch 32, Dropout(0.2) and RReLU), each final line parsed and
-     finite, each kernel's launches counted around each run alone:
+     batch 32, Dropout(0.2) and RReLU, ``--scan_steps 8``), each final
+     line parsed and finite, each kernel's launches counted around each
+     run alone, the replays of the run's CUDA graphs included (every
+     one-process run on the card must replay them: ``result.json``'s
+     ``step_graphs``; each run prints its captures, their seconds, the
+     eager warm-up groups' seconds, replays and pool bytes); for the
+     flagship, the library, DDI and DTI, ``captured vs eager``: 2 x 8 + 3
+     steps from one state through the graphs (an eager group of 8, one
+     8-step replay, a ReduceLROnPlateau cut of the learning rate, three
+     one-step replays) and eagerly three times, the parameters, BatchNorm
+     statistics and optimizer state held at rtol 1e-4 + 1e-6 x scale or,
+     as a share of each tensor's largest entry, within 1e-4 beyond twice
+     the spread of three eager runs, the launches equal (the
+     flagship also with SGD, with its RReLU and Dropout noise, whose
+     losses must show the replays drawing the eager steps' masks, and
+     Ranger over 13 steps at S = 4); and ``step graphs [...]``: the step
+     eager, as a one-step replay and as an 8-step replay, timed in turns
+     (host ms, busy ms, kernels, idle share, samples/s), then whole
+     epochs in turns (eager, captured with its captures, captured twice,
+     eager):
      - the flagship (TripletMessage, _PairNorm), 2 epochs: kernel B 3
        times per optimizer step, kernel A 3 times per forward; the
        trained ``best_save.pt`` serves on the card as on the CPU;
        kernels A and B and their Function against the CPU on a batch of
-       the trainer's own loader; one step's gradients card vs CPU; step
+       the trainer's own loader (its CSR padded to the edge budget: A's
+       and B's results bitwise those over its real slots, B's d_xp
+       within 1e-6); one step's gradients card vs CPU; step
        time and a profile;
      - TripletMessageLight + Set2Set with _BatchNorm (graph, flat) and
        _LayerNorm (end), 2 epochs: kernel C 6 times per forward and per
@@ -110,6 +130,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      - ``screening``: ALDH1 (scr_demo) with the CLI's defaults
        (GCNConv protein tower, loss wce), 1 epoch: A 3 per forward, B 3
        per step, C never; the final line has bedroc;
+     each through CUDA graphs, as in 5, ``captured vs eager`` and the
+     step's timing in turns for DDI and DTI;
   6b. the parallel layer, 2 gloo ranks sharing the card (NCCL refuses
      two ranks on one GPU; every figure is of ranks time-sliced on one
      card, no scaling number): ``dp``, the flagship through
@@ -154,8 +176,9 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      ``GLAM_TPU_TRIAL_SLOTS=1``, and ``glam.main`` (then the top 2 x 1
      seed x 2 epochs, the blend and PASP) at 4 slots on the one card,
      each timed, the card's utilisation sampled every 0.5 s; every trial
-     must exit 0, write its final line and its result.json, and count
-     the kernel launches its config implies in its own process; each
+     must exit 0, write its final line and its result.json, replay CUDA
+     graphs of its steps (its captures' seconds printed) and count the
+     kernel launches its config implies in its own process; each
      trial's best_save.pt serves 37 test SMILES on the card as on the
      CPU, launches exact; the blend's and PASP's launches in this
      process exact, the blend's RMSE and PASP's three Delta_RMSE
@@ -404,8 +427,8 @@ def triplet_bound_ms(args, H, C):
     with the bytes of the row statistics the design adds)."""
     import torch
     xp, a_i, a_j, edge_attr, we, wemat, rowptr, csr_snd, csr_eid = args
-    N, hc, fe, E = xp.shape[0], H * C, edge_attr.shape[1], csr_snd.shape[0]
-    senders = int(torch.unique(csr_snd).numel()) if E else 0
+    N, hc, fe, E = xp.shape[0], H * C, edge_attr.shape[1], int(rowptr[-1])
+    senders = int(torch.unique(csr_snd[:E]).numel()) if E else 0
     rows = int((rowptr[1:] > rowptr[:-1]).sum())
     nbytes = 4 * (N * hc                       # out
                   + senders * (hc + H)         # xp, a_j sender rows
@@ -431,8 +454,8 @@ def triplet_bwd_bound_ms(args, H, C):
     import torch
     xp, a_i, a_j, edge_attr, we, wemat, rowptr, csr_snd, csr_eid = args
     N, hc, fe = xp.shape[0], H * C, edge_attr.shape[1]
-    E, E_real = edge_attr.shape[0], csr_snd.shape[0]
-    senders = int(torch.unique(csr_snd).numel()) if E_real else 0
+    E, E_real = edge_attr.shape[0], int(rowptr[-1])
+    senders = int(torch.unique(csr_snd[:E_real]).numel()) if E_real else 0
     rows = int((rowptr[1:] > rowptr[:-1]).sum())
     nbytes = 4 * (senders * (hc + H) + rows * (hc + H)
                   + E_real * (fe + 2) + N + 1
@@ -475,12 +498,15 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
         triplet_attention_fwd, triplet_attention_plain)
 
     args = kernel_inputs(rng, *csr, H, C, dev)
-    N, E = args[0].shape[0], args[7].shape[0]
+    N, E, slots = args[0].shape[0], int(csr[0][-1]), args[7].shape[0]
     empty = torch.from_numpy(np.diff(csr[0]) == 0).to(dev)
+    # the plain versions take the rows' slots (a batch's CSR is padded to
+    # its edge budget)
+    real = args[:7] + [args[7][:E], args[8][:E]]
     if which == "fwd":
         kname = "triplet_fused_fwd"
         run = lambda: triplet_attention_fwd(*args, H, C)  # noqa: E731
-        plain = lambda: triplet_attention_plain(*args, H, C)  # noqa: E731
+        plain = lambda: triplet_attention_plain(*real, H, C)  # noqa: E731
         got, want, again = run(), plain(), run()
         ok = all(bool((t[empty] == 0).all()) for t in got)
         bound, bound_by, design = triplet_bound_ms(args, H, C)
@@ -488,17 +514,33 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
         kname = "triplet_fused_bwd"
         g = torch.from_numpy(rng.randn(N, H * C).astype(np.float32)).to(dev)
         stats = triplet_attention_fwd(*args, H, C)
-        plain_stats = triplet_attention_plain(*args, H, C)
+        plain_stats = triplet_attention_plain(*real, H, C)
         run = lambda: triplet_attention_bwd(  # noqa: E731
             *args, *stats, g, H, C)
         plain = lambda: triplet_attention_bwd_plain(  # noqa: E731
-            *args, *plain_stats, g, H, C)
+            *real, *plain_stats, g, H, C)
         got, want, again = run(), plain(), run()
         ok = bool((got[3][empty] == 0).all())
         bound, bound_by, design = triplet_bwd_bound_ms(args, H, C)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in
                zip(got[which == "bwd":], again[which == "bwd":]))
+    padded = ""
+    if slots > E:
+        # a CSR padded to the batch's edge budget: the same results as
+        # over its real slots alone, bitwise (B's d_xp: its atomics)
+        if which == "fwd":
+            over_real = triplet_attention_fwd(*real, H, C)
+        else:
+            over_real = triplet_attention_bwd(*real, *stats, g, H, C)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(got[which == "bwd":], over_real[which == "bwd":]))
+        if not bitwise or not torch.allclose(got[0], over_real[0],
+                                             rtol=1e-6, atol=1e-6):
+            fail(f"{kname} on {name}: the CSR padded to {slots} slots "
+                 f"and its {E} real slots give other results")
+        padded = f" padded_csr_bitwise={bitwise} ({slots} slots)"
     errs = [_errors(a, b) for a, b in zip(got, want)]
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
@@ -513,7 +555,7 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
             f"(tol {TOL}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"bound_ms={bound:.4f} ({bound_by}) "
             f"share_of_bound={bound / k_ms:.3f} "
-            f"bound_with_row_stats_ms={design:.4f}")
+            f"bound_with_row_stats_ms={design:.4f}{padded}")
     if not ok:
         print(line)
         fail(f"{kname} disagrees with its plain version on {name}: "
@@ -1193,6 +1235,16 @@ def run_cli(tmp, flags, label, dataset="demo"):
     steps = sum(e["steps"] for e in trainer.epoch_stats)
     forwards = (steps + len(trainer.epoch_stats) * len(trainer.valid_loader)
                 + len(trainer.valid_loader) + len(trainer.test_loader))
+    result = json.loads((trainer.log_save_dir / "result.json").read_text())
+    if not result["step_graphs"] or trainer.step_graphs is None:
+        fail(f"training [{label}]: the steps ran eagerly: "
+             f"{result['step_graphs_reason']}")
+    gs = result["step_graph_stats"]
+    print(f"training [{label}]: step_graphs=true at --scan_steps "
+          f"{result['scan_steps']}: {gs['captures']} captures in "
+          f"{gs['capture_s']:.3f} s, eager warm-up groups "
+          f"{gs['warmup_s']:.3f} s, {gs['replays']} replays, graph pools "
+          f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card_line()})")
     cfg = trainer.model.cfg
     towers = (f" protein tower {cfg.pro_block} {cfg.pro_readout}"
               if getattr(trainer.model, "hetero", False) else "")
@@ -1208,6 +1260,14 @@ def run_cli(tmp, flags, label, dataset="demo"):
               f"{e['molecules'] / e['seconds']:.1f} samples/s")
     print(f"final line [{label}]: {last}")
     return trainer, launches, steps, forwards
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def training_phase(dev, card, tmp):
@@ -1250,6 +1310,11 @@ def training_phase(dev, card, tmp):
             for w in ("fwd", "bwd")}
     function_on_card_vs_cpu(dev, csr, rng)
     grads_card_vs_cpu(trainer, cfg, batch, dev)
+    captured_vs_eager("flagship", trainer, card)
+    captured_vs_eager("flagship", trainer, card, optim="SGD")
+    captured_vs_eager("flagship", trainer, card, noise=True)
+    captured_vs_eager("flagship", trainer, card, optim="Ranger",
+                      plan=PLAN_RANGER)
     STEP_TIMES["flagship"] = step_timing(trainer, batch.to(dev), card)
     return {k: launches[k] for k in ("triplet_fused_fwd",
                                      "triplet_fused_bwd")}, kern
@@ -1276,6 +1341,7 @@ def library_phase(dev, card, tmp, demo):
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
                             cfg.hid_dim, np.random.RandomState(2), dev, card)
+    captured_vs_eager("light_set2set", trainer, card)
     STEP_TIMES["light_set2set"] = step_timing(trainer, batch.to(dev), card)
 
     run_dir = trainer.log_save_dir
@@ -1405,8 +1471,9 @@ def ddi_phase(dev, card, tmp):
     kernels A and B at each tower's batch; gradients card vs CPU; step
     time and a profile."""
     import numpy as np
+    label = "ddi"
     trainer, launches, steps, forwards = run_cli(
-        tmp, DDI_ARGS, "ddi", "drugbank_caster")
+        tmp, DDI_ARGS, label, "drugbank_caster")
     cfg = trainer.model.cfg
     n = 2 * cfg.message_steps
     check_counts("ddi training", launches, {
@@ -1421,6 +1488,7 @@ def ddi_phase(dev, card, tmp):
     kern = check_triplet_towers("ddi", batch, np.random.RandomState(4),
                                 dev, card)
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    captured_vs_eager(label, trainer, card)
     timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
     return launches, kern, timing
 
@@ -1433,8 +1501,9 @@ def dti_phase(dev, card, tmp):
     as on the CPU; gradients card vs CPU; step time and a profile."""
     import numpy as np
     from glam_tpu_torch.data.pair_datasets import BindingDBDataset
+    label = "dti"
     trainer, launches, steps, forwards = run_cli(
-        tmp, DTI_ARGS, "dti", "bindingdb_c")
+        tmp, DTI_ARGS, label, "bindingdb_c")
     cfg = trainer.model.cfg
     n = cfg.message_steps
     check_counts("dti training", launches, {
@@ -1453,6 +1522,7 @@ def dti_phase(dev, card, tmp):
     kern = check_triplet_towers("dti", batch, rng, dev, card, towers=(0,))
     kern["gat"] = gat_calls("dti", batch[1], cfg.hid_dim, rng, dev, card)
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
+    captured_vs_eager(label, trainer, card)
     timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
     return launches, kern, timing
 
@@ -2422,6 +2492,10 @@ def check_trials(label, solver, dev, card, smis, n_val_b, n_test_b):
                     pf["segment_softmax_spmm_fwd"] * steps}
         check_counts(f"automl [{label}] trial {cfg['note']} (its own "
                      "process)", res["kernel_launches"], want)
+        if not res.get("step_graphs"):
+            fail(f"automl [{label}]: trial {cfg['note']} ran its steps "
+                 f"eagerly: {res.get('step_graphs_reason')}")
+        gs = res["step_graph_stats"]
         for k, n in res["kernel_launches"].items():
             trained[k] += n
         if not (run_dir / "best_save.pt").is_file():
@@ -2452,7 +2526,10 @@ def check_trials(label, solver, dev, card, smis, n_val_b, n_test_b):
               f"{t['seconds']:.2f} (start-up "
               f"{t['seconds'] - res['seconds']:.2f}, training steps "
               f"{res['train_seconds']:.2f}, evaluation and checkpoints "
-              f"{res['seconds'] - res['train_seconds']:.2f}) "
+              f"{res['seconds'] - res['train_seconds']:.2f}; CUDA graphs: "
+              f"{gs['captures']} captures in {gs['capture_s']:.2f} s, "
+              f"warm-up groups {gs['warmup_s']:.2f} s, {gs['replays']} "
+              f"replays, pool {gs['pool_bytes'] / 2**20:.1f} MiB) "
               f"optimizer_steps={steps} valr2="
               f"{val.get('valr2', float('nan')):.4f} valrmse="
               f"{val.get('valrmse', float('nan')):.4f} exit=0; own launches "
@@ -2877,7 +2954,7 @@ def bf16_phase(dev, card, tmp, label, flags, f32_label):
     batch = next(iter(trainer.train_loader))
     grads_card_vs_cpu(trainer, cfg, batch, dev,
                       train_mode=cfg.graph_norm == "_BatchNorm")
-    timing = step_timing(trainer, batch.to(dev), card)
+    timing = step_timing(trainer, batch.to(dev), card, epochs=False)
     f32 = STEP_TIMES[f32_label]
     print(f"training step [{label} vs {f32_label} float32]: step_ms "
           f"{timing['step_ms']:.4f} vs {f32['step_ms']:.4f}, device_ms "
@@ -3035,38 +3112,272 @@ def per_launch(calls):
     return out
 
 
-def step_timing(trainer, batch, card, top=8):
-    """Median time of one optimizer step (forward, backward, Adam) on a
-    training batch (on the card; a pair of them for a pair trainer): on
-    the device alone (the launches queued behind a spin) and as the host
-    runs it (events around a synchronized step); then a profile of one
-    step, its ``top`` rows."""
+def noise_free(cfg):
+    """``cfg`` without Dropout and with CELU for RReLU: a model that
+    draws no noise."""
+    import dataclasses
+    return dataclasses.replace(
+        cfg, pre_do="_None()", graph_do="_None()", flat_do="_None()",
+        end_do="_None()", pre_act="CELU", graph_act="CELU",
+        flat_act="CELU", end_act="CELU")
+
+
+def build_model(trainer, cfg):
+    """A fresh model of ``trainer``'s kind (single-graph or pair) from
+    ``cfg``, on the trainer's device."""
+    from glam_tpu_torch.nn.model import Architecture, PairArchitecture
+    if isinstance(trainer.model, PairArchitecture):
+        return PairArchitecture(cfg, trainer.model.hetero).to(trainer.device)
+    return Architecture(cfg).to(trainer.device)
+
+
+# captured against eager: 2 x 8 + 3 steps, as the trainer groups them at
+# --scan_steps 8 (a group of 8 run eagerly as the warm-up, one replay of
+# the 8-step graph, then 3 replays of the one-step graph), with a
+# ReduceLROnPlateau cut of the learning rate between the 8-step replay
+# and the one-step ones; Ranger's 13 steps at S = 4 (one eager warm-up
+# step, then three replays of its 4-step graph: steps 2-5, 6-9 (its
+# N_sma threshold and first Lookahead sync) and 10-13 (the second))
+PLAN_19 = [(0, 8, True), (8, 16, True), "lr", (16, 19, False)]
+PLAN_RANGER = [(0, 1, False), (1, 5, True), (5, 9, True), (9, 13, True)]
+GRAPH_RTOL, GRAPH_ATOL = 1e-4, 1e-6
+
+
+def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
+                      plan=PLAN_19, lr=1e-3):
+    """From one state (the trainer's weights), the steps of ``plan`` over
+    the trainer's own loader batches through ``StepGraphs`` (its replays'
+    launches counted) and the same steps eagerly, three times: the
+    parameters, the BatchNorm statistics and the optimizer state after
+    them, the losses, and the launches.  Each tensor of the captured run
+    must lie within rtol GRAPH_RTOL + GRAPH_ATOL x its largest entry of
+    the first eager run's, or, as a share of its largest entry, within
+    GRAPH_RTOL beyond twice the largest such share between two eager runs
+    (B's d_xp and index_add_'s atomics change the last bits of a
+    gradient, in another order when the kernels run back to back in a
+    replay, and Adam's steps move a parameter by its full rate whatever a
+    near-zero gradient's size).  The losses are held alike.  With
+    ``noise`` the model draws Dropout masks and RReLU slopes from the
+    trainer's generator, so the losses say that the graphs' Philox draws
+    are the eager ones.  Restores the trainer's model and optimizer.
+    Returns the line's numbers."""
+    import itertools
     import torch
-    trainer.model.train()
-    step = lambda: trainer.train_step(batch)  # noqa: E731
-    dev_ms = device_ms(step, reps=20, warmup=3, sleep_cycles=200_000_000)
-    host = []
-    for _ in range(20):
+    from glam_tpu_torch.train.optim import (ReduceLROnPlateau,
+                                            get_learning_rate,
+                                            make_optimizer,
+                                            set_learning_rate)
+    from glam_tpu_torch.train.step_graph import StepGraphs
+    saved = trainer.model, trainer.optimizer, trainer.step_graphs
+    cfg = trainer.model.cfg if noise else noise_free(trainer.model.cfg)
+    state = {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()}
+    n = max(b for step in plan if step != "lr" for _, b, _ in [step])
+    host = [trainer._as_parts(h) for h in itertools.islice(
+        itertools.cycle(trainer.train_loader), n)]
+    runs = {}
+    for run in ("eager", "captured", "eager_2", "eager_3"):
+        model = build_model(trainer, cfg)
+        model.load_state_dict(state)
+        model.train()
+        trainer.model = model
+        trainer.optimizer = make_optimizer(optim, model.named_parameters(),
+                                           lr, k=6)
+        trainer.generator.manual_seed(29)
+        plateau = ReduceLROnPlateau(factor=0.7, patience=0)
+        graphs = StepGraphs(trainer._step, trainer._eval_step,
+                            trainer.device, trainer.generator)
+        reset_counts()
+        losses = []
+        for step in plan:
+            if step == "lr":
+                plateau.step(1.0, lr)
+                set_learning_rate(trainer.optimizer,
+                                  plateau.step(2.0, lr))
+                continue
+            a, b, stack = step
+            if run == "captured":
+                losses.append(graphs.train(host[a:b], stack))
+            else:
+                losses.append(torch.stack([
+                    trainer._step(tuple(p.to(trainer.device) for p in h))
+                    for h in host[a:b]]))
+        torch.cuda.synchronize()
+        opt_state = {f"{i}.{k}": v.detach().clone()
+                     for i, st in enumerate(trainer.optimizer.state.values())
+                     for k, v in st.items() if torch.is_tensor(v)}
+        runs[run] = ({**{k: v.detach().clone() for k, v in
+                         model.state_dict().items()}, **opt_state},
+                     torch.cat(losses), read_counts(), graphs.stats,
+                     get_learning_rate(trainer.optimizer))
+    trainer.model, trainer.optimizer, trainer.step_graphs = saved
+    eager, got = runs["eager"][0], runs["captured"][0]
+    others = [runs["eager"][0], runs["eager_2"][0], runs["eager_3"][0]]
+    floats = [k for k, v in eager.items()
+              if v.is_floating_point() and v.numel()]
+    scale = {k: max(float(eager[k].abs().max()), 1e-30) for k in floats}
+    err = {k: float((got[k] - eager[k]).abs().max()) / scale[k]
+           for k in floats}
+    # the eager runs' own spread: the largest distance between two of the
+    # three, over the tensors, each as a share of its largest entry
+    spread = max(float((b[k] - a[k]).abs().max()) / scale[k]
+                 for i, a in enumerate(others) for b in others[i + 1:]
+                 for k in floats)
+    for k in floats:
+        if not (torch.allclose(got[k], eager[k], rtol=GRAPH_RTOL,
+                               atol=GRAPH_ATOL * scale[k])
+                or err[k] <= 2 * spread + GRAPH_RTOL):
+            fail(f"captured vs eager [{label}, {optim}]: {k} differs by "
+                 f"{err[k]:.3e} of its largest entry {scale[k]:.3e}; two "
+                 f"eager runs lie up to {spread:.3e} apart (tol "
+                 f"{GRAPH_RTOL} + 2 x that)")
+    worst_name = max(err, key=err.get)
+    worst = err[worst_name]
+    if runs["captured"][2] != runs["eager"][2]:
+        fail(f"captured vs eager [{label}]: launches {runs['captured'][2]} "
+             f"against {runs['eager'][2]} eagerly")
+
+    def loss_apart(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+    la, le = runs["captured"][1], runs["eager"][1]
+    loss_gap = loss_apart(la, le)
+    losses = [runs[r][1] for r in ("eager", "eager_2", "eager_3")]
+    loss_spread = max(loss_apart(a, b) for i, a in enumerate(losses)
+                      for b in losses[i + 1:])
+    # another draw moves a step's loss by far more than rounding: the
+    # losses, as the state, within GRAPH_RTOL beyond twice the eager
+    # runs' own spread
+    same_draws = loss_gap <= GRAPH_RTOL + 2 * loss_spread
+    if not same_draws:
+        fail(f"captured vs eager [{label}]: the losses lie {loss_gap:.3e} "
+             f"apart, the eager runs' up to {loss_spread:.3e}: the replays "
+             "did not take the eager steps")
+    gs = runs["captured"][3]
+    print(f"captured vs eager [{label}, {optim}, "
+          f"{'RReLU + Dropout' if noise else 'no noise'}]: {len(la)} steps "
+          f"({', '.join(str(p) for p in plan)}), {len(eager)} state "
+          f"tensors (parameters, BatchNorm statistics, optimizer state): "
+          f"max error {worst:.3e} of the tensor's largest entry "
+          f"({worst_name}; tol rtol {GRAPH_RTOL} + atol {GRAPH_ATOL} x "
+          f"largest, or within {GRAPH_RTOL} + 2 x the eager runs' spread "
+          f"{spread:.3e}); losses max rel diff {loss_gap:.3e}, eager runs' "
+          f"{loss_spread:.3e} (draws equal: {same_draws}); lr after the "
+          f"plateau {runs['captured'][4]:.3e} = eager "
+          f"{runs['eager'][4]:.3e}; "
+          f"launches equal {json.dumps(runs['captured'][2])}; "
+          f"{gs['captures']} captures {gs['capture_s']:.3f} s, pool "
+          f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card})")
+    return {"max_rel_err": worst, "eager_spread": spread,
+            "loss_gap": loss_gap, "same_draws": same_draws}
+
+
+def host_step_ms(fn, reps=20, per=1):
+    """Median host-clock ms of ``fn`` (one step, or ``per`` steps), from
+    a synchronized start to the end of its device work."""
+    import torch
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        step()
+        fn()
         end.record()
         end.synchronize()
-        host.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def step_timing(trainer, batch, card, top=8, epochs=True):
+    """One optimizer step (forward, backward, update) on a training batch
+    (on the card; a pair of them for a pair trainer), eagerly and as the
+    replay of a CUDA graph (``StepGraphs``: the one-step graph with its
+    slot's copy, and the --scan_steps S-step graph per step), timed in
+    turns (eager, captured, S-step, then again): each's median host ms;
+    the eager step's device time (launches queued behind a spin) and a
+    profile of one eager step and of one replay, with their busy ms,
+    kernel counts and idle share (1 - busy / host); the seconds of the
+    warm-up and the captures and the graph pool's bytes.  With
+    ``epochs``, then whole training epochs in turns (eager, captured with
+    its captures, captured twice, eager): samples/s."""
+    import torch
+    from glam_tpu_torch.train.step_graph import StepGraphs
+    trainer.model.train()
     parts = trainer._as_parts(batch)
+    host = tuple(p.to("cpu") for p in parts)
+    S = max(trainer.scan_steps, 2)
+    eager = lambda: trainer.train_step(batch)  # noqa: E731
+    dev_ms = device_ms(eager, reps=20, warmup=3, sleep_cycles=200_000_000)
+    graphs = StepGraphs(trainer._step, trainer._eval_step, trainer.device,
+                        trainer.generator)
+    one = lambda: graphs.train([host], False)  # noqa: E731
+    group = lambda: graphs.train([host] * S, True)  # noqa: E731
+    one()           # the warm-up step, eager
+    one()           # the one-step graph's capture, then its replay
+    group()         # the S-step graph's capture, then its replay
+    ms = {"eager": [], "captured": [], "scan": []}
+    for _ in range(2):
+        ms["eager"].append(host_step_ms(eager))
+        ms["captured"].append(host_step_ms(one))
+        ms["scan"].append(host_step_ms(group, reps=5, per=S))
+    med = {k: statistics.median(v) for k, v in ms.items()}
     n_mol = int(parts[0].graph_mask.sum())
-    wall_ms = statistics.median(host)
     shapes = " | ".join(f"N={b.num_nodes} E={b.num_edges} "
                         f"E_real={b.num_real_edges}" for b in parts)
     print(f"training step (batch of {n_mol} samples, {shapes}): "
-          f"step_ms={wall_ms:.4f} ({n_mol / wall_ms * 1e3:.1f} samples/s) "
-          f"device_ms={dev_ms:.4f}, medians of 20 CUDA-event timings "
-          f"({card}); device_ms holds only where the step's launches fit "
-          "the launch queue behind the spin: see the profile's busy_ms")
-    return dict(print_profile("one training step", step, top),
-                step_ms=wall_ms, device_ms=dev_ms)
+          f"step_ms={med['eager']:.4f} ({n_mol / med['eager'] * 1e3:.1f} "
+          f"samples/s) device_ms={dev_ms:.4f}, medians of 20 CUDA-event "
+          f"timings ({card}); device_ms holds only where the step's "
+          "launches fit the launch queue behind the spin: see the "
+          "profile's busy_ms")
+    prof = print_profile("one training step", eager, top)
+    captured = print_profile("one captured step (replay)", one, top)
+    gs = graphs.stats
+    print(f"step graphs [{trainer.args.get('mol_block')}]: host ms a step "
+          f"in turns eager {', '.join(f'{v:.4f}' for v in ms['eager'])}, "
+          f"one-step replay {', '.join(f'{v:.4f}' for v in ms['captured'])}"
+          f", {S}-step replay per step "
+          f"{', '.join(f'{v:.4f}' for v in ms['scan'])}; busy ms eager "
+          f"{prof['busy_ms']:.4f} over {prof['kernels']} kernels, replay "
+          f"{captured['busy_ms']:.4f} over {captured['kernels']} kernels; "
+          f"idle share eager {1 - prof['busy_ms'] / med['eager']:.3f}, "
+          f"one-step replay {1 - captured['busy_ms'] / med['captured']:.3f},"
+          f" {S}-step replay {1 - captured['busy_ms'] / med['scan']:.3f}; "
+          f"samples/s eager {n_mol / med['eager'] * 1e3:.1f}, replay "
+          f"{n_mol / med['captured'] * 1e3:.1f}, {S}-step "
+          f"{n_mol / med['scan'] * 1e3:.1f}; warm-up "
+          f"{gs['warmup_s']:.3f} s, {gs['captures']} captures "
+          f"{gs['capture_s']:.3f} s, pool {gs['pool_bytes'] / 2**20:.1f} MiB"
+          f" ({card})")
+    if epochs:
+        epoch_timing(trainer, card)
+    return dict(prof, step_ms=med["eager"], device_ms=dev_ms)
+
+
+def epoch_timing(trainer, card):
+    """Whole training epochs of the trainer's loader in turns: eager,
+    through fresh step graphs (their warm-up group and captures
+    included; an epoch of fewer than 2 x 8 batches captures its 8-step
+    graph in the second), through them twice more, eager: samples/s of
+    each."""
+    from glam_tpu_torch.train.step_graph import StepGraphs
+    saved = trainer.step_graphs
+    graphs = StepGraphs(trainer._step, trainer._eval_step, trainer.device,
+                        trainer.generator)
+    rates = []
+    for turn in ("eager", "captured_first", "captured_second", "captured",
+                 "eager"):
+        trainer.step_graphs = None if turn == "eager" else graphs
+        trainer.train_iterations()
+        e = trainer.epoch_stats.pop()
+        rates.append((turn, e["molecules"] / e["seconds"], e["seconds"]))
+    trainer.step_graphs = saved
+    print(f"training epoch [{trainer.args.get('mol_block')}] "
+          f"({len(trainer.train_loader)} batches at --scan_steps "
+          f"{trainer.scan_steps}) in turns: " + ", ".join(
+              f"{t} {r:.1f} samples/s ({sec:.3f} s)" for t, r, sec in rates)
+          + f" ({card})")
 
 
 def phase(label, fn, *args):

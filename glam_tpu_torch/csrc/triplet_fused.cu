@@ -19,7 +19,9 @@
 // receiver-sorted edges into 256-edge blocks with 128-node windows and
 // turns every gather into a one-hot matmul, because Mosaic has no gather.
 // Hopper gathers, so the host hands over a receiver-sorted CSR of the real
-// edges (rowptr, snd, eid).  One launch, no fill:
+// edges (rowptr, snd, eid; its slot arrays may run past rowptr[n], to the
+// batch's edge budget, so that every batch launches the same grid).  One
+// launch, no fill:
 //  - a row of 1-32 edges is one warp's, one edge a lane: the lane loads
 //    its edge's indices, features and a_j, and the warp requests the
 //    senders' xp rows, before the block's one barrier; the logits' max and
@@ -245,7 +247,7 @@ __device__ __forceinline__ void long_rows(const Params& q, float* we_s,
   constexpr int U = Unroll<VPL>::value;
   const int H = q.heads, hc = q.hc, fe = q.fe;
   const int c0 = (blockIdx.x * kWarps + warp) * kChunk;
-  const int cnt = max(0, min(kChunk, q.slots - c0));
+  const int cnt = max(0, min(kChunk, __ldg(q.rowptr + q.n) - c0));
   stage_weights(q.we, q.wemat, hc, H, fe, we_s, wf_s, nullptr);
   SlotRow me{0, 0, 0};
   bool lng = false;
@@ -421,7 +423,8 @@ long long triplet_fused_smem_bytes(int hc, int heads, int fe) {
 }
 
 // Pointers are device pointers; `stream` is a cudaStream_t.  n >= 1 and
-// rowptr[n] == slots.  With chunks = ceil(slots / 32) and sw =
+// rowptr[n] <= slots: the slots past rowptr[n] (a CSR padded to the
+// batch's edge budget) belong to no row and are not read.  With chunks = ceil(slots / 32) and sw =
 // (hc + 2 heads + 3) & ~3: part holds chunks * 2 * sw floats and tickets
 // `chunks` ints that are zero (and are zero again when the kernel ends).
 // vec = 1 allows float4 channel groups: C % 4 == 0 and xp, out and part

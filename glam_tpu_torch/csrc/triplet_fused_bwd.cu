@@ -23,9 +23,11 @@
 // (out[r] = sum_e alpha * eh * xp[s]), as FlashAttention's backward does,
 // so no edge waits for the rest of its row: one pass.  d_eh and d_pre are
 // written at the edge's original index (csr_eid).  The caller's edges put
-// the real ones first, csr_eid a permutation of [0, slots): the kernel
-// zeroes the padded edges' rows [slots, E) itself, so neither needs a
-// fill.  The rest of the gradient (d_edge_attr, d_We, d_wemat, d_a_j) is
+// the real ones first, the first rowptr[n] = E_real slots of csr_eid a
+// permutation of [0, E_real): the kernel zeroes the padded edges' rows
+// [E_real, E) itself, so neither needs a fill.  Slots past rowptr[n] (a
+// CSR padded to the batch's edge budget) belong to no row and are not
+// read.  The rest of the gradient (d_edge_attr, d_We, d_wemat, d_a_j) is
 // small matrix products and a scatter done by the caller.
 //
 // Design (triplet_common.cuh has the layout: a row of 1-32 edges a warp,
@@ -69,7 +71,7 @@ struct Params {
   const float* wemat;       // [hc, heads]
   const int* rowptr;        // [n + 1]
   const int* snd;           // [slots]
-  const int* eid;           // [slots], a permutation of [0, slots)
+  const int* eid;           // [slots], [0, rowptr[n]) a permutation
   const float* out;         // [n, hc], the forward's
   const float* row_max;     // [n, heads]
   const float* row_inv;     // [n, heads]
@@ -245,17 +247,18 @@ __device__ __forceinline__ void walk(
 }
 
 // Zeros for the padded edges' rows of d_eh and d_pre: this row block's
-// share of [slots, edges).
+// share of [rowptr[n], edges).
 template <int W>
 __device__ __forceinline__ void zero_padded_edges(const Params& q) {
   using T = typename Vec<W>::T;
-  const int tail = q.edges - q.slots;
+  const int real = __ldg(q.rowptr + q.n);
+  const int tail = q.edges - real;
   if (tail <= 0) return;
   const int row_blocks = gridDim.x - q.slot_blocks;
   const int b = blockIdx.x - q.slot_blocks;
   const int per = (tail + row_blocks - 1) / row_blocks;
-  const int e0 = q.slots + min(tail, b * per);
-  const int e1 = q.slots + min(tail, (b + 1) * per);
+  const int e0 = real + min(tail, b * per);
+  const int e1 = real + min(tail, (b + 1) * per);
   const int groups = q.hc / W;
   T* d = reinterpret_cast<T*>(q.d_eh) + (size_t)e0 * groups;
   for (int i = threadIdx.x; i < (e1 - e0) * groups; i += blockDim.x) {
@@ -279,7 +282,7 @@ __device__ __forceinline__ void long_rows(const Params& q, float* we_s,
   constexpr int U = Unroll<VPL>::value;
   const int H = q.heads, hc = q.hc, fe = q.fe;
   const int c0 = (blockIdx.x * kWarps + warp) * kChunk;
-  const int cnt = max(0, min(kChunk, q.slots - c0));
+  const int cnt = max(0, min(kChunk, __ldg(q.rowptr + q.n) - c0));
   stage_weights(q.we, q.wemat, hc, H, fe, we_s, wf_s, wm_s);
   SlotRow me{0, 0, 0};
   bool lng = false;
@@ -446,7 +449,8 @@ long long triplet_bwd_smem_bytes(int hc, int heads, int fe) {
 }
 
 // Pointers are device pointers; `stream` is a cudaStream_t.  n >= 1,
-// rowptr[n] == slots <= edges, and eid a permutation of [0, slots).  d_xp
+// rowptr[n] <= slots <= edges, and eid's first rowptr[n] slots a
+// permutation of [0, rowptr[n]); the slots past rowptr[n] are not read.  d_xp
 // must be zeroed; the kernel writes every row of d_eh, d_pre and d_a_i.
 // With chunks = ceil(slots / 32): part holds chunks * 2 * 8 floats and
 // tickets `chunks` ints that are zero (and are zero again when the kernel

@@ -9,18 +9,25 @@ Variable-size molecular graphs are packed into one fixed-shape
     ``receivers`` need no masking.
 
 On top of that layout the batch carries a receiver-sorted CSR of the
-real edges only (``csr_rowptr``, ``csr_snd``, ``csr_eid``), built on the
-host.  The triplet-attention kernel walks it one receiver row at a time.
-Padded edges are left out of it: their edge features are zero, so their
-messages are zero and leaving them out changes no output.
+real edges (``csr_rowptr``, ``csr_snd``, ``csr_eid``), built on the
+host.  The triplet-attention kernels walk it one receiver row at a time.
+Padded edges are left out of its rows: their edge features are zero, so
+their messages are zero and leaving them out changes no output.  Its
+slot arrays are padded to the edge budget all the same, so that every
+batch of a loader has the same shapes (what a CUDA graph of a step
+needs): the E - E_real slots past ``csr_rowptr[-1]`` belong to no row,
+their senders are the last node and their edge ids E_real..E-1, the
+padded edges in order.  The real slots come first and their edge ids
+are a permutation of [0, E_real).
 
 Other convs do see the padded edges: at the last node, softmax attention
 over them gives that node's own projection (``TripletMessageLight``) and
 ``NNConv`` averages their messages.  ``padded_csr`` and ``self_loop_csr``
 are the CSRs over every edge slot (and GAT's self-loops) that the
-segment-softmax kernel walks; ``graph_csr`` groups node rows by graph for
-the readouts.  They are derived on the batch's device, without a sort
-or a host synchronisation, and kept on the batch.
+segment-softmax kernel walks, built on the host with the batch
+(``pad_rowptr``, ``loop_rowptr``, ``loop_idx``); ``graph_csr`` groups
+node rows by graph for the readouts, derived on the batch's device
+without a host synchronisation.
 
 Index dtypes: the padded edge and node index arrays are int64 (what torch
 indexing takes); the CSR arrays are int32 (what the kernel takes).
@@ -28,13 +35,10 @@ indexing takes); the CSR arrays are int32 (what the kernel takes).
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
-
-from ..ops.segment import csr_rows
 
 
 class GraphArrays(NamedTuple):
@@ -68,8 +72,11 @@ class GraphBatch:
     graph_mask: torch.Tensor   # [G] bool
     y: torch.Tensor            # [G, T] float32
     csr_rowptr: torch.Tensor   # [N + 1] int32 row starts into csr_snd
-    csr_snd: torch.Tensor      # [E_real] int32 sender of each sorted edge
-    csr_eid: torch.Tensor      # [E_real] int32 original edge id
+    csr_snd: torch.Tensor      # [E] int32 sender of each sorted edge
+    csr_eid: torch.Tensor      # [E] int32 original edge id
+    pad_rowptr: torch.Tensor   # [N + 1] int32 csr_rowptr, last entry E
+    loop_rowptr: torch.Tensor  # [N + 1] int32 self_loop_csr's row starts
+    loop_idx: torch.Tensor     # [E + N] int32 self_loop_csr's entries
 
     @property
     def num_nodes(self) -> int:
@@ -85,7 +92,9 @@ class GraphBatch:
 
     @property
     def num_real_edges(self) -> int:
-        return self.csr_snd.shape[0]
+        """E_real (reads ``csr_rowptr[-1]``: on the card, a host
+        synchronisation)."""
+        return int(self.csr_rowptr[-1])
 
     @property
     def device(self) -> torch.device:
@@ -103,33 +112,19 @@ class GraphBatch:
         return dataclasses.replace(self, nodes=self.nodes.to(dtype),
                                    edges=self.edges.to(dtype))
 
-    @functools.cached_property
+    @property
     def padded_csr(self):
         """Receiver CSR of every edge slot, padded ones included: (rowptr
         [N+1], idx [E]) int32.  Padded edges follow the real ones and all
         point at the last node, so they extend its row."""
-        E = self.num_edges
-        rowptr = self.csr_rowptr.clone()
-        rowptr[-1] = E
-        pad = torch.arange(self.num_real_edges, E, dtype=torch.int32,
-                           device=self.device)
-        return rowptr, torch.cat([self.csr_eid, pad])
+        return self.pad_rowptr, self.csr_eid
 
-    @functools.cached_property
+    @property
     def self_loop_csr(self):
         """``padded_csr`` with a self-loop first in every row: (rowptr
         [N+1], idx [E+N]) int32, where entry E + r is node r's loop (GAT
         appends N loops to its E edges)."""
-        rowptr, idx = self.padded_csr
-        N, E = self.num_nodes, self.num_edges
-        ar = torch.arange(N + 1, dtype=torch.int32, device=self.device)
-        loop_ptr = rowptr + ar
-        out = torch.empty(E + N, dtype=torch.int32, device=self.device)
-        slots = (torch.arange(E, device=self.device) + csr_rows(rowptr, E)
-                 + 1)
-        out[slots] = idx
-        out[loop_ptr[:-1].long()] = E + ar[:-1]
-        return loop_ptr, out
+        return self.loop_rowptr, self.loop_idx
 
 
 def graph_csr(n_node: torch.Tensor, num_nodes: int):
@@ -141,6 +136,31 @@ def graph_csr(n_node: torch.Tensor, num_nodes: int):
     rowptr[1:] = torch.cumsum(n_node, 0)
     return rowptr, torch.arange(num_nodes, dtype=torch.int32,
                                 device=n_node.device)
+
+
+def budget_csr(rowptr: np.ndarray, snd: np.ndarray, eid: np.ndarray,
+               num_edges: int):
+    """The real edges' CSR (``receiver_csr``) with its slots padded to
+    the edge budget, and the CSRs over every slot: (csr_snd [E], csr_eid
+    [E], pad_rowptr [N+1], loop_rowptr [N+1], loop_idx [E+N]), all int32.
+    The slots past ``rowptr[-1]`` hold the padded edges E_real..E-1, each
+    sent by the last node; ``pad_rowptr`` puts them in the last node's
+    row, and the self-loop CSR adds node r's loop, entry E + r, first in
+    row r."""
+    n = rowptr.shape[0] - 1
+    e_real = int(rowptr[-1])
+    pad = np.arange(e_real, num_edges, dtype=np.int32)
+    csr_snd = np.concatenate([snd.astype(np.int32),
+                              np.full(pad.shape, n - 1, np.int32)])
+    csr_eid = np.concatenate([eid.astype(np.int32), pad])
+    pad_rowptr = rowptr.astype(np.int32)
+    pad_rowptr[-1] = num_edges
+    rows = np.repeat(np.arange(n), np.diff(pad_rowptr))
+    loop_rowptr = (pad_rowptr + np.arange(n + 1)).astype(np.int32)
+    loop_idx = np.empty(num_edges + n, np.int32)
+    loop_idx[np.arange(num_edges) + rows + 1] = csr_eid
+    loop_idx[loop_rowptr[:-1]] = num_edges + np.arange(n)
+    return csr_snd, csr_eid, pad_rowptr, loop_rowptr, loop_idx
 
 
 def receiver_csr(senders: np.ndarray, receivers: np.ndarray,
@@ -224,10 +244,14 @@ def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
 
     rowptr, csr_snd, csr_eid = receiver_csr(senders[:e_off],
                                             receivers[:e_off], num_nodes)
+    csr_snd, csr_eid, pad_rowptr, loop_rowptr, loop_idx = budget_csr(
+        rowptr, csr_snd, csr_eid, num_edges)
     t = torch.from_numpy
     return GraphBatch(
         nodes=t(nodes), edges=t(edges), senders=t(senders),
         receivers=t(receivers), node_graph=t(node_graph),
         node_pos=t(node_pos), n_node=t(n_node), node_mask=t(node_mask),
         edge_mask=t(edge_mask), graph_mask=t(graph_mask), y=t(y),
-        csr_rowptr=t(rowptr), csr_snd=t(csr_snd), csr_eid=t(csr_eid))
+        csr_rowptr=t(rowptr), csr_snd=t(csr_snd), csr_eid=t(csr_eid),
+        pad_rowptr=t(pad_rowptr), loop_rowptr=t(loop_rowptr),
+        loop_idx=t(loop_idx))

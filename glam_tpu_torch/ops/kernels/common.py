@@ -29,13 +29,22 @@ def tickets(dev, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 tickets for kernels on ``stream``: one
     buffer per device and stream, zeroed when made or grown (the kernels
     leave it zeroed), so a call needs no fill.  Kernels on one stream run
-    in turn, so they share it."""
+    in turn, so they share it.  A CUDA graph's capture may not make or
+    grow one (the buffer would live in the graph's pool): the calls run
+    eagerly on the capture's stream first (``train/step_graph.py``), and
+    a capture that finds none raises."""
     key = (dev.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"no ticket buffer of {n} for stream {stream} on cuda:"
+                f"{dev.index} during a CUDA graph capture: run the step "
+                "on the capture's stream before capturing it")
         buf = torch.zeros((max(n, 1024),), device=dev, dtype=torch.int32)
         _TICKETS[key] = buf
     return buf
+
 
 
 def dirty_tickets():

@@ -8,7 +8,13 @@ replaces the Pallas TPU kernel ``_fwd_kernel`` of the JAX package
 replaces ``_bwd_kernel`` (same file, :296).  Both take a receiver-sorted
 CSR of the real edges: a row of 1-32 edges is one warp's, a longer row is
 cut into 32-edge chunks over warps and merged in CSR order
-(``csrc/triplet_common.cuh``); both are bounded by memory traffic.
+(``csrc/triplet_common.cuh``); both are bounded by memory traffic.  The
+CSR's slot arrays may be longer than its rows (a batch's, padded to the
+edge budget: ``data/graph.py``): the slots past ``csr_rowptr[-1]`` belong
+to no row, and the kernels read that count on the device, so a call's
+grid and allocations follow the slot arrays' length alone and every batch
+of a loader launches alike (a CUDA graph replays them); on the CPU the
+wrappers cut them before the plain versions, which take the rows' slots.
 
 The forward also gives each row's softmax statistics, ``row_max`` [N, H]
 and ``row_inv`` = 1 / (sum of exp + 1e-16) [N, H] (both 0 for an empty
@@ -244,9 +250,21 @@ def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
     return d_xp, d_eh, d_pre, d_a_i
 
 
+def _real_slots(plain):
+    """``plain`` over the slots of the CSR's rows alone: a CSR padded to
+    the batch's edge budget is cut at ``csr_rowptr[-1]`` (a host read,
+    free on the CPU)."""
+    def over_rows(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
+                  csr_eid, *rest):
+        n = int(csr_rowptr[-1])
+        return plain(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
+                     csr_snd[:n], csr_eid[:n], *rest)
+    return over_rows
+
+
 def _route(xp, plain, kernel):
     if xp.device.type == "cpu":
-        return plain
+        return _real_slots(plain)
     if xp.device.type != "cuda":
         raise ValueError(f"triplet_attention runs on cpu or cuda, not "
                          f"{xp.device}")
@@ -257,9 +275,10 @@ def triplet_attention_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                           csr_snd, csr_eid, num_heads: int, channels: int,
                           slope: float = 0.2):
     """The forward alone, not differentiable: (out, row_max, row_inv).
-    CPU tensors run :func:`triplet_attention_plain`, CUDA tensors kernel A
-    (float32 tensors, int32 CSR, all contiguous, H up to 8 and H*C up to
-    512) or raise."""
+    The CSR's slot arrays may run past ``csr_rowptr[-1]`` (padded to the
+    edge budget).  CPU tensors run :func:`triplet_attention_plain` over the
+    rows' slots, CUDA tensors kernel A (float32 tensors, int32 CSR, all
+    contiguous, H up to 8 and H*C up to 512) or raise."""
     fn = _route(xp, triplet_attention_plain, _launch_fwd)
     return fn(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
               csr_eid, num_heads, channels, slope)
@@ -268,14 +287,16 @@ def triplet_attention_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
 def triplet_attention_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                           csr_snd, csr_eid, out, row_max, row_inv, g,
                           num_heads: int, channels: int, slope: float = 0.2):
-    """The backward: CPU tensors run :func:`triplet_attention_bwd_plain`,
-    CUDA tensors kernel B (as kernel A takes them; the forward's out,
-    row_max and row_inv and g [N, H*C], float32 contiguous) or raise.
+    """The backward: CPU tensors run :func:`triplet_attention_bwd_plain`
+    over the rows' slots, CUDA tensors kernel B (as kernel A takes them;
+    the forward's out, row_max and row_inv and g [N, H*C], float32
+    contiguous) or raise.
 
     The kernel relies on the invariant that ``pad_graphs`` keeps: the
-    real edges come first and ``csr_eid`` is a permutation of [0, E_real),
-    so that it writes every real edge's rows of d_eh and d_pre and zeroes
-    the padded edges' rows [E_real, E) itself.  d_xp is summed with float
+    real edges come first and ``csr_eid``'s first E_real = csr_rowptr[-1]
+    slots are a permutation of [0, E_real), so that it writes every real
+    edge's rows of d_eh and d_pre and zeroes the padded edges' rows
+    [E_real, E) itself.  d_xp is summed with float
     atomics on the card, so its sums run in another order on every call;
     d_eh, d_pre and d_a_i are the same on every call."""
     fn = _route(xp, triplet_attention_bwd_plain, _launch_bwd)

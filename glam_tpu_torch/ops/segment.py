@@ -20,14 +20,18 @@ import torch
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, sorted_ids: bool = False) -> torch.Tensor:
-    """Sum of ``data``'s rows per segment.  ``sorted_ids`` says the ids
-    ascend (node rows grouped by graph, as ``pad_graphs`` lays them out):
-    it spares the card's in-order path a sort."""
+    """Sum of ``data``'s rows per segment, in float32 for a
+    lower-precision ``data`` (a bfloat16 or float16 sum rounds at every
+    add, and on the card in another order at every call).  ``sorted_ids``
+    says the ids ascend (node rows grouped by graph, as ``pad_graphs``
+    lays them out): it spares the card's in-order path a sort."""
     if data.is_cuda and not torch.is_grad_enabled():
         return segment_sum_in_order(data, segment_ids, num_segments,
                                     sorted_ids)
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids, data)
+    wide = data.float() if data.dtype in (torch.float16,
+                                          torch.bfloat16) else data
+    out = wide.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add_(0, segment_ids, wide).to(data.dtype)
 
 
 _PIECE = 128

@@ -17,9 +17,14 @@ the two-tower pair model, dispatched by ``make_auto_trainer``.  Every
 conv, norm and readout name of the JAX package is taken; with no
 ``--mol_block`` it trains ``_NNConv``, the JAX CLI's default.  It trains
 on the CUDA card ``--gpu`` (default 0); ``--platform cpu`` trains on the
-host CPU instead.  ``--pallas``, ``--probe_compile``,
-``--compile_cache`` and ``--scan_steps`` are accepted and do nothing: the
-kernels always run on the card, and eager PyTorch compiles nothing.
+host CPU instead.  ``--scan_steps S`` (default 8) is the JAX CLI's: S
+batches of one shape are one dispatch, on the card the replay of a CUDA
+graph of S optimizer steps (``train/step_graph.py``), any other group one
+dispatch a batch (the one-step graph), and evaluation likewise; 1 or
+less gives one-step graphs only.  On the CPU, and with ``--n_devices``
+or ``--pro_shards``, the steps run eagerly in the same groups.
+``--pallas``, ``--probe_compile`` and ``--compile_cache`` are accepted
+and do nothing: the kernels always run on the card.
 ``physprop_perturb`` trains the regression model on its Label-column
 splits (``data/perturb.py``).  ``--dtype bfloat16`` (or ``float16``)
 trains in that compute dtype over float32 master parameters
@@ -100,8 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--early_stop_patience", default=50, type=int)
     p.add_argument("--verbose_patience", default=500, type=int)
     p.add_argument("--scan_steps", default=8, type=int,
-                   help="accepted for the JAX package's commands; no "
-                        "effect (one optimizer step per batch)")
+                   help="optimizer steps (and evaluation batches) a "
+                        "dispatch: on the card one CUDA graph replay "
+                        "for a group of this many batches of one shape")
     p.add_argument("--work_dir", default=None, type=str,
                    help="where log_{dataset}/ run dirs are created")
     p.add_argument("--platform", default=None, type=str,

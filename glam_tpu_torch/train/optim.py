@@ -20,7 +20,6 @@ those are centered over the axes after the first.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -40,10 +39,18 @@ def gc_dims(name: str, ndim: int) -> Tuple[int, ...]:
 
 class Ranger(torch.optim.Optimizer):
     """RAdam + Lookahead + gradient centralization, the reference's
-    ``ranger.py`` as the JAX package reimplements it."""
+    ``ranger.py`` as the JAX package reimplements it.
+
+    The step count ``t`` is a float64 tensor on the parameters' device
+    (``param_groups[0]["step"]``), and the step's branches (N_sma over the
+    threshold or not; a Lookahead sync every k steps) are selected with
+    ``torch.where``, so a step makes no host synchronisation and a CUDA
+    graph of it takes each branch as its replay's ``t`` says.  The
+    scalars are computed in float64 and cast to float32 once, as the host
+    scalars of the reference's step are."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 lr: float = 1e-3, k: int = 6, alpha: float = 0.5,
+                 lr=1e-3, k: int = 6, alpha: float = 0.5,
                  betas: Tuple[float, float] = (0.95, 0.999),
                  eps: float = 1e-5, threshold: float = 5.0):
         named = list(named_params)
@@ -51,6 +58,9 @@ class Ranger(torch.optim.Optimizer):
                         threshold=threshold)
         super().__init__([p for _, p in named], defaults)
         self._gc = [gc_dims(n, p.dim()) for n, p in named]
+        device = named[0][1].device if named else "cpu"
+        self.param_groups[0]["step"] = torch.zeros(
+            (), dtype=torch.float64, device=device)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -61,50 +71,63 @@ class Ranger(torch.optim.Optimizer):
         group = self.param_groups[0]
         lr, k, alpha = group["lr"], group["k"], group["alpha"]
         (b1, b2), eps = group["betas"], group["eps"]
+        t = group["step"]
+        t.add_(1.0)
+        b2t = torch.pow(b2, t)
+        n_max = 2.0 / (1.0 - b2) - 1.0
+        n_sma = n_max - 2.0 * t * b2t / (1.0 - b2t)
+        bias1 = 1.0 - torch.pow(b1, t)
+        # NaN where N_sma <= 4, where the other branch is taken
+        rect = torch.sqrt((1.0 - b2t) * (n_sma - 4.0) / (n_max - 4.0)
+                          * (n_sma - 2.0) / n_sma
+                          * n_max / (n_max - 2.0)) / bias1
+        rectified = n_sma > group["threshold"]
+        sync = torch.remainder(t, k) == 0
+        # the master parameters are float32
+        rect_step, plain_step = (-lr * rect).float(), (-lr / bias1).float()
         for p, dims in zip(group["params"], self._gc):
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             if dims:
                 g = g - g.mean(dim=dims, keepdim=True)
             st = self.state[p]
             if not st:
-                st["step"] = 0
                 st["exp_avg"] = torch.zeros_like(p)
                 st["exp_avg_sq"] = torch.zeros_like(p)
                 st["slow"] = p.detach().clone()
-            st["step"] += 1
-            t = st["step"]
-            m, v = st["exp_avg"], st["exp_avg_sq"]
+            m, v, slow = st["exp_avg"], st["exp_avg_sq"], st["slow"]
             m.mul_(b1).add_(g, alpha=1.0 - b1)
             v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            b2t = b2 ** t
-            n_max = 2.0 / (1.0 - b2) - 1.0
-            n_sma = n_max - 2.0 * t * b2t / (1.0 - b2t)
-            bias1 = 1.0 - b1 ** t
-            if n_sma > group["threshold"]:
-                rect = math.sqrt((1.0 - b2t) * (n_sma - 4.0) / (n_max - 4.0)
-                                 * (n_sma - 2.0) / n_sma
-                                 * n_max / (n_max - 2.0)) / bias1
-                p.addcdiv_(m, v.sqrt().add_(eps), value=-lr * rect)
-            else:
-                p.add_(m, alpha=-lr / bias1)
-            if t % k == 0:
-                slow = st["slow"]
-                slow.add_(p - slow, alpha=alpha)
-                p.copy_(slow)
+            p.add_(torch.where(rectified, rect_step * m / v.sqrt().add_(eps),
+                               plain_step * m))
+            slow.copy_(torch.where(sync, slow + alpha * (p - slow), slow))
+            p.copy_(torch.where(sync, slow, p))
         return loss
 
 
 def make_optimizer(name: str, named_params, lr: float,
                    k: int = 6) -> torch.optim.Optimizer:
     """The named optimizer over ``named_params`` ((name, parameter)
-    pairs, as ``model.named_parameters()`` gives them)."""
+    pairs, as ``model.named_parameters()`` gives them).  On the card the
+    learning rate is a float32 tensor there, and Adam and SGD are torch's
+    fused ones, Adam capturable: a step makes no host synchronisation, so
+    a CUDA graph can hold it (``train/step_graph.py``), and
+    :func:`set_learning_rate` reaches the graph's next replay.  On the
+    CPU they are torch's defaults, with a float learning rate."""
     name = name.strip()
     named = list(named_params)
     params = [p for _, p in named]
+    on_card = bool(params) and params[0].device.type == "cuda"
+    if on_card:
+        lr = torch.tensor(float(lr), dtype=torch.float32,
+                          device=params[0].device)
     if name == "Adam":
+        if on_card:
+            return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                    eps=1e-8, fused=True, capturable=True)
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if name == "SGD":
-        return torch.optim.SGD(params, lr=lr)
+        return torch.optim.SGD(params, lr=lr, fused=True if on_card
+                               else None)
     if name == "Ranger":
         return Ranger(named, lr=lr, k=k)
     raise ValueError(f"Error optimizer argv: {name!r}")
@@ -115,8 +138,26 @@ def get_learning_rate(opt: torch.optim.Optimizer) -> float:
 
 
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's learning rate; a tensor learning rate (the
+    card's) is written in place, so that a captured step reads it."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, state: Dict) -> None:
+    """``opt.load_state_dict(state)``, then the tensors of its groups (a
+    tensor learning rate, Ranger's step count), which a checkpoint read
+    to the CPU brings back there, moved to the parameters' device again:
+    a step on the card must not read a CPU tensor."""
+    opt.load_state_dict(state)
+    for group in opt.param_groups:
+        device = group["params"][0].device
+        for key in ("lr", "step"):
+            if isinstance(group.get(key), torch.Tensor):
+                group[key] = group[key].to(device)
 
 
 class ReduceLROnPlateau:

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import time
 from pathlib import Path
@@ -61,8 +62,8 @@ from ..parallel.sharded_model import (corpus_budgets, local_noise,
                                       shard_at, sync_grads)
 from ..serve import resolve_device, save_checkpoint
 from .metrics import binary_metrics, regression_metrics, screening_metrics
-from .optim import (ReduceLROnPlateau, get_learning_rate, make_optimizer,
-                    set_learning_rate)
+from .optim import (ReduceLROnPlateau, get_learning_rate,
+                    load_optimizer_state, make_optimizer, set_learning_rate)
 from .pair_trainer import _set_pair_max_nodes
 from .trainer import _new_run_dir
 
@@ -96,6 +97,11 @@ def pair_losses(task: str, class_weights=None):
         return ce
 
     return loss
+
+
+STEP_GRAPHS_REASON = ("--pro_shards: the halo exchanges and the norms' "
+                      "gloo collectives are staged through the host, so "
+                      "the steps run eagerly")
 
 
 class ShardedPairTrainer:
@@ -307,8 +313,11 @@ class ShardedPairTrainer:
             vals = torch.stack([lv for lv, _ in losses]).tolist()
             dt = time.perf_counter() - t0
             self.epochs_trained += 1
-            self.log(f"\ttrain stats: {len(order)} pairs in {dt:.2f}s = "
-                     f"{len(order) / max(dt, 1e-9):.2f} pairs/s")
+            if os.environ.get("GLAM_TRAIN_STATS", "0") == "1":
+                # pairs/s through the loop (its losses' read synchronized)
+                self.log(f"\ttrain stats: {len(order)} pairs in "
+                         f"{dt:.2f}s = {len(order) / max(dt, 1e-9):.2f}"
+                         " pairs/s")
             n_tr = sum(n for _, n in losses)
             trn_loss = sum(v * n for v, (_, n) in zip(vals, losses)) \
                 / max(n_tr, 1)
@@ -388,7 +397,9 @@ class ShardedPairTrainer:
                 "seconds": time.time() - self.start,
                 "kernel_launches": launch_counts(),
                 "kernel_launches_by_rank": [r["launches"] for r in by_rank],
-                "forwards_by_rank": [r["forwards"] for r in by_rank]}
+                "forwards_by_rank": [r["forwards"] for r in by_rank],
+                "step_graphs": False,
+                "step_graphs_reason": STEP_GRAPHS_REASON}
             with open(self.log_save_dir / "result.json", "w") as f:
                 json.dump(record, f, indent=1)
         return loss_info, test_result, val_new
@@ -442,7 +453,7 @@ class ShardedPairTrainer:
         self.model.load_state_dict(payload["state_dict"])
         self._best_state = {k: v.to(self.device)
                             for k, v in payload["best_state"].items()}
-        self.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(self.optimizer, payload["optimizer"])
         self.generator.set_state(payload["generator"])
         self.pro_generator.set_state(payload["pro_generator"])
         self._wait = int(payload["wait"])

@@ -9,6 +9,16 @@ the graph mask are the first part's.
 
 Each optimizer step is one forward, one backward and one update, on the
 trainer's device (``cuda`` unless the caller passes ``device="cpu"``).
+The epoch loop groups the batches as the JAX trainer does
+(``trainer.py:417-475``, ``--scan_steps`` S, default 8): a full group of
+S batches of one shape is one dispatch, any other group one dispatch a
+batch, and evaluation likewise (``_gather``).  On the card a dispatch is
+the replay of a CUDA graph (``train/step_graph.py``: the counterpart of
+``jax.jit(train_step)`` and of ``train_scan``'s ``lax.scan``); on the CPU,
+and with data parallelism, the same groups run eagerly, batch by batch.
+``GLAM_TRAIN_STATS=1`` adds the JAX trainer's per-epoch line: edges/s
+through the loop (a trailing device synchronisation included) and the
+share of it spent waiting on the prefetch thread.
 ``--dtype`` sets the compute dtype (``float32``, ``bfloat16`` or
 ``float16``), as the JAX trainer's mixed precision (``trainer.py:262-320``)
 does: the master parameters and the optimizer stay float32; the forward
@@ -62,6 +72,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import json
+import os
 import shutil
 import time
 from datetime import datetime, timezone
@@ -79,8 +90,9 @@ from ..parallel import data_parallel, distributed
 from ..serve import resolve_device, save_checkpoint
 from .losses import get_loss
 from .metrics import binary_metrics_multi_target_nan, regression_metrics
-from .optim import (ReduceLROnPlateau, get_learning_rate, make_optimizer,
-                    set_learning_rate)
+from .optim import (ReduceLROnPlateau, get_learning_rate,
+                    load_optimizer_state, make_optimizer, set_learning_rate)
+from .step_graph import StepGraphs, stackable
 
 # a trial has diverged when its loss or outputs are non-finite or absurdly
 # large but finite (an lr=1e8 run reaches ~1e27 without a NaN)
@@ -235,6 +247,8 @@ class Trainer:
             min_lr=1e-6)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0            # optimizer steps taken
+        self.scan_steps = int(self.args.get("scan_steps", 8))
+        self.step_graphs, self.step_graphs_reason = self._make_step_graphs()
         if self.n_devices > 1:
             data_parallel.broadcast_state(self.model)
             weight_fn = self._make_weight()
@@ -267,6 +281,9 @@ class Trainer:
                  .format(len(train_graphs), len(valid_graphs),
                          len(test_graphs) if test_graphs else 0))
         self.log("total parameters:" + str(n_params))
+        self.log(f"step graphs: {self.step_graphs is not None} "
+                 f"({self.step_graphs_reason}); scan_steps "
+                 f"{self.scan_steps}")
 
     # -- wiring hooks (PairTrainer replaces these) ----------------------
     def _split(self):
@@ -305,6 +322,19 @@ class Trainer:
     def _to_device(self, batch) -> Tuple[GraphBatch, ...]:
         return tuple(b.to(self.device) for b in self._as_parts(batch))
 
+    def _make_step_graphs(self):
+        """(the trainer's ``StepGraphs`` or None, why)."""
+        if self.device.type != "cuda":
+            return None, "a CPU has no CUDA graphs: the steps run eagerly"
+        if self.n_devices > 1:
+            return None, (f"--n_devices {self.n_devices}: gloo collectives "
+                          "are staged through the host, so the steps run "
+                          "eagerly")
+        return (StepGraphs(self._step, self._eval_step, self.device,
+                           self.generator),
+                "one process on the card: steps and evaluations replay "
+                "CUDA graphs")
+
     # ------------------------------------------------------------------
     def forward(self, parts, generator=None) -> torch.Tensor:
         """The model's float32 output on ``parts`` (a tuple of
@@ -324,6 +354,11 @@ class Trainer:
                 self.args.get("seed", 1234),
                 (self.step - 1) * self.n_devices + self.rank))
             return self._dp_train(parts, self.generator).detach()
+        return self._step(parts)
+
+    def _step(self, parts) -> torch.Tensor:
+        """One optimizer step on ``parts`` on the device, no host
+        synchronisation (what ``StepGraphs`` captures); the loss."""
         out = self.forward(parts, self.generator)
         loss = self.loss_fn(out, parts[0].y, parts[0].graph_mask)
         self.optimizer.zero_grad(set_to_none=True)
@@ -331,18 +366,65 @@ class Trainer:
         self.optimizer.step()
         return loss.detach()
 
+    def _eval_step(self, parts):
+        """(the float32 output, the loss) of one evaluation forward."""
+        out = self.forward(parts)
+        return out, self.loss_fn(out, parts[0].y, parts[0].graph_mask)
+
+    def _full_group(self, pending) -> bool:
+        """Whether ``pending`` is one dispatch (the JAX trainer's
+        ``flush``): S = --scan_steps > 1 items of one shape."""
+        return (len(pending) == self.scan_steps > 1
+                and stackable(pending))
+
+    def _train_group(self, pending) -> torch.Tensor:
+        """The optimizer steps of a group of loader items (on the CPU);
+        their losses [len(pending)] on the device."""
+        if self.step_graphs is None:
+            return torch.stack([self.train_step(self._to_device(p))
+                                for p in pending])
+        self.step += len(pending)
+        return self.step_graphs.train(pending, self._full_group(pending))
+
+    def _eval_group(self, pending):
+        """(outputs [n, G, D], losses [n]) of a group of n loader items."""
+        if self.step_graphs is not None:
+            return self.step_graphs.evaluate(pending,
+                                             self._full_group(pending))
+        step = self._dp_eval if self.n_devices > 1 else self._eval_step
+        res = [step(self._to_device(p)) for p in pending]
+        return (torch.stack([o for o, _ in res]),
+                torch.stack([l for _, l in res]))
+
     def train_iterations(self) -> float:
+        """One epoch of steps in groups of --scan_steps; the per-batch
+        mean loss."""
         self.model.train()
-        losses, n_mol = [], 0
+        stats = os.environ.get("GLAM_TRAIN_STATS", "0") == "1"
+        losses, pending = [], []
+        n_mol = n_edges = 0
+        t_fetch = 0.0
         t0 = time.perf_counter()
-        for batch in prefetch(iter(self.train_loader)):
-            parts = self._to_device(batch)
-            losses.append(self.train_step(parts))
-            n_mol += int(self._as_parts(batch)[0].graph_mask.sum())
-        values = torch.stack(losses).tolist() if losses else []
-        if self.n_devices > 1:      # the global batches' molecules
-            n_mol = int(distributed.all_reduce_sum(
-                torch.tensor([n_mol], device=self.device)).item())
+        it = prefetch(iter(self.train_loader))
+        while True:
+            t1 = time.perf_counter()
+            batch = next(it, None)
+            t_fetch += time.perf_counter() - t1
+            if batch is None:
+                break
+            parts = self._as_parts(batch)
+            n_mol += int(parts[0].graph_mask.sum())
+            n_edges += sum(int(p.edge_mask.sum()) for p in parts)
+            pending.append(parts)
+            if len(pending) == max(self.scan_steps, 1):
+                losses.append(self._train_group(pending))
+                pending = []
+        if pending:
+            losses.append(self._train_group(pending))
+        values = torch.cat(losses).tolist() if losses else []
+        if self.n_devices > 1:      # the global batches' molecules, edges
+            n_mol, n_edges = (int(v) for v in distributed.all_reduce_sum(
+                torch.tensor([n_mol, n_edges], device=self.device)).tolist())
         dt = time.perf_counter() - t0
         self.epoch_stats.append({"steps": len(values), "molecules": n_mol,
                                  "seconds": dt})
@@ -352,26 +434,35 @@ class Trainer:
             self.log(f"\ttrain stats: {n_mol} molecules in {dt:.3f} s = "
                      f"{n_mol / max(dt, 1e-9):.1f} molecules/s",
                      with_time=True)
+            if stats:
+                self.log(f"\ttrain stats: {n_edges:.3e} edges in {dt:.2f}s "
+                         f"= {n_edges / max(dt, 1e-9):.3e} edges/s, "
+                         f"prefetch stall {t_fetch / max(dt, 1e-9):.1%}",
+                         with_time=True)
         return float(np.mean(values)) if values else 0.0
 
     def _gather(self, mode: str):
         loader = self.valid_loader if mode == "valid" else self.test_loader
         self.model.eval()
         outs, losses, ys, masks = [], [], [], []
+        pending = []
+
+        def flush():
+            out, loss = self._eval_group(pending)
+            outs.extend(out.unbind(0))
+            losses.append(loss)
+            ys.extend(p[0].y for p in pending)
+            masks.extend(p[0].graph_mask for p in pending)
+            pending.clear()
+
         with torch.inference_mode():
             for batch in prefetch(iter(loader)):
-                parts = self._to_device(batch)
-                if self.n_devices > 1:
-                    out, loss = self._dp_eval(parts)
-                else:
-                    out = self.forward(parts)
-                    loss = self.loss_fn(out, parts[0].y,
-                                        parts[0].graph_mask)
-                outs.append(out.float())
-                losses.append(loss)
-                ys.append(parts[0].y)
-                masks.append(parts[0].graph_mask)
-            loss = torch.stack(losses).double().cpu().numpy()
+                pending.append(self._as_parts(batch))
+                if len(pending) == max(self.scan_steps, 1):
+                    flush()
+            if pending:
+                flush()
+            loss = torch.cat(losses).double().cpu().numpy()
             if self.n_devices > 1:
                 outs, ys, masks = self._merge_ranks(outs, ys, masks)
             out = torch.cat(outs).cpu().numpy()
@@ -384,7 +475,8 @@ class Trainer:
         JAX package's ``_merge_devices`` order: each batch's sub-batches
         in rank order.  One all_gather; every rank gets them all."""
         width, tasks = outs[0].shape[1], ys[0].shape[1]
-        local = torch.stack([torch.cat([o, y, m[:, None].float()], 1)
+        local = torch.stack([torch.cat([o, y.to(o.device),
+                                        m[:, None].float().to(o.device)], 1)
                              for o, y, m in zip(outs, ys, masks)])
         every = distributed.all_gather(local)       # [D, batches, G, ...]
         rows = every.transpose(0, 1).reshape(-1, local.shape[-1])
@@ -508,6 +600,14 @@ class Trainer:
             # this process's kernel launches: a trial's own, since a
             # trial process trains one run
             "kernel_launches": launch_counts(),
+            # whether the steps and evaluations replayed CUDA graphs, why,
+            # and the graphs' warm-up and capture seconds, captures,
+            # replays and pool bytes
+            "step_graphs": self.step_graphs is not None,
+            "step_graphs_reason": self.step_graphs_reason,
+            "step_graph_stats": (dict(self.step_graphs.stats)
+                                 if self.step_graphs else None),
+            "scan_steps": self.scan_steps,
             "kernel_launches_by_rank": launches_by_rank,
         }
         try:
@@ -639,7 +739,7 @@ class Trainer:
         self.records = json.loads(payload["records"])
         self.scheduler.load_state_dict(json.loads(payload["scheduler"]))
         self.model.load_state_dict(payload["state_dict"])
-        self.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(self.optimizer, payload["optimizer"])
         self.generator.set_state(payload["generator"])
         self._early_stop_cnt = int(payload["early_stop_cnt"])
         self._start_epoch = int(payload["epoch"]) + 1

@@ -2,8 +2,12 @@
 triplet-attention forward and backward (A, B) and the segment-softmax
 SpMM forward and backward (kernel C); training steps of the model on
 the card against the CPU; kernels A and B over a shard's halo table and
-a node-sharded pair step of 2 ranks against the dense one.  Every test here is marked ``cuda`` and skips
-without a CUDA device.
+a node-sharded pair step of 2 ranks against the dense one; kernels A and
+B over a CSR padded to the edge budget against its real slots, and the
+trainer's steps as CUDA graphs (no host synchronisation in a step, 19
+captured steps against eager, fresh noise and counted launches at every
+replay).  Every test here is marked ``cuda`` and skips without a CUDA
+device.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -138,6 +142,14 @@ def _case_inputs(rng, case, heads, channels, dev):
     return csr, args
 
 
+def _rows_slots(csr, args):
+    """``args`` with the CSR cut to its rows' slots, as the plain versions
+    take it (a batch's CSR, ``demo128``'s, is padded to its edge
+    budget)."""
+    E = int(csr[0][-1])
+    return args[:7] + [args[7][:E], args[8][:E]]
+
+
 @pytest.mark.parametrize("case,heads,channels", CASES)
 def test_kernel_matches_plain(cuda, case, heads, channels):
     """Kernel A against its plain version: the output and the row
@@ -147,7 +159,7 @@ def test_kernel_matches_plain(cuda, case, heads, channels):
     before = triplet_attention.launches
     got = triplet_attention_fwd(*args, heads, channels)
     again = triplet_attention_fwd(*args, heads, channels)
-    want = triplet_attention_plain(*args, heads, channels)
+    want = triplet_attention_plain(*_rows_slots(csr, args), heads, channels)
     torch.cuda.synchronize()
     assert triplet_attention.launches == before + 2
     N = len(csr[0]) - 1
@@ -192,11 +204,12 @@ def test_backward_kernel_matches_plain(cuda, case, heads, channels):
     g = torch.from_numpy(rng.randn(N, heads * channels).astype(
         np.float32)).to(cuda)
     stats = triplet_attention_fwd(*args, heads, channels)
-    plain_stats = triplet_attention_plain(*args, heads, channels)
+    rows = _rows_slots(csr, args)
+    plain_stats = triplet_attention_plain(*rows, heads, channels)
     before = triplet_attention_bwd.launches
     got = triplet_attention_bwd(*args, *stats, g, heads, channels)
     again = triplet_attention_bwd(*args, *stats, g, heads, channels)
-    want = triplet_attention_bwd_plain(*args, *plain_stats, g, heads,
+    want = triplet_attention_bwd_plain(*rows, *plain_stats, g, heads,
                                        channels)
     torch.cuda.synchronize()
     assert triplet_attention_bwd.launches == before + 2
@@ -207,7 +220,7 @@ def test_backward_kernel_matches_plain(cuda, case, heads, channels):
         assert torch.equal(a, b)
     # padded edges (outside the CSR) and empty rows keep zeros
     in_csr = torch.zeros(args[3].shape[0], dtype=torch.bool, device=cuda)
-    in_csr[args[8].long()] = True
+    in_csr[rows[8].long()] = True
     assert (got[1][~in_csr] == 0).all() and (got[2][~in_csr] == 0).all()
     empty_rows = torch.from_numpy(np.diff(csr[0]) == 0).to(cuda)
     assert (got[3][empty_rows] == 0).all()
@@ -789,3 +802,113 @@ def test_sharded_pair_step_with_two_ranks_on_one_card(cuda, tmp_path):
         states = got[name]["adam"]
         for k in states[0]:
             assert torch.equal(states[0][k], states[1][k]), k
+
+
+# ------------------------------------------------- the captured steps
+@pytest.fixture(scope="module")
+def flagship_trainer(tmp_path_factory):
+    """The flagship (TripletMessage H=3, 3 steps, e_dim 1024, Adam, the
+    CLI's Dropout and RReLU) on the demo corpus, on the card, untrained;
+    its ``step_graphs`` made by the trainer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import shutil
+
+    from chip_smoke import DEMO_CSV
+    from glam_tpu_torch.data.datasets import auto_dataset
+    from glam_tpu_torch.run import build_parser
+    from glam_tpu_torch.train.pair_trainer import make_auto_trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tmp_path_factory.mktemp("graphs")
+    shutil.copytree(DEMO_CSV.parent, tmp / "demo" / "raw")
+    args = vars(build_parser().parse_args([
+        "--dataset", "demo", "--dataset_root", str(tmp / "demo"),
+        "--loss", "bcel", "--mol_block", "_TripletMessage", "--epochs", "1",
+        "--work_dir", str(tmp)]))
+    args, ds, kind = auto_dataset(args)
+    return make_auto_trainer(args, ds, kind, work_dir=str(tmp),
+                             device="cuda")
+
+
+def test_triplet_kernels_over_the_budget_csr(cuda):
+    """Kernels A and B at a training batch's CSR, padded to the edge
+    budget, against the same CSR cut to its real slots: A's outputs and
+    B's d_eh, d_pre and d_a_i bitwise equal, B's d_xp (summed with
+    atomics) within 1e-6."""
+    from chip_smoke import demo_batch
+    b = demo_batch(read_demo(), 32)
+    E = int(b.csr_rowptr[-1])
+    assert b.csr_snd.shape[0] == b.num_edges > E
+    rng = np.random.RandomState(12)
+    H, C = 3, 60
+    args = kernel_inputs(rng, b.csr_rowptr.numpy(), b.csr_snd.numpy(),
+                         b.csr_eid.numpy(), b.edges.numpy(), H, C, cuda)
+    real = args[:7] + [args[7][:E], args[8][:E]]
+    g = torch.from_numpy(rng.randn(b.num_nodes, H * C).astype(
+        np.float32)).to(cuda)
+    fwd = [triplet_attention_fwd(*a, H, C) for a in (args, real)]
+    for x, y in zip(*fwd):
+        assert torch.equal(x, y)
+    bwd = [triplet_attention_bwd(*a, *fwd[0], g, H, C) for a in (args, real)]
+    for x, y in zip(bwd[0][1:], bwd[1][1:]):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(bwd[0][0], bwd[1][0], rtol=1e-6, atol=1e-6)
+
+
+def test_eager_step_makes_no_host_synchronisation(cuda, flagship_trainer):
+    """A training step and an evaluation forward on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in them waits
+    for the device, which is what lets a CUDA graph hold them."""
+    t = flagship_trainer
+    parts = t._to_device(next(iter(t.train_loader)))
+    t.model.train()
+    t._step(parts)                  # the optimizer's state, made once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t._step(parts)
+        t.model.eval()
+        with torch.inference_mode():
+            t._eval_step(parts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        t.model.train()
+
+
+def test_captured_flagship_step_matches_eager(cuda, flagship_trainer):
+    """2 x 8 + 3 steps through the graphs and eagerly from one state (the
+    smoke's check, ``chip_smoke.captured_vs_eager``): parameters,
+    optimizer state and launches; with the trainer's noise the losses say
+    that the replays draw the eager steps' masks and slopes."""
+    from chip_smoke import captured_vs_eager
+    for noise in (False, True):
+        r = captured_vs_eager("flagship", flagship_trainer, "test",
+                              noise=noise)
+        assert r["same_draws"]
+
+
+def test_replays_draw_fresh_noise_and_count_their_launches(
+        cuda, flagship_trainer):
+    """Replays of the one-step graph on one batch at learning rate 0: the
+    loss moves with each replay's fresh Dropout masks and RReLU slopes;
+    kernel A's and B's counts grow by 3 a replay; the tickets are zero
+    after them."""
+    from glam_tpu_torch.ops.kernels import launch_counts
+    from glam_tpu_torch.train.optim import set_learning_rate
+    from glam_tpu_torch.train.step_graph import StepGraphs
+    t = flagship_trainer
+    t.model.train()
+    host = t._as_parts(next(iter(t.train_loader)))
+    set_learning_rate(t.optimizer, 0.0)
+    graphs = StepGraphs(t._step, t._eval_step, t.device, t.generator)
+    graphs.train([host], False)              # the warm-up step, eager
+    before = launch_counts()
+    losses = torch.cat([graphs.train([host], False) for _ in range(4)])
+    after = launch_counts()
+    set_learning_rate(t.optimizer, 1e-3)
+    assert graphs.stats["captures"] == 1 and graphs.stats["replays"] == 4
+    assert after["triplet_fused_fwd"] - before["triplet_fused_fwd"] == 12
+    assert after["triplet_fused_bwd"] - before["triplet_fused_bwd"] == 12
+    assert len(set(losses.tolist())) == 4
+    torch.cuda.synchronize()
+    assert common.dirty_tickets() == {}

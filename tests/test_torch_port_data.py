@@ -100,10 +100,17 @@ class TestCSR:
         rowptr = b.csr_rowptr.numpy()
         snd, eid = b.csr_snd.numpy(), b.csr_eid.numpy()
         assert rowptr.shape == (b.num_nodes + 1,)
-        assert rowptr[0] == 0 and rowptr[-1] == e_off == len(snd)
+        # the slot arrays run to the edge budget; the rows end at E_real
+        assert rowptr[0] == 0 and rowptr[-1] == e_off
+        assert len(snd) == len(eid) == b.num_edges
         assert (np.diff(rowptr) >= 0).all()
-        # every real edge exactly once, padded edges absent
-        assert sorted(eid.tolist()) == list(range(e_off))
+        # every real edge exactly once in the rows, padded edges past them
+        # in order, sent by the last node
+        assert sorted(eid[:e_off].tolist()) == list(range(e_off))
+        np.testing.assert_array_equal(eid[e_off:],
+                                      np.arange(e_off, b.num_edges))
+        assert (snd[e_off:] == b.num_nodes - 1).all()
+        snd, eid = snd[:e_off], eid[:e_off]
         rcv_all, snd_all = b.receivers.numpy(), b.senders.numpy()
         rcv = np.repeat(np.arange(b.num_nodes), np.diff(rowptr))
         np.testing.assert_array_equal(rcv_all[eid], rcv)
@@ -122,8 +129,9 @@ class TestCSR:
     def test_real_edges_first_and_eid_a_permutation(self, smis, edge_pad):
         """The invariant the backward kernel relies on to write d_eh and
         d_pre without a fill: pad_graphs puts the E_real real edges first
-        (padded ones after them) and csr_eid is a permutation of
-        [0, E_real)."""
+        (padded ones after them) and csr_eid's first E_real slots, those of
+        the CSR's rows, are a permutation of [0, E_real); the slots past
+        them, to the edge budget, hold the padded edges in order."""
         pg = _graphs(port_featurize, port_graph, smis)
         n_tot = sum(g.nodes.shape[0] for g in pg) + 3
         e_real = sum(g.senders.shape[0] for g in pg)
@@ -131,8 +139,12 @@ class TestCSR:
         mask = b.edge_mask.numpy()
         assert mask[:e_real].all() and not mask[e_real:].any()
         eid = b.csr_eid.numpy()
-        assert eid.dtype == np.int32 and len(eid) == e_real
-        np.testing.assert_array_equal(np.sort(eid), np.arange(e_real))
+        assert eid.dtype == np.int32 and len(eid) == e_real + edge_pad
+        assert int(b.csr_rowptr[-1]) == e_real
+        np.testing.assert_array_equal(np.sort(eid[:e_real]),
+                                      np.arange(e_real))
+        np.testing.assert_array_equal(eid[e_real:],
+                                      np.arange(e_real, e_real + edge_pad))
         assert (b.edges.numpy()[e_real:] == 0).all()
 
     def test_loader_budgets_and_order(self):

@@ -3,8 +3,8 @@ convs, norms, readouts, kernel C's module, the pair families' modules,
 the AutoML solver's (``automl/``, ``glam``, ``demo``, ``data/perturb``,
 ``data/transforms``), the native featurizer's binding, the msgpack
 decoder, ``data/perturb_builder``, the attention visualization, the parallel
-layer (``parallel/*``, the node-sharded tower among them) and the sharded
-DTI trainer among them,
+layer (``parallel/*``, the node-sharded tower among them), the sharded
+DTI trainer and the captured steps (``train/step_graph``) among them,
 imports without JAX, flax, optax, pandas, scikit-learn, msgpack or
 matplotlib, and without any module of the JAX package (checked in a
 fresh interpreter).  The card's machine has none of them."""
@@ -47,7 +47,8 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.parallel.graph_partition",
         "glam_tpu_torch.parallel.bench_scaling",
         "glam_tpu_torch.parallel.sharded_model",
-        "glam_tpu_torch.train.sharded_pair_trainer"}
+        "glam_tpu_torch.train.sharded_pair_trainer",
+        "glam_tpu_torch.train.step_graph"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "msgpack",

@@ -15,6 +15,11 @@ entry points (``run --pro_shards``, the solver, ``bench_scaling
       - with RReLU noise, Adam and 4 pairs a step, 2 epochs straight
         through against 1 epoch, ``resume``, then the second: the same
         parameters, bitwise;
+      - one epoch of Adam without noise from the same weights as the
+        SGD epoch, against the JAX trainer's Adam epoch: first, the first
+        step's gradients of both trainers against the dense model's in
+        float64 on the same pair, then the epoch's losses at the
+        tolerance that evidence gives (``test_adam_epoch_matches_jax``);
   * ``run --pro_shards 2 --platform cpu`` (the launcher starts the gloo
     ranks): the final line parses, its test loss and AUC are those of
     the checkpoint served by ``PairPredictor`` (1e-4), and the AutoML
@@ -38,6 +43,7 @@ import torch
 
 from glam_tpu.data import pair_datasets as jax_pairs
 from glam_tpu.parallel import bench_scaling as jax_bench
+from glam_tpu.parallel.sharded_model import insert_pair_params
 from glam_tpu.train.sharded_pair_trainer import \
     ShardedPairTrainer as JaxShardedPairTrainer
 from glam_tpu_torch import convert, run
@@ -55,7 +61,7 @@ DTI = DATA / "dti_demo" / "raw" / "bindingdb_c"
 # gradient entry by its own magnitude, so entries near zero, where two
 # frameworks' float32 sums differ in sign, move by +-lr either way (one
 # epoch of 24 pairs: the validation loss 5.5e-4 apart with Adam, 3.7e-6
-# with SGD)
+# with SGD); test_adam_epoch_matches_jax holds an Adam epoch of 16 pairs
 ARGS = {"dataset": "bindingdb_c", "pro_shards": 2, "lr": 1e-3, "seed": 3,
         "optim": "SGD",
         "e_dim": 32, "hid_dim_alpha": 2, "message_steps": 2,
@@ -115,9 +121,12 @@ def strainer_run(tmp_path_factory):
         pair="hetero")
     noisy = dict(ARGS, graph_act="RReLU", seed=5, optim="Adam", lr=1e-3,
                  pair_batch=4)
+    adam = dict(ARGS, optim="Adam")
     torch.save({
         "parity": {"args": ARGS, "root": str(root), "init": init,
                    "logits": True},
+        "adam": {"args": adam, "root": str(root), "init": init,
+                 "first_grads": True, "train_only": True},
         "straight": {"args": dict(noisy, epochs=2), "root": str(small),
                      "train_only": True},
         "first": {"args": noisy, "root": str(small), "train_only": True},
@@ -141,7 +150,61 @@ def strainer_run(tmp_path_factory):
 
     jt._step, jt.valid_iterations = step_rec, valid_rec
     rec["final"] = jt.train_and_test()
+    rec["adam"] = _jax_adam_epoch(adam, root, work)
+    rec["adam"]["first_grads"] = _jax_first_grads(adam, root, work)
     return wait_ranks(procs, work, timeout=300)["strainer"], rec, root
+
+
+def _jax_adam_epoch(args, root, work):
+    """The JAX trainer's Adam epoch: its steps' losses and its
+    validation loss."""
+    jt = JaxShardedPairTrainer(dict(args), jax_pairs.BindingDBDataset(
+        str(root)), task="pair_binary", work_dir=str(work / "jax_adam"))
+    rec = {"steps": [], "val": []}
+    step, valid = jt._step, jt.valid_iterations
+
+    def step_rec(*a):
+        out = step(*a)
+        rec["steps"].append(float(out[-1]))
+        return out
+
+    def valid_rec(mode="valid"):
+        out = valid(mode)
+        rec["val"].append(out[0])
+        return out
+
+    jt._step, jt.valid_iterations = step_rec, valid_rec
+    jt.train()
+    return rec
+
+
+def _jax_first_grads(args, root, work):
+    """The JAX trainer's first step's gradients (the port's layout): its
+    optimizer swapped for one whose state keeps the gradients it is
+    given and whose update is zero, then its first step of epoch 1."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    jt = JaxShardedPairTrainer(dict(args), jax_pairs.BindingDBDataset(
+        str(root)), task="pair_binary", work_dir=str(work / "jax_grads"))
+    jt.tx = optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda grads, state, params=None: (
+            jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
+    jt._build_steps()
+    train = jt.splits["train"]
+    first = np.random.RandomState(int(args["seed"]) + 1).permutation(
+        len(train))[0]
+    mol_b, pro_in, y = jt._sample(train[first])
+    _, grads, _ = jt._step(jt.params, jt.tx.init(jt.params), mol_b, pro_in,
+                           jnp.asarray(y))
+    # the sharded layout's gradients written back into the dense tree
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, jt._flax_params)
+    tree = insert_pair_params(zeros, grads, jt.cfg.pro_block,
+                              jt.cfg.pro_readout,
+                              graph_norm=jt.cfg.graph_norm)
+    return convert.state_dict_from_jax(
+        _np_tree(tree), convert.config_from_args(jt.args), pair="hetero")
 
 
 def test_epoch_matches_jax(strainer_run):
@@ -159,6 +222,57 @@ def test_epoch_matches_jax(strainer_run):
         assert loss[k] == pytest.approx(jloss[k], rel=1e-4), k
     assert test.keys() == jtest.keys() and val.keys() == jval.keys()
     assert test["auc"] == pytest.approx(jtest["auc"], abs=1e-6)
+
+
+# The first step's gradients of both frameworks lie within GRAD_NOISE of
+# each tensor's largest entry of the dense model's float64 gradient on
+# the same pair (float32 sums over a pair's atoms, residues, edges and
+# shards in other orders: measured up to 5.4e-5 for the port, 1.2e-5
+# for JAX).  A tensor whose float64 gradient is zero to rounding (under
+# ZERO of the tree's largest: GlobalLAPool's gate bias, which a softmax
+# over every logit does not see) gets noise of either sign in both, within
+# GRAD_NOISE of the tree's largest.  Adam's first step moves each entry by
+# its sign alone, so the entries the two frameworks' signs set apart are
+# noise: their float64 gradient lies within that noise (5 entries on
+# this pair).  They drift apart by up to 2 lr a step through the epoch's
+# 16 steps (the gate bias moves no loss at all), which moved the epoch's
+# losses by 8.1e-6 (training) and 1.6e-5 (validation): held at
+# ADAM_RTOL = 1e-4, the SGD epoch's tolerance.
+GRAD_NOISE, ZERO, ADAM_RTOL = 1e-4, 1e-12, 1e-4
+
+
+def test_adam_epoch_matches_jax(strainer_run):
+    got, want, _ = strainer_run
+    got, want = got["adam"], want["adam"]
+    exact = got["float64_grads"]
+    sides = {"port": got["first_grads"], "jax": want["first_grads"]}
+    assert sides["port"].keys() == exact.keys()
+    tree = max(float(g.abs().max()) for g in exact.values())
+    noise = {side: 0.0 for side in sides}
+    flipped = 0
+    for name, g64 in exact.items():
+        scale = float(g64.abs().max())
+        ref = scale if scale > ZERO * tree else tree
+        for side, grads in sides.items():
+            err = float((grads[name].double() - g64).abs().max())
+            noise[side] = max(noise[side], err / ref)
+            assert err <= GRAD_NOISE * ref, (side, name, err, ref)
+        apart = torch.sign(sides["port"][name]) != torch.sign(
+            sides["jax"][name])
+        flipped += int(apart.sum())
+        if apart.any():
+            assert float(g64[apart].abs().max()) <= GRAD_NOISE * ref, name
+    trn = abs(got["records"]["trn_losses"][0] / np.mean(want["steps"]) - 1)
+    val = abs(got["records"]["val_losses"][0] / want["val"][0] - 1)
+    print(f"first-step gradients against float64: port {noise['port']:.3e},"
+          f" JAX {noise['jax']:.3e} of a tensor's largest entry; {flipped} "
+          f"entries of opposite signs; Adam epoch's losses {trn:.3e} "
+          f"(training) and {val:.3e} (validation) apart")
+    np.testing.assert_allclose(
+        got["records"]["trn_losses"], [np.mean(want["steps"])],
+        rtol=ADAM_RTOL, err_msg=f"{flipped} entries moved apart")
+    np.testing.assert_allclose(got["records"]["val_losses"],
+                               want["val"][:1], rtol=ADAM_RTOL)
 
 
 def test_checkpoint_serves_the_trainers_evaluation(strainer_run):

@@ -523,12 +523,44 @@ def task_sharded_time(work, plan, dev):
     return {"sharded_time": _by_rank(out)}
 
 
+def dense_float64_grads(tr):
+    """The dense pair model's gradients, in float64, at the sharded
+    trainer ``tr``'s weights on its first training pair (the first of
+    epoch 1's order), of the loss its first step takes.  The convs cast
+    their kernels' inputs to float32 (``nn/convs.py``); here ``.float()``
+    leaves a float64 tensor float64, so that the plain kernels run in
+    float64 as well."""
+    from glam_tpu_torch.data.graph import pad_graphs
+    from glam_tpu_torch.nn.model import PairArchitecture
+    train = tr.splits["train"]
+    first = np.random.RandomState(int(tr.args.get("seed", 1234))
+                                  + tr._start_epoch).permutation(len(train))
+    mol, pro = train[first[0]]
+    model = PairArchitecture(tr.model.cfg, hetero=True)
+    model.load_state_dict(tr.model.state_dict())
+    model = model.double().train()
+    g1, g2 = (pad_graphs([g], 1, g.nodes.shape[0] + 1,
+                         max(g.senders.shape[0], 1), num_tasks=1).cast(
+                             torch.float64) for g in (mol, pro))
+    y = torch.tensor([float(mol.y.reshape(-1)[0])], dtype=torch.float64)
+    to_float = torch.Tensor.float
+    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 \
+        else to_float(t)
+    try:
+        tr.loss(model(g1, g2)[:1], y).sum().backward()
+    finally:
+        torch.Tensor.float = to_float
+    return {n: p.grad.clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
 def task_strainer(work, plan, dev):
     """The sharded DTI trainer on each run of ``strainer.pt`` ({name:
     {args, root, init (state_dict or None), epochs, resume_from (a run
     name)}}), in order: records, final line, and the best checkpoint's
     run dir; with ``logits``, the test split's logits in evaluation mode
-    after training; with ``params``, the final state."""
+    after training; with ``first_grads``, the first optimizer step's
+    gradients; and every run's final state."""
     from glam_tpu_torch.data.datasets import auto_dataset
     from glam_tpu_torch.train.sharded_pair_trainer import ShardedPairTrainer
     runs = torch.load(work / "strainer.pt", weights_only=False)
@@ -545,6 +577,20 @@ def task_strainer(work, plan, dev):
         if run.get("resume_from"):
             tr.resume(dirs[run["resume_from"]])
         got = {}
+        if run.get("first_grads"):
+            got["float64_grads"] = dense_float64_grads(tr)
+            # the first step's gradients, synced, as the optimizer takes
+            # them
+            step = tr.optimizer.step
+
+            def first_step(*a, _step=step, _got=got, _tr=tr, **k):
+                if "first_grads" not in _got:
+                    _got["first_grads"] = {
+                        n: p.grad.detach().cpu().clone()
+                        for n, p in _tr.model.named_parameters()
+                        if p.grad is not None}
+                return _step(*a, **k)
+            tr.optimizer.step = first_step
         if run.get("train_only"):
             tr.train()
         else:
