@@ -44,7 +44,16 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      held against ``Predictor(device="cpu")`` on the same checkpoint and
      kernel A's launch count against the batches served; the demo
      corpus's featurize seconds (now native) beside the Python
-     featurizer's earlier ones (PYTHON_FEATURIZE);
+     featurizer's earlier ones (PYTHON_FEATURIZE).  Every predictor on
+     the card serves through CUDA graphs (``cuda_graphs.ForwardGraphs``:
+     a signature's first batch eager, its second captured, the rest
+     replayed); each serving phase prints ``served_graphs=true`` with
+     its captures, replays, capture seconds and pool bytes, holds the
+     served rows bitwise equal to the same predictor's eager forward on
+     the card (``eager_rows``), and times in turns, within this call,
+     each request and one served batch eagerly (copied to the card field
+     by field, forward op by op) and replayed (host ms, busy ms, idle
+     share);
      ``jax_checkpoint``: the two JAX-written checkpoints of
      ``tests/data/jax_ckpt`` (the flagship; TripletMessageLight + Set2Set
      with BatchNorm) served through ``Predictor.from_checkpoint(...,
@@ -126,7 +135,10 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
        contacts per residue), and a request with an invalid SMILES and
        a protein without a contact map (NaN rows); card vs CPU; kernel
        C 3 times per batch, and at the served batch's self-loop CSR
-       (16 proteins, ~16,000 rows); pairs/s and a batch's device ms;
+       (16 proteins, ~16,000 rows); pairs/s and a batch's device ms; a
+       first request of the 32 smallest molecules captures a graph, and
+       the second request's floor growth must free it (the memory held
+       within one pool of where it was);
      - ``screening``: ALDH1 (scr_demo) with the CLI's defaults
        (GCNConv protein tower, loss wce), 1 epoch: A 3 per forward, B 3
        per step, C never; the final line has bedroc;
@@ -1034,7 +1046,7 @@ def ab_stress(dev, rounds=STRESS_ROUNDS, label="stress"):
     return calls
 
 
-def serving_phase(dev, demo):
+def serving_phase(dev, demo, card):
     import numpy as np
     import torch
     from glam_tpu_torch.nn.model import Architecture, ModelConfig
@@ -1057,7 +1069,7 @@ def serving_phase(dev, demo):
     print(f"serving: flagship H=3 C={cfg.hid_dim} steps="
           f"{cfg.message_steps} e_dim={cfg.e_dim} batch_size=128 "
           f"budgets nodes={pred.node_budget} edges={pred.edge_budget}")
-    pred.predict_smiles(demo[:16])                 # warm-up, not counted
+    pred.predict_smiles(demo[:16])     # warm-up: its batch runs eagerly
     torch.cuda.synchronize()
 
     reset_counts()
@@ -1067,44 +1079,165 @@ def serving_phase(dev, demo):
         outs[name] = pred.predict_smiles(smis)
         secs[name] = time.perf_counter() - t0
     launches = read_counts()
+    st = served_graphs("serving", pred, card)
 
     n_batches = 0
     for name, smis in requests.items():
-        graphs = pred.featurize(smis)
-        valid = np.asarray([g is not None for g in graphs], bool)
-        batches = pred.batches([g for g in graphs if g is not None])
-        n_batches += len(batches)
+        items, valid = request_items(pred, smis)
+        n_batches += len(items)
         out = outs[name]
         if out.shape != (len(smis), 1):
             fail(f"{name}: output shape {out.shape}")
         if not (np.isfinite(out[valid]).all() and np.isnan(out[~valid]).all()):
             fail(f"{name}: valid rows not finite or invalid rows not NaN")
+        replays_bitwise(f"serving {name}", pred, smis, out)
         want = cpu.predict_smiles(smis)
         err = float(np.nanmax(np.abs(out - want))) if valid.any() else 0.0
         if not np.allclose(out, want, rtol=TOL, atol=TOL, equal_nan=True):
             fail(f"{name}: card and CPU predictions differ by {err}")
         print(f"request {name}: {len(smis)} SMILES ({int(valid.sum())} "
-              f"valid) in {len(batches)} batches: latency_s="
+              f"valid) in {len(items)} batches: latency_s="
               f"{secs[name]:.4f} mol_per_s={len(smis) / secs[name]:.1f} "
-              f"max_abs_err_vs_cpu={err:.3e}")
-        for i, b in enumerate(batches):
+              f"max_abs_err_vs_cpu={err:.3e}; replayed rows bitwise equal "
+              "to the eager forward's")
+        for i, (b,) in enumerate(items):
             print(f"  batch {i}: graphs={int(b.graph_mask.sum())} "
                   f"real_nodes={int(b.node_mask.sum())}/{b.num_nodes} "
                   f"real_edges={b.num_real_edges}/{b.num_edges}")
     check_counts("flagship serving", launches,
                  {"triplet_fused_fwd": cfg.message_steps * n_batches})
+    if st["captures"] != 1 or st["signatures"] != 1:
+        fail(f"flagship serving: the pinned budgets' batches took "
+             f"{st['captures']} captures and {st['signatures']} "
+             "signatures; expected 1 and 1")
     total = sum(len(s) for s in requests.values())
     print(f"serving: {total} SMILES in {sum(secs.values()):.4f} s "
           f"({total / sum(secs.values()):.1f} mol/s); triplet_fused_fwd "
           f"launches={launches['triplet_fused_fwd']} = {cfg.message_steps}"
-          f" steps x {n_batches} batches")
-    breakdown(pred, demo)
+          f" steps x {n_batches} batches, replays included")
+    request_turns("serving", pred, requests, "mol", card)
+    breakdown(pred, demo, card)
     return launches
 
 
-def breakdown(pred, demo):
-    """Where one request's time goes: featurize, pad, device forward
-    (host clock, each stage ending in a synchronize)."""
+def served_graphs(label, pred, card):
+    """Fail unless ``pred`` (a predictor on the card, or an ensemble of
+    them) served through replayed CUDA graphs; print and return their
+    statistics."""
+    st = pred.graph_stats
+    if not st or st["replays"] == 0:
+        fail(f"{label}: not served through replayed CUDA graphs: {st}")
+    print(f"{label}: served_graphs=true captures={st['captures']} "
+          f"replays={st['replays']} released={st['released']} "
+          f"signatures={st['signatures']} capture_s={st['capture_s']:.3f} "
+          f"warmup_s={st['warmup_s']:.3f} pool_bytes={st['pool_bytes']} "
+          f"({st['pool_bytes'] / 2**20:.1f} MiB) ({card})")
+    return st
+
+
+def request_items(pred, request):
+    """(the loader items, tuples of CPU GraphBatches, that ``pred``
+    serves ``request`` in; the mask of the entries it resolves): SMILES
+    for a ``Predictor``, pairs for a ``PairPredictor`` (at its floors)."""
+    import numpy as np
+    if hasattr(pred, "samples"):
+        resolved = pred.samples(request)
+        valid = [s for s in resolved if s is not None]
+        items = list(pred.loader(valid)) if valid else []
+    else:
+        resolved = pred.featurize(request)
+        valid = [g for g in resolved if g is not None]
+        items = [(b,) for b in pred.batches(valid)] if valid else []
+    return items, np.asarray([r is not None for r in resolved], bool)
+
+
+def eager_rows(pred, items):
+    """The valid rows of ``pred.model`` on each loader item, run eagerly
+    on the card as the predictors served before their forwards were
+    captured: the batch copied to the card field by field, the forward
+    op by op, the output copied back."""
+    import numpy as np
+    import torch
+    outs = []
+    with torch.inference_mode():
+        for parts in items:
+            out = pred.model(*(p.to(pred.device) for p in parts)).cpu()
+            outs.append(out.numpy()[parts[0].graph_mask.numpy()])
+    return np.concatenate(outs)
+
+
+def replays_bitwise(label, pred, request, got):
+    """Fail unless ``got``, what ``pred`` served for ``request`` (its
+    graphs' replays, and a new signature's eager first batch on the
+    capture's stream), equals its eager forward on the card bitwise."""
+    import numpy as np
+    items, valid = request_items(pred, request)
+    if not items:
+        return
+    want = eager_rows(pred, items)
+    if not np.array_equal(got[valid], want):
+        fail(f"{label}: served rows differ from the eager forward's on the "
+             f"card by {np.abs(got[valid] - want).max()} (bitwise expected)")
+
+
+def request_turns(label, pred, requests, unit, card):
+    """Each request served eagerly (``request_items`` and ``eager_rows``:
+    the same featurizing and padding, the forwards op by op) and through
+    the predictor's graphs, in turns (eager, replayed, replayed, eager):
+    latency and ``unit``/s of each."""
+    serve = (pred.predict_pairs if hasattr(pred, "predict_pairs")
+             else pred.predict_smiles)
+    turns = {"eager": lambda r: eager_rows(pred, request_items(pred, r)[0]),
+             "replayed": serve}
+    for name, req in requests.items():
+        secs = {"eager": [], "replayed": []}
+        for turn in ("eager", "replayed", "replayed", "eager"):
+            t0 = time.perf_counter()
+            turns[turn](req)
+            secs[turn].append(time.perf_counter() - t0)
+        print(f"{label} request {name} in turns ({len(req)} {unit}): "
+              + "; ".join(f"{k} latency_s " + ", ".join(
+                  f"{v:.4f}" for v in vs) + f" = {unit}_per_s " + ", ".join(
+                  f"{len(req) / v:.1f}" for v in vs)
+                  for k, vs in secs.items()) + f" ({card})")
+
+
+def served_batch_timing(label, pred, parts, card, top=8):
+    """One served batch (a loader item on the CPU) in turns: eager (the
+    batch copied field by field, the forward op by op, the output back)
+    and replayed (one pinned copy, the graph's replay, the output back):
+    each's median host ms, a profile's busy ms and kernels, and the idle
+    share (1 - busy / host)."""
+    import torch
+    fns = {"eager": lambda: pred.model(
+               *(p.to(pred.device) for p in parts)).cpu(),
+           "replayed": lambda: pred.graphs(parts).cpu()}
+    ms = {"eager": [], "replayed": []}
+    with torch.inference_mode():
+        fns["replayed"]()
+        fns["replayed"]()            # its signature captured, if new
+        for turn in ("eager", "replayed", "replayed", "eager"):
+            ms[turn].append(host_step_ms(fns[turn]))
+        prof = {k: print_profile(f"{label} one served batch, {k}", fn, top)
+                for k, fn in fns.items()}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"served batch [{label}]: host ms in turns eager "
+          f"{', '.join(f'{v:.4f}' for v in ms['eager'])}, replayed "
+          f"{', '.join(f'{v:.4f}' for v in ms['replayed'])}; busy ms eager "
+          f"{prof['eager']['busy_ms']:.4f} over {prof['eager']['kernels']} "
+          f"kernels, replayed {prof['replayed']['busy_ms']:.4f} over "
+          f"{prof['replayed']['kernels']}; idle share eager "
+          f"{1 - prof['eager']['busy_ms'] / med['eager']:.3f}, replayed "
+          f"{1 - prof['replayed']['busy_ms'] / med['replayed']:.3f} ({card})")
+    return {"host_ms": med, "busy_ms": {k: p["busy_ms"]
+                                        for k, p in prof.items()}}
+
+
+def breakdown(pred, demo, card):
+    """Where one request's time goes: featurize, pad, then the forwards
+    eagerly (to the device, forward) and replayed (load, replay, output
+    back), on the host clock, each stage ending in a synchronize; then a
+    served batch eager against replayed (``served_batch_timing``)."""
     import torch
     t0 = time.perf_counter()
     graphs = [g for g in pred.featurize(demo) if g is not None]
@@ -1119,17 +1252,20 @@ def breakdown(pred, demo):
             pred.model(b)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        for b in batches:
+            pred.graphs((b,)).cpu()
+        t5 = time.perf_counter()
         fwd_ms = device_ms(lambda: pred.model(moved[0]), reps=10,
                            warmup=2, sleep_cycles=100_000_000)
     print(f"breakdown demo_all: featurize_s={t1 - t0:.4f} pad_s="
           f"{t2 - t1:.4f} to_device_s={t3 - t2:.4f} forward_s="
-          f"{t4 - t3:.4f} ({len(batches)} batches); one batch forward "
-          f"device_ms={fwd_ms:.4f}")
+          f"{t4 - t3:.4f} (eager) replayed_forward_s={t5 - t4:.4f} (load, "
+          f"replay, output back) ({len(batches)} batches); one batch "
+          f"forward device_ms={fwd_ms:.4f} ({card})")
     print(f"serving featurize [demo_all, native]: {len(demo)} SMILES in "
           f"{t1 - t0:.4f} s = {len(demo) / (t1 - t0):.1f} mol/s; "
           f"{PYTHON_FEATURIZE}")
-    with torch.inference_mode():
-        print_profile("one batch forward", lambda: pred.model(moved[0]))
+    served_batch_timing("flagship", pred, (batches[0],), card)
 
 
 def print_profile(label, fn, top=8):
@@ -1298,6 +1434,9 @@ def training_phase(dev, card, tmp):
                                                  atol=TOL)):
         fail(f"trained best_save.pt: card and CPU predictions differ by "
              f"{np.abs(a - b).max()}")
+    replays_bitwise("serving [flagship]", on_card, smis, a)
+    served_graphs("serving the trained best_save.pt [flagship]", on_card,
+                  card)
     print(f"serving the trained best_save.pt: {len(smis)} SMILES, card "
           f"vs CPU max_abs_err={np.abs(a - b).max():.3e} (tol {TOL})")
 
@@ -1369,6 +1508,9 @@ def library_phase(dev, card, tmp, demo):
             a, b, rtol=TOL, atol=TOL, equal_nan=True)):
         fail(f"trained BatchNorm checkpoint: card and CPU predictions "
              f"differ by {np.nanmax(np.abs(a - b))}")
+    replays_bitwise("serving [light_set2set]", on_card, demo, a)
+    served_graphs("serving the trained best_save.pt [light_set2set]",
+                  on_card, card)
     print(f"serving the trained best_save.pt [light_set2set] "
           f"({len(stats)} BatchNorms' running statistics): {len(demo)} "
           f"SMILES in {n_batches} batches of 128 at budgets nodes="
@@ -1376,7 +1518,8 @@ def library_phase(dev, card, tmp, demo):
           f"{secs:.4f}, card vs CPU max_abs_err="
           f"{np.nanmax(np.abs(a - b)):.3e} (tol {TOL}); launches "
           f"segment_softmax_spmm_fwd={served['segment_softmax_spmm_fwd']} "
-          f"= 6 x {n_batches} batches ({card})")
+          f"= 6 x {n_batches} batches, replays included, rows bitwise "
+          f"equal to the eager forward's ({card})")
     return launches, served, kern
 
 
@@ -1423,16 +1566,24 @@ def default_phase(dev, tmp):
                           gcn, torch.Generator().manual_seed(0)).state_dict())
 
 
-def serve_card_vs_cpu(label, run_dir, pairs, dev, contact_maps=None):
+def serve_card_vs_cpu(label, run_dir, pairs, dev, contact_maps=None,
+                      card=""):
     """``PairPredictor`` on the card and on the CPU from one checkpoint,
-    on ``pairs``: the outputs must agree (NaN rows alike)."""
+    on ``pairs``: the outputs must agree (NaN rows alike).  The card
+    serves them twice, the second time through its graph's replays: both
+    bitwise equal to its eager forward."""
     import numpy as np
     from glam_tpu_torch.serve import PairPredictor
     on_card = PairPredictor.from_checkpoint(run_dir, device=dev,
                                             contact_maps=contact_maps)
     on_cpu = PairPredictor.from_checkpoint(run_dir, device="cpu",
                                            contact_maps=contact_maps)
+    first = on_card.predict_pairs(pairs)
     a, b = on_card.predict_pairs(pairs), on_cpu.predict_pairs(pairs)
+    for got in (first, a):
+        replays_bitwise(f"serving [{label}]", on_card, pairs, got)
+    served_graphs(f"serving the trained best_save.pt [{label}]", on_card,
+                  card)
     valid = ~np.isnan(b[:, 0])
     err = float(np.abs(a[valid] - b[valid]).max()) if valid.any() else 0.0
     if not (valid.all() and np.isfinite(a).all()
@@ -1483,7 +1634,7 @@ def ddi_phase(dev, card, tmp):
           f"triplet_fused_bwd={launches['triplet_fused_bwd']} = {n} x "
           f"{steps} steps ({card})")
     pairs = [(g1.smi, g2.smi) for g1, g2 in trainer.test_loader.pairs]
-    serve_card_vs_cpu("ddi", trainer.log_save_dir, pairs, dev)
+    serve_card_vs_cpu("ddi", trainer.log_save_dir, pairs, dev, card=card)
     batch = next(iter(trainer.train_loader))
     kern = check_triplet_towers("ddi", batch, np.random.RandomState(4),
                                 dev, card)
@@ -1516,7 +1667,7 @@ def dti_phase(dev, card, tmp):
     ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
     serve_card_vs_cpu("dti", trainer.log_save_dir,
                       [(g1.smi, g2.smi) for g1, g2 in ds.test], dev,
-                      ds.contact_maps)
+                      ds.contact_maps, card)
     batch = next(iter(trainer.train_loader))
     rng = np.random.RandomState(5)
     kern = check_triplet_towers("dti", batch, rng, dev, card, towers=(0,))
@@ -1566,10 +1717,10 @@ def dti_serving_phase(dev, card, demo):
     from glam_tpu_torch.chem.featurize import smiles_to_arrays
     seq, cm = synthetic_protein()
     maps = {seq: cm}
-    smis = []
+    smis, atoms = [], {}
     for smi in demo:
         try:
-            smiles_to_arrays(smi)
+            atoms[smi] = smiles_to_arrays(smi)[0].shape[0]
         except ValueError:
             continue
         smis.append(smi)
@@ -1591,8 +1742,14 @@ def dti_serving_phase(dev, card, demo):
           f"{cfg.pro_max_nodes}); protein of {len(seq)} residues, "
           f"{n_contacts} contact-map entries ({n_contacts / len(seq):.1f} "
           f"per residue)")
-    pred.predict_pairs(requests["demo64_x_protein1000"][:16])   # warm-up
+    # warm-up: the 32 smallest molecules, 2 batches (one eager, one
+    # captured), at floors the next request must grow
+    pairs64 = requests["demo64_x_protein1000"]
+    pred.predict_pairs(sorted(pairs64, key=lambda p: atoms[p[0]])[:32])
+    floors, before = (pred.budget1, pred.budget2), dict(pred.graph_stats)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [torch.cuda.memory_reserved(dev)]
     reset_counts()
     outs, secs = {}, {}
     for name, pairs in requests.items():
@@ -1600,10 +1757,35 @@ def dti_serving_phase(dev, card, demo):
         outs[name] = pred.predict_pairs(pairs)
         secs[name] = time.perf_counter() - t0
     launches = read_counts()
+    st = served_graphs("dti_serving", pred, card)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held.append(torch.cuda.memory_reserved(dev))
+    if (before["captures"] != 1 or floors[0] == pred.budget1
+            or st["released"] != before["released"] + 1):
+        fail(f"dti_serving: the second request's floors {floors} -> "
+             f"{(pred.budget1, pred.budget2)} did not grow and free the "
+             f"first request's graph (captures {before['captures']}, "
+             f"released {before['released']} -> {st['released']})")
+    if held[1] - held[0] > st["pool_bytes"]:
+        fail(f"dti_serving: device memory held grew by {held[1] - held[0]}"
+             f" bytes over a floor growth, more than one pool "
+             f"({st['pool_bytes']})")
+    print(f"dti_serving: the second request grew the floors {floors} -> "
+          f"{(pred.budget1, pred.budget2)}, freeing the first request's "
+          f"graph; device memory held {held[0]} -> {held[1]} bytes (one "
+          f"pool: {st['pool_bytes']}); its first batch ran eagerly on the "
+          "capture's stream, the next captured")
+    again = pred.predict_pairs(pairs64)            # replays only
+    if not np.array_equal(again, outs["demo64_x_protein1000"],
+                          equal_nan=True):
+        fail("dti_serving: a request's replays differ from its first "
+             "serving (an eager warm-up batch and replays), bitwise")
     n_batches = 0
     for name, pairs in requests.items():
         valid = [s for s in pred.samples(pairs) if s is not None]
         n_batches += len(pred.loader(valid))
+        replays_bitwise(f"dti_serving {name}", pred, pairs, outs[name])
         want = cpu.predict_pairs(pairs)
         got = outs[name]
         ok = ~np.isnan(want[:, 0])
@@ -1631,8 +1813,8 @@ def dti_serving_phase(dev, card, demo):
     with torch.inference_mode():
         fwd_ms = device_ms(lambda: pred.model(*moved), reps=10, warmup=2,
                            sleep_cycles=100_000_000)
-        print_profile("dti_serving one batch forward",
-                      lambda: pred.model(*moved), top=12)
+    request_turns("dti_serving", pred, requests, "pairs", card)
+    served_batch_timing("dti_serving", pred, (b1, b2), card, top=12)
     print(f"dti_serving: launches {json.dumps(launches)} = "
           f"{cfg.message_steps} x {n_batches} batches; a batch of 16 pairs: "
           f"protein tower N={b2.num_nodes} E={b2.num_edges} (+{b2.num_nodes} "
@@ -2094,7 +2276,8 @@ def sharded_phase(dev, card, tmp):
         print(f"training [{label}]: launches exact on each rank: A and C "
               f"3 x {forwards} forwards, B and C's backward 3 x {steps} "
               f"steps")
-        serve_card_vs_cpu(label, run_dir, test_pairs, dev, ds.contact_maps)
+        serve_card_vs_cpu(label, run_dir, test_pairs, dev, ds.contact_maps,
+                          card)
         out["launches"][path] = by_rank
         # the kernels at this path's shapes: A and B at a step's molecule
         # batch, C at rank 0's GAT shard of the first training protein
@@ -2646,6 +2829,10 @@ def automl_phase(dev, card, demo, tmp):
     if not (np.isfinite(a).all() and np.allclose(a, b, rtol=TOL, atol=TOL)):
         fail(f"EnsemblePredictor: card and CPU differ by "
              f"{np.abs(a - b).max()}")
+    for p in ens_card.predictors:
+        replays_bitwise("automl EnsemblePredictor", p, smis,
+                        p.predict_smiles(smis))
+    served_graphs("automl EnsemblePredictor", ens_card, card)
     print(f"automl EnsemblePredictor.from_runs(n=2): {len(smis)} SMILES "
           f"card vs CPU max_abs_err={float(np.abs(a - b).max()):.3e} (tol "
           f"rtol {TOL} + atol {TOL}); launches {json.dumps(ens_launches)}")
@@ -2808,6 +2995,9 @@ def jax_checkpoint_phase(dev, card, tmp):
         per = per_forward(dataclasses.asdict(pred.model.cfg))
         check_counts(f"serving JAX checkpoint {name}", launches,
                      {k: n * len(batches) for k, n in per.items()})
+        replays_bitwise(f"jax_checkpoint [{name}]", pred, smis,
+                        pred.predict_smiles(smis))
+        served_graphs(f"jax_checkpoint [{name}]", pred, card)
         for k, n in launches.items():
             total[k] += n
         want_all[name] = (want, len(batches), per)
@@ -2852,6 +3042,10 @@ def jax_checkpoint_phase(dev, card, tmp):
              f"of the JAX package's scores by {err}")
     for k, n in launches.items():
         total[k] += n
+    for p in ens.predictors:
+        replays_bitwise("jax_checkpoint EnsemblePredictor", p, smis,
+                        p.predict_smiles(smis))
+    served_graphs("jax_checkpoint EnsemblePredictor", ens, card)
     print(f"jax_checkpoint EnsemblePredictor.from_runs over both JAX runs: "
           f"{len(smis)} SMILES, card vs the mean of the JAX package's "
           f"scores max_abs_err={err:.3e} (tol {TOL}); launches "
@@ -3453,7 +3647,7 @@ def main() -> None:
     phase("native", native_phase, card)
     kern = phase("kernels", kernel_phase, dev, demo, card)
     phase("stress", ab_stress, dev, STRESS_ROUNDS)
-    served = phase("serving", serving_phase, dev, demo)
+    served = phase("serving", serving_phase, dev, demo, card)
     with tempfile.TemporaryDirectory() as tmp:
         jax_served, kern_jax = phase("jax_checkpoint", jax_checkpoint_phase,
                                      dev, card, tmp)

@@ -23,6 +23,7 @@ def check(name, t, device, dtype, shape):
 
 
 _TICKETS = {}
+_RETIRED = []
 
 
 def tickets(dev, stream: int, n: int) -> torch.Tensor:
@@ -31,8 +32,10 @@ def tickets(dev, stream: int, n: int) -> torch.Tensor:
     leave it zeroed), so a call needs no fill.  Kernels on one stream run
     in turn, so they share it.  A CUDA graph's capture may not make or
     grow one (the buffer would live in the graph's pool): the calls run
-    eagerly on the capture's stream first (``train/step_graph.py``), and
-    a capture that finds none raises."""
+    eagerly on the capture's stream first (``cuda_graphs.py``), and a
+    capture that finds none raises.  A grown buffer's predecessor is kept,
+    never freed: a graph captured before the growth still replays over
+    it."""
     key = (dev.index, stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
@@ -41,6 +44,8 @@ def tickets(dev, stream: int, n: int) -> torch.Tensor:
                 f"no ticket buffer of {n} for stream {stream} on cuda:"
                 f"{dev.index} during a CUDA graph capture: run the step "
                 "on the capture's stream before capturing it")
+        if buf is not None:
+            _RETIRED.append((key, buf))
         buf = torch.zeros((max(n, 1024),), device=dev, dtype=torch.int32)
         _TICKETS[key] = buf
     return buf
@@ -53,10 +58,10 @@ def dirty_tickets():
     kernels leave them.  Reads the buffers: synchronizes with the
     device."""
     out = {}
-    for key, buf in _TICKETS.items():
+    for key, buf in list(_TICKETS.items()) + _RETIRED:
         nz = torch.nonzero(buf).flatten()[:16].tolist()
         if nz:
-            out[key] = dict(zip(nz, buf[nz].tolist()))
+            out.setdefault(key, {}).update(zip(nz, buf[nz].tolist()))
     return out
 
 

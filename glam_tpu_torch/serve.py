@@ -28,6 +28,19 @@ SMILES that cannot be featurized yield NaN rows.  Loading runs no forward
 pass.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with ``cuda`` and no card they raise.
 
+On the card every predictor serves through CUDA graphs
+(``cuda_graphs.ForwardGraphs``), the counterpart of the JAX predictors'
+one jitted executable per batch shape: one graph per batch signature,
+captured at its second batch (its first runs eagerly on the capture's
+stream) and replayed for every later one; a batch is one pinned copy
+in, the replay, and its output copied back before the next replay.
+``Predictor`` pins the signature of its pinned budgets and keeps the
+last 2 others (the fallback budgets of unusually large molecules), each
+``PairPredictor`` floor growth frees the superseded graph, and an
+``EnsemblePredictor``'s members keep their own.  ``graph_stats`` reports
+captures, replays and the pools' bytes.  On the CPU the forwards run
+eagerly.
+
 Checkpoints are ``best_save.pt`` files written by :func:`save_checkpoint`
 (the trainer writes them so too): ``{"args": json string, "state_dict":
 {name: tensor}}``, plus the trainer's ``"records"`` (json string), read
@@ -49,6 +62,7 @@ import numpy as np
 import torch
 
 from .convert import config_from_args, load_jax_checkpoint, pair_kind
+from .cuda_graphs import ForwardGraphs
 from .data.batching import GraphLoader, PairGraphLoader
 from .data.datasets import featurize_smiles
 from .data.graph import GraphArrays, GraphBatch
@@ -77,6 +91,31 @@ def pinned_budgets(batch_size: int, max_nodes: int):
     node count, so 3x pads generously."""
     return (8 * -(-(batch_size * max_nodes + 1) // 8),
             8 * -(-(3 * batch_size * max_nodes) // 8))
+
+
+def forward_graphs(model, device) -> Optional[ForwardGraphs]:
+    """The captured forwards of ``model`` on the card; None on the CPU,
+    where a predictor runs its forwards eagerly."""
+    return ForwardGraphs(model, device) if device.type == "cuda" else None
+
+
+def served(model, graphs: Optional[ForwardGraphs], parts,
+           pin: bool = False) -> np.ndarray:
+    """``model``'s output on one padded batch (a tuple of CPU
+    GraphBatches) as a host array: through ``graphs`` on the card (its
+    signature pinned there if ``pin``), eagerly on the CPU.  Call it
+    under ``torch.inference_mode()``."""
+    if graphs is None:
+        return model(*parts).numpy()
+    return graphs(parts, pin).cpu().numpy()
+
+
+def graph_stats(graphs: Optional[ForwardGraphs]) -> Optional[Dict]:
+    """Captures, replays, seconds, pool bytes and signatures held of a
+    predictor's graphs; None on the CPU."""
+    if graphs is None:
+        return None
+    return dict(graphs.stats, signatures=len(graphs))
 
 
 def save_checkpoint(run_dir, model: Union[Architecture, PairArchitecture],
@@ -123,6 +162,7 @@ class Predictor:
         max_nodes = int(args.get("model_cfg", {}).get("max_nodes", 132))
         self.node_budget, self.edge_budget = pinned_budgets(batch_size,
                                                             max_nodes)
+        self.graphs = forward_graphs(self.model, self.device)
 
     @classmethod
     def from_checkpoint(cls, run_dir, which: str = "best_save.pt",
@@ -175,7 +215,9 @@ class Predictor:
         if valid:
             with torch.inference_mode():
                 for batch in self.batches(valid):
-                    out = self.model(batch.to(self.device)).cpu().numpy()
+                    pinned = (batch.num_nodes, batch.num_edges) == (
+                        self.node_budget, self.edge_budget)
+                    out = served(self.model, self.graphs, (batch,), pinned)
                     outs.append(out[batch.graph_mask.numpy()])
             preds = np.concatenate(outs, axis=0)
         else:
@@ -184,6 +226,10 @@ class Predictor:
         full = np.full((len(smiles), width), np.nan, np.float32)
         full[np.asarray([g is not None for g in graphs], bool)] = preds
         return full
+
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        return graph_stats(self.graphs)
 
     def predict_scores(self, smiles: Sequence[str]) -> np.ndarray:
         """Probability scores for classification tasks (sigmoid/softmax
@@ -230,6 +276,15 @@ class EnsemblePredictor:
                 run, which=which, batch_size=batch_size, device=device))
         return cls(predictors)
 
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        """Its predictors' ``graph_stats`` summed (each keeps its own
+        graphs, stream and pools)."""
+        each = [p.graph_stats for p in self.predictors]
+        if None in each:
+            return None
+        return {k: sum(st[k] for st in each) for k in each[0]}
+
     def predict_scores(self, smiles: Sequence[str]) -> np.ndarray:
         return np.mean([p.predict_scores(smiles)
                         for p in self.predictors], axis=0)
@@ -258,6 +313,7 @@ class PairPredictor:
         # sticky (node, edge) budget floors per tower, grown as needed
         self.budget1: Optional[Tuple[int, int]] = None
         self.budget2: Optional[Tuple[int, int]] = None
+        self.graphs = forward_graphs(self.model, self.device)
 
     @classmethod
     def from_checkpoint(cls, run_dir, which: str = "best_save.pt",
@@ -300,12 +356,21 @@ class PairPredictor:
 
     def loader(self, valid) -> PairGraphLoader:
         """The padded batches of the resolved pairs ``valid``, at budgets
-        no smaller than the previous calls'; the floors move up to
-        them."""
+        no smaller than the previous calls'; the floors move up to them.
+        A floor that grows supersedes the graph of the old floors, which
+        can never replay again: it is freed."""
         loader = PairGraphLoader(valid, self.batch_size, 1,
                                  budget1=self.budget1, budget2=self.budget2)
+        grown = (loader.budget1, loader.budget2) != (self.budget1,
+                                                     self.budget2)
         self.budget1, self.budget2 = loader.budget1, loader.budget2
+        if grown and self.graphs is not None:
+            self.graphs.release()
         return loader
+
+    @property
+    def graph_stats(self) -> Optional[Dict]:
+        return graph_stats(self.graphs)
 
     def predict_pairs(self, pairs: Sequence[tuple]) -> np.ndarray:
         """[N, out] outputs (logits); unresolvable pairs yield NaN
@@ -316,8 +381,7 @@ class PairPredictor:
         if valid:
             with torch.inference_mode():
                 for b1, b2 in self.loader(valid):
-                    out = self.model(b1.to(self.device),
-                                     b2.to(self.device)).cpu().numpy()
+                    out = served(self.model, self.graphs, (b1, b2))
                     outs.append(out[b1.graph_mask.numpy()])
             preds = np.concatenate(outs, axis=0)
         else:

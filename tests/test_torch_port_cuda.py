@@ -63,8 +63,9 @@ def tickets_left_zero(request):
     torch.cuda.synchronize()
     dirty = common.dirty_tickets()
     if dirty:
-        for key in dirty:
-            common._TICKETS[key].zero_()
+        for key, buf in list(common._TICKETS.items()) + common._RETIRED:
+            if key in dirty:
+                buf.zero_()
         pytest.fail(f"{request.node.nodeid} left ticket buffers nonzero: "
                     f"{dirty}")
 

@@ -4,7 +4,8 @@ the AutoML solver's (``automl/``, ``glam``, ``demo``, ``data/perturb``,
 ``data/transforms``), the native featurizer's binding, the msgpack
 decoder, ``data/perturb_builder``, the attention visualization, the parallel
 layer (``parallel/*``, the node-sharded tower among them), the sharded
-DTI trainer and the captured steps (``train/step_graph``) among them,
+DTI trainer, the captured steps (``train/step_graph``) and the capture
+core they share with the predictors (``cuda_graphs``) among them,
 imports without JAX, flax, optax, pandas, scikit-learn, msgpack or
 matplotlib, and without any module of the JAX package (checked in a
 fresh interpreter).  The card's machine has none of them."""
@@ -48,7 +49,7 @@ want = {"glam_tpu_torch.run", "glam_tpu_torch.train.trainer",
         "glam_tpu_torch.parallel.bench_scaling",
         "glam_tpu_torch.parallel.sharded_model",
         "glam_tpu_torch.train.sharded_pair_trainer",
-        "glam_tpu_torch.train.step_graph"}
+        "glam_tpu_torch.train.step_graph", "glam_tpu_torch.cuda_graphs"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 banned = ("jax", "flax", "optax", "pandas", "sklearn", "msgpack",
