@@ -1284,18 +1284,25 @@ def print_profile(label, fn, top=8):
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         fail(f"profile of {label}: no device time recorded")
-    kernels = [e.time_range for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e.time_range for e in device]
     busy = sum(k.elapsed_us() for k in kernels) / 1e3
+    # NCCL's kernels spin while they wait for a peer: the busy time
+    # without them is the step's own work
+    own = sum(e.time_range.elapsed_us() for e in device
+              if "nccl" not in e.name.lower()) / 1e3
     span = (max(k.end for k in kernels) - min(k.start for k in kernels)) \
         / 1e3
     print(f"profile {label}: device_time_us={total:.1f}; {len(kernels)} "
-          f"device kernels, busy_ms={busy:.4f} over a span of "
-          f"{span:.4f} ms (first start to last end)")
+          f"device kernels, busy_ms={busy:.4f} (without the collectives' "
+          f"kernels {own:.4f}) over a span of {span:.4f} ms (first start "
+          f"to last end)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.key[:60]}: device_us={e.self_device_time_total:.1f} "
               f"calls={e.count}")
-    return {"kernels": len(kernels), "busy_ms": busy, "span_ms": span}
+    return {"kernels": len(kernels), "busy_ms": busy,
+            "busy_own_ms": own, "span_ms": span}
 
 
 def parse_final_line(line: str):
@@ -1871,6 +1878,15 @@ DP_STEP_ARGS = {"dataset": "demo", "mol_block": "_TripletMessage",
                 "end_do": "_None()", "task": "binary_nan_bce",
                 "loss": "bcel", "num_tasks": 1, "optim": "SGD", "lr": 0.01,
                 "batch_size": 64, "seed": 1234}
+# the ranks' captured steps against their eager ones: the same flagship
+# with SGD and no noise, and with Adam and the CLI's noise (RReLU, the
+# flat and end layers' Dropout), whose losses say that each replay draws
+# its eager step's masks from the reseeded generator
+DP_GRAPH_CONFIGS = {
+    "flagship_sgd": DP_STEP_ARGS,
+    "flagship_adam_noise": dict(DP_STEP_ARGS, optim="Adam", lr=1e-3,
+                                graph_act="RReLU", flat_do="Dropout(0.2)",
+                                end_do="Dropout(0.2)")}
 
 
 def demo_root(tmp):
@@ -1880,12 +1896,16 @@ def demo_root(tmp):
     return root
 
 
-def run_ranks_cli(tmp, flags, label, dataset="demo"):
+def run_ranks_cli(tmp, flags, label, dataset="demo", graphs=None,
+                  ranks=DP_RANKS):
     """``python -m glam_tpu_torch.run ... --n_devices 2`` (or
     ``--pro_shards 2``) as a user runs it, on the card: the launcher
-    starts the gloo ranks, each on cuda:0.
+    starts the gloo ranks, each on cuda:0 (``ranks`` of them; nccl
+    ranks, one card each, on a host with as many cards).
     Checks the exit code, that the final line is printed once and parses,
-    and returns (run dir, result.json, each rank's launches, optimizer
+    that every rank replayed step graphs in the design ``graphs`` (None:
+    none, eagerly), prints each rank's design and graph stats, and
+    returns (run dir, result.json, each rank's launches, optimizer
     steps, forwards a rank, wall s)."""
     if dataset == "demo":
         data = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
@@ -1905,7 +1925,7 @@ def run_ranks_cli(tmp, flags, label, dataset="demo"):
     out = proc.stdout + proc.stderr
     if proc.returncode:
         print(out[-6000:])
-        fail(f"{label}: run with {DP_RANKS} ranks exited "
+        fail(f"{label}: run with {ranks} ranks exited "
              f"{proc.returncode}")
     for line in out.splitlines():
         if line.startswith(("[distributed]", "[launcher]")):
@@ -1921,8 +1941,20 @@ def run_ranks_cli(tmp, flags, label, dataset="demo"):
     parse_final_line(last)
     result = json.loads((runs[0] / "result.json").read_text())
     by_rank = result["kernel_launches_by_rank"]
-    if len(by_rank) != DP_RANKS:
+    if len(by_rank) != ranks:
         fail(f"{label}: launches of {len(by_rank)} ranks")
+    for k, g in enumerate(result["step_graphs_by_rank"]):
+        print(f"training [{label}] rank {k}: step_graphs="
+              f"{str(g['step_graphs']).lower()} ({g['reason']}); "
+              f"stats {json.dumps(g['stats'])}")
+        if (g["step_graphs"] != (graphs is not None) or graphs is not None
+                and not g["reason"].startswith(graphs)
+                or graphs is not None and not g["stats"]["replays"]):
+            fail(f"{label}: rank {k}'s step graphs are not the "
+                 f"{graphs or 'eager'} design: {g}")
+    if len(result["step_graphs_by_rank"]) != ranks:
+        fail(f"{label}: step graphs of "
+             f"{len(result['step_graphs_by_rank'])} ranks")
     steps = result["optimizer_steps"]
     if "forwards" in result:            # the sharded trainer counts them
         forwards = result["forwards"]
@@ -1930,7 +1962,7 @@ def run_ranks_cli(tmp, flags, label, dataset="demo"):
         b = result["batches"]
         forwards = steps + result["epochs_trained"] * b["valid"] \
             + b["valid"] + b["test"]
-    print(f"training [{label}]: {DP_RANKS} ranks, {steps} optimizer steps, "
+    print(f"training [{label}]: {ranks} ranks, {steps} optimizer steps, "
           f"{forwards} forwards a rank, wall_s={wall:.2f}; launches by "
           f"rank {json.dumps(by_rank)}")
     print(f"final line [{label}]: {last}")
@@ -1998,6 +2030,35 @@ def halo_csr(shards, rank):
     return rowptr, eid, len(rcv)
 
 
+def print_dp_times(times, note):
+    """Each rank's line of the worker's ``time`` task: the eager step's
+    host and busy ms, the gradient all-reduce's, and the step eager and
+    replayed in turns with the busy ms (with and without the collectives'
+    kernels) and idle share of each (of the busy time without them)."""
+    for k, r in enumerate(times):
+        print(f"dp step rank {k}: host_ms={r['host_ms']:.4f} busy_ms="
+              f"{r['busy']['busy_ms']:.4f} over {r['busy']['kernels']} "
+              f"kernels; gradient all_reduce of {r['all_reduce_floats']} "
+              f"floats ({r['all_reduce_floats'] * 4 / 1e6:.2f} MB) "
+              f"all_reduce_ms={r['all_reduce_ms']:.4f}, medians of 20 "
+              f"({note})")
+        be, br = r["busy"], r["busy_replayed"]
+        ce, cr = (statistics.median(r["turns"][t])
+                  for t in ("eager", "replayed"))
+        print(f"dp step graphs rank {k} [{r['design']}]: host ms a step in "
+              f"turns eager {', '.join(f'{v:.4f}' for v in r['turns']['eager'])}"
+              f", replayed {', '.join(f'{v:.4f}' for v in r['turns']['replayed'])}"
+              f"; busy ms eager {be['busy_ms']:.4f} over {be['kernels']} "
+              f"kernels, replayed {br['busy_ms']:.4f} over {br['kernels']} "
+              f"(without collectives' kernels {be['busy_own_ms']:.4f}, "
+              f"{br['busy_own_ms']:.4f}); idle share eager "
+              f"{1 - be['busy_own_ms'] / ce:.3f}, replayed "
+              f"{1 - br['busy_own_ms'] / cr:.3f}; "
+              f"{r['graph_stats']['captures']} captures "
+              f"{r['graph_stats']['capture_s']:.3f} s, pool "
+              f"{r['graph_stats']['pool_bytes'] / 2**20:.1f} MiB ({note})")
+
+
 def dp_phase(dev, card, tmp):
     """Data parallelism over 2 gloo ranks on the one card: the flagship
     through ``run --n_devices 2`` (A and B per rank exact), the one-step
@@ -2008,15 +2069,19 @@ def dp_phase(dev, card, tmp):
     launches and kernel numbers."""
     import numpy as np
     import torch
-    from glam_tpu_torch.parallel.distributed import backend_for
+    from glam_tpu_torch.parallel.distributed import (backend_for,
+                                                     step_graphs_for)
     backend, why = backend_for("cuda", DP_RANKS, torch.cuda.device_count())
+    backend_design, design_why = step_graphs_for(backend)
     print(f"dp: {DP_RANKS} ranks on {torch.cuda.device_count()} card(s): "
-          f"backend {backend} ({why}); every figure below is from 2 ranks "
+          f"backend {backend} ({why}); step graphs {backend_design} "
+          f"({design_why}); every figure below is from 2 ranks "
           f"time-sliced on one card, not a scaling number ({card})")
     out = {"launches": {}, "kern": {}, "secs": {}}
 
     t0 = time.perf_counter()
-    _, _, by_rank, steps, forwards, _ = run_ranks_cli(tmp, DP_ARGS, "dp")
+    _, _, by_rank, steps, forwards, _ = run_ranks_cli(tmp, DP_ARGS, "dp",
+                                                      graphs=backend_design)
     check_rank_counts("dp", by_rank, {"triplet_fused_fwd": 3 * forwards,
                                       "triplet_fused_bwd": 3 * steps})
     out["launches"]["train_dp"] = by_rank
@@ -2037,8 +2102,10 @@ def dp_phase(dev, card, tmp):
     params, shards, whole, H = halo_inputs()
     torch.save(dict(shards, params=params), work / "halo.pt")
     (work / "plan.json").write_text(json.dumps({
-        "tasks": ["step", "halo", "time"], "root": str(demo_root(tmp)),
-        "configs": {"flagship_demo": DP_STEP_ARGS}}))
+        "tasks": ["step", "halo", "time", "graphs"],
+        "root": str(demo_root(tmp)),
+        "configs": {"flagship_demo": DP_STEP_ARGS},
+        "graphs": DP_GRAPH_CONFIGS}))
     procs = worker.spawn_ranks(work, "cuda", DP_RANKS)
     single = worker.step_and_eval(worker.trainer(
         "flagship_demo", 1, work, dev, DP_STEP_ARGS, demo_root(tmp)))
@@ -2071,13 +2138,26 @@ def dp_phase(dev, card, tmp):
           f"{TOL}, atol 1e-6 x scale); the merged evaluation's outputs "
           f"within {out_err:.3e}, loss {step['loss']:.6f} against "
           f"{single['loss']:.6f} (tol {TOL})")
-    for k, r in enumerate(times):
-        print(f"dp step rank {k}: host_ms={r['host_ms']:.4f} busy_ms="
-              f"{r['busy']['busy_ms']:.4f} over {r['busy']['kernels']} "
-              f"kernels; gradient all_reduce of {r['all_reduce_floats']} "
-              f"floats ({r['all_reduce_floats'] * 4 / 1e6:.2f} MB) "
-              f"all_reduce_ms={r['all_reduce_ms']:.4f}, medians of 20 "
-              f"(2 ranks time-sliced on one card; {card})")
+    print_dp_times(times, f"{DP_RANKS} ranks time-sliced on one card; {card}")
+    for name, r in got["graphs"].items():
+        runs = r["runs"]
+        noise = "noise" in name
+        optim = DP_GRAPH_CONFIGS[name]["optim"]
+        hold_runs(f"dp {name} rank 0", optim, noise,
+                  worker.GRAPH_PLAN, runs, card)
+        n = len(runs["captured"][1])
+        check_counts(f"dp graphs {name} rank 0", runs["captured"][2],
+                     {"triplet_fused_fwd": 3 * n, "triplet_fused_bwd": 3 * n})
+        states = r["captured_by_rank"]
+        if not all(torch.equal(states[0][k], st[k]) for st in states
+                   for k in states[0]):
+            fail(f"dp graphs {name}: the ranks' states differ after the "
+                 "captured steps")
+        print(f"dp graphs [{name}]: after {n} captured steps the "
+              f"{DP_RANKS} ranks' {len(states[0])} state tensors "
+              f"(parameters, BatchNorm statistics, optimizer state) are "
+              f"bitwise equal; launches at replay A {3 * n} = 3 x {n} "
+              f"forwards, B {3 * n} = 3 x {n} steps")
     out["secs"]["dp_step"] = time.perf_counter() - t0
 
     # the halo steps
@@ -2115,7 +2195,7 @@ def dp_phase(dev, card, tmp):
 
     t0 = time.perf_counter()
     _, _, by_rank, steps, forwards, _ = run_ranks_cli(
-        tmp, DP_LIBRARY_ARGS, "dp_library")
+        tmp, DP_LIBRARY_ARGS, "dp_library", graphs=backend_design)
     check_rank_counts("dp_library", by_rank, {
         "segment_softmax_spmm_fwd": 6 * forwards,
         "segment_softmax_spmm_bwd": 6 * steps})
@@ -2127,7 +2207,7 @@ def dp_phase(dev, card, tmp):
 
     t0 = time.perf_counter()
     _, _, by_rank, steps, forwards, _ = run_ranks_cli(
-        tmp, DP_ARGS, "dp_pair", "drugbank_caster")
+        tmp, DP_ARGS, "dp_pair", "drugbank_caster", graphs=backend_design)
     check_rank_counts("dp_pair", by_rank, {"triplet_fused_fwd": 6 * forwards,
                                            "triplet_fused_bwd": 6 * steps})
     out["launches"]["train_dp_ddi"] = by_rank
@@ -2255,10 +2335,18 @@ def sharded_phase(dev, card, tmp):
     from glam_tpu_torch.data.graph import pad_graphs
     from glam_tpu_torch.data.pair_datasets import BindingDBDataset
     from glam_tpu_torch.parallel import sharded_model as sm
+    from glam_tpu_torch.parallel.distributed import (
+        backend_for, sharded_step_graphs_for)
     out = {"launches": {}, "kern": {}}
-    print(f"sharded: {DP_RANKS} gloo ranks on one card; every figure below "
-          f"is from ranks time-sliced on one card, not a scaling number "
-          f"({card})")
+    backend = backend_for("cuda", DP_RANKS, torch.cuda.device_count())[0]
+    design, why = sharded_step_graphs_for(backend)
+    if design is not None:
+        fail(f"sharded: {DP_RANKS} ranks on {torch.cuda.device_count()} "
+             f"card(s) under {backend} would replay graphs ({why})")
+    print(f"sharded: {DP_RANKS} {backend} ranks on one card; step graphs: "
+          f"none, the sharded steps run eagerly under {backend} ({why}); "
+          f"every figure below is from ranks time-sliced on one card, not "
+          f"a scaling number ({card})")
     ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
     test_pairs = [(g1.smi, g2.smi) for g1, g2 in ds.test]
     rng = np.random.RandomState(21)
@@ -3405,6 +3493,15 @@ def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
                      torch.cat(losses), read_counts(), graphs.stats,
                      get_learning_rate(trainer.optimizer))
     trainer.model, trainer.optimizer, trainer.step_graphs = saved
+    return hold_runs(label, optim, noise, plan, runs, card)
+
+
+def hold_runs(label, optim, noise, plan, runs, card):
+    """Hold a captured run against three eager runs from one state
+    (``runs``: {eager, captured, eager_2, eager_3: (state, losses,
+    launches, graph stats, learning rate)}) as :func:`captured_vs_eager`
+    says; prints the line and returns its numbers."""
+    import torch
     eager, got = runs["eager"][0], runs["captured"][0]
     others = [runs["eager"][0], runs["eager_2"][0], runs["eager_3"][0]]
     floats = [k for k, v in eager.items()

@@ -3,11 +3,12 @@ package's one compiled executable per batch shape (``jax.jit``'s cache).
 What the trainer's captured steps (``train/step_graph.py``) and the
 predictors' captured forwards (``serve.py``) share:
 
-  * :func:`signature`: the shapes and dtypes of every field of a loader
-    item's parts.  A loader's budgets are pinned, so all its batches
-    share one;
+  * :func:`signature`: the shapes and dtypes of every tensor of a loader
+    item's parts (GraphBatches, or any tree of dataclasses, tuples and
+    tensors: the node-sharded trainer's batch, shard, labels and noise).
+    A loader's budgets are pinned, so all its batches share one;
   * :class:`Slots`: the static input tensors of one loader item, each
-    field a view into one device buffer that one non-blocking copy from
+    tensor a view into one device buffer that one non-blocking copy from
     one pinned host buffer fills;
   * :class:`CapturedCalls`: a side stream on which a signature's first
     call runs eagerly (the warm-up, which makes the kernels' ticket
@@ -16,7 +17,9 @@ predictors' captured forwards (``serve.py``) share:
     capture into a memory pool, and the replay.  A capture runs nothing,
     so the kernel launches its wrappers count while it is captured are
     taken back and added again at every replay
-    (``ops.kernels.add_launches``);
+    (``ops.kernels.add_launches``).  A graph that holds nccl
+    collectives is captured in "thread_local" mode
+    (``capture_error_mode``);
   * :class:`ForwardGraphs`: a forward-only cache, one graph per
     signature, each in a pool of its own, for the predictors: a
     signature's first item runs eagerly on the side stream, its second
@@ -45,55 +48,99 @@ from .ops.kernels import add_launches, launch_counts
 _ALIGN = 256     # bytes between the starts of two fields in a slot
 
 
-def signature(parts: Sequence[GraphBatch]) -> Tuple:
-    """The shapes and dtypes of every field of a loader item's parts."""
-    return tuple((f.name, tuple(getattr(p, f.name).shape),
-                  getattr(p, f.name).dtype)
-                 for p in parts for f in dataclasses.fields(p))
+def _spec(tree):
+    """A hashable description of ``tree``: each tensor's shape and dtype,
+    each dataclass's type and fields, each tuple's items, and any other
+    leaf (an int, None) as it is."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype)
+    if dataclasses.is_dataclass(tree):
+        return (type(tree).__name__,) + tuple(
+            (f.name, _spec(getattr(tree, f.name)))
+            for f in dataclasses.fields(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_spec(x) for x in tree)
+    return tree
+
+
+def _tensors(tree):
+    """The tensors of ``tree`` (dataclasses, tuples and lists of them),
+    depth first."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(x)
+
+
+def _rebuild(tree, tensors):
+    """``tree`` with its tensors taken in turn from the iterator
+    ``tensors``; every other leaf kept."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), tensors)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(x, tensors) for x in tree)
+    return tree
+
+
+def signature(parts) -> Tuple:
+    """The shapes and dtypes of every tensor of a loader item's parts
+    (GraphBatches, or any tree of dataclasses, tuples and tensors), with
+    the tree's layout and its other leaves."""
+    return _spec(parts)
 
 
 class Slots:
-    """Static device tensors of one loader item: each field of each part
+    """Static device tensors of one loader item: each tensor of its parts
     is a view into one device byte buffer, filled by one non-blocking copy
-    from one pinned host buffer, which the host fills field by field once
-    the previous copy out of it has run."""
+    from one pinned host buffer, which the host fills tensor by tensor
+    once the previous copy out of it has run.  ``parts`` has the item's
+    layout (a tuple of GraphBatches, or any tree of dataclasses, tuples
+    and tensors, whose other leaves it keeps).  On the CPU the host
+    buffer is not pinned and the copy is a plain one (what the CPU tests
+    drive a step's graph-ready form through)."""
 
-    def __init__(self, parts: Sequence[GraphBatch], device):
+    def __init__(self, parts, device):
         layout, size = [], 0
-        for part in parts:
-            fields = []
-            for f in dataclasses.fields(part):
-                t = getattr(part, f.name)
-                n = t.numel() * t.element_size()
-                fields.append((f.name, size, n, t.dtype, tuple(t.shape)))
-                size += -(-n // _ALIGN) * _ALIGN
-            layout.append(fields)
+        for t in _tensors(parts):
+            n = t.numel() * t.element_size()
+            layout.append((size, n, t.dtype, tuple(t.shape)))
+            size += -(-n // _ALIGN) * _ALIGN
+        device = torch.device(device)
+        cuda = device.type == "cuda"
         self.device_buf = torch.empty((size,), dtype=torch.uint8,
                                       device=device)
         self.host_buf = torch.empty((size,), dtype=torch.uint8,
-                                    pin_memory=True)
-        self.parts = self._views(self.device_buf, layout)
-        self._host_parts = self._views(self.host_buf, layout)
-        self._copied = torch.cuda.Event()
+                                    pin_memory=cuda)
+        self.parts = _rebuild(parts, self._views(self.device_buf, layout))
+        self._host = list(self._views(self.host_buf, layout))
+        self._copied = torch.cuda.Event() if cuda else None
         self._pending = False
 
     @staticmethod
     def _views(buf, layout):
-        return tuple(GraphBatch(**{
-            name: buf[off:off + n].view(dtype).view(shape)
-            for name, off, n, dtype, shape in fields}) for fields in layout)
+        return (buf[off:off + n].view(dtype).view(shape)
+                for off, n, dtype, shape in layout)
 
-    def load(self, parts: Sequence[GraphBatch]) -> None:
+    def load(self, parts) -> None:
         """Copy ``parts`` (CPU tensors of this signature) into the slot on
         the current stream."""
         if self._pending:
             self._copied.synchronize()
-        for dst, src in zip(self._host_parts, parts):
-            for f in dataclasses.fields(src):
-                getattr(dst, f.name).copy_(getattr(src, f.name))
-        self.device_buf.copy_(self.host_buf, non_blocking=True)
-        self._copied.record()
-        self._pending = True
+        for dst, src in zip(self._host, _tensors(parts)):
+            dst.copy_(src)
+        self.device_buf.copy_(self.host_buf,
+                              non_blocking=self._copied is not None)
+        if self._copied is not None:
+            self._copied.record()
+            self._pending = True
 
 
 @dataclasses.dataclass
@@ -108,7 +155,12 @@ class CapturedCalls:
     """The capture's side stream, the eager warm-up on it, the capture
     with its launch accounting and the replay (see the module
     docstring).  ``stats``: seconds of eager warm-ups and of captures;
-    captures and replays made; device memory the graphs hold."""
+    captures and replays made; device memory the graphs hold.
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: "global" unless a
+    caller whose other threads touch the card while it captures sets
+    "thread_local" (``distributed.STEP_GRAPHS``: NCCL's watchdog)."""
+
+    capture_error_mode = "global"
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -129,21 +181,23 @@ class CapturedCalls:
         return out
 
     def capture(self, body: Callable[[], Tuple[torch.Tensor, ...]],
-                pool=None, generator: Optional[torch.Generator] = None
+                pool=None, generators: Sequence[torch.Generator] = ()
                 ) -> CapturedGraph:
         """A CUDA graph of ``body()`` on the capture's stream, in ``pool``
-        (a pool of its own if None); ``generator``'s state is registered,
-        so that each replay draws fresh noise."""
+        (a pool of its own if None); each of ``generators`` has its state
+        registered, so that each replay draws fresh noise from the state
+        the generator holds when the replay starts."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
+        for generator in generators:
             graph.register_generator_state(generator)
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+        with torch.cuda.graph(graph, pool=pool, stream=self.stream,
+                              capture_error_mode=self.capture_error_mode):
             out = body()
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}

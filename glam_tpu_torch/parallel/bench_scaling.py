@@ -8,7 +8,13 @@ prints one JSON line per rank count and a scaling-efficiency line.  Each
 count runs the flagship at full width (TripletMessage, hid 60, 3 steps,
 e_dim 1024, GlobalPool5, no noise; Adam, mse) on ``graphs_per_device``
 molecules a rank, one process per rank (``parallel/data_parallel.py``),
-on the cards (``cuda:(rank % cards)``) unless ``--platform cpu``.  Ranks
+on the cards (``cuda:(rank % cards)``) unless ``--platform cpu``.  On
+the cards a step is the replay of its CUDA graph (one process:
+``StepGraphs``; ranks: ``RankStepGraphs`` in their backend's design,
+``distributed.step_graphs_for``), and the eager step's figures stand
+beside it (``eager_edges_per_sec``, ``eager_step_ms``), timed in turns
+(eager, replayed, replayed, eager); on the CPU the steps run eagerly.
+Ranks
 that share a card are time-sliced on it, so their rate is no scaling
 number.  :func:`measure` starts the ranks as processes of this module
 with the ``GLAM_*`` variables set (``distributed.spawn_ranks``); such a
@@ -85,33 +91,66 @@ def _measure_rank(n_devices: int, graphs_per_device: int, n_iter: int,
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
-            return loss
+            return loss.detach()
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    step((batch,))
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(n_iter):
-        step((batch,))
-    sync()
-    seconds, edges = time.perf_counter() - t0, float(batch.num_real_edges)
+    def seconds(fn):
+        """Seconds of ``n_iter`` calls of ``fn``, after one."""
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n_iter):
+            fn()
+        sync()
+        return time.perf_counter() - t0
+
+    eager = lambda: step((batch,))  # noqa: E731
+    design = None
+    if dev.type == "cuda":
+        from ..train.step_graph import RankStepGraphs, StepGraphs
+        host = (batch.to("cpu"),)
+        gen = torch.Generator(dev)
+        if n_devices > 1:
+            backend = torch.distributed.get_backend()
+            design = distributed.step_graphs_for(backend)[0]
+            graphs = RankStepGraphs(step, None, dev, gen, design, 1,
+                                    distributed.CAPTURE_ERROR_MODE[backend])
+            replayed = lambda: graphs.train([host], False, [0])  # noqa: E731
+        else:
+            design = "one process"
+            graphs = StepGraphs(lambda parts: step(parts), None, dev, gen)
+            replayed = lambda: graphs.train([host], False)  # noqa: E731
+        replayed()          # the warm-up, eager; the next call captures
+        turns = [seconds(eager), seconds(replayed), seconds(replayed),
+                 seconds(eager)]
+        eager_s, replayed_s = turns[0] + turns[3], turns[1] + turns[2]
+    else:
+        eager_s = replayed_s = seconds(eager)
+    edges = float(batch.num_real_edges)
     if n_devices > 1:        # the slowest rank's time, every rank's edges
         every = [None] * n_devices
-        torch.distributed.all_gather_object(every, (seconds, edges))
-        seconds = max(e[0] for e in every)
-        edges = sum(e[1] for e in every)
+        torch.distributed.all_gather_object(every,
+                                            (eager_s, replayed_s, edges))
+        eager_s = max(e[0] for e in every)
+        replayed_s = max(e[1] for e in every)
+        edges = sum(e[2] for e in every)
+    calls = n_iter * (2 if dev.type == "cuda" else 1)
     return {"devices": n_devices, "platform": dev.type,
-            "edges_per_sec": edges * n_iter / seconds,
-            "step_ms": seconds / n_iter * 1e3}
+            "step_graphs": design,
+            "edges_per_sec": edges * calls / replayed_s,
+            "step_ms": replayed_s / calls * 1e3,
+            "eager_edges_per_sec": edges * calls / eager_s,
+            "eager_step_ms": eager_s / calls * 1e3}
 
 
 def measure(n_devices: int, graphs_per_device: int = 512, n_iter: int = 30,
             platform: str = "cuda") -> dict:
-    """{devices, platform, edges_per_sec, step_ms} of data-parallel
-    training steps over ``n_devices`` ranks.  Inside a process group of
+    """{devices, platform, step_graphs, edges_per_sec, step_ms,
+    eager_edges_per_sec, eager_step_ms} of data-parallel training steps
+    over ``n_devices`` ranks (the first two replayed on the cards).  Inside a process group of
     ``n_devices`` ranks it measures as this rank; else it runs alone (1)
     or starts the ranks (this module's ``main``) and returns rank 0's
     result."""

@@ -6,9 +6,11 @@ one process per rank over ``torch.distributed``: every rank runs the same
 program on its own device, as the JAX package's hosts each run one
 program.  ``initialize_distributed`` wires a rank from the arguments or
 the same environment variables (``GLAM_COORDINATOR`` host:port,
-``GLAM_NUM_PROCESSES``, ``GLAM_PROCESS_ID``), over ``tcp://``; a rank on
-the CPU takes its share of the host's cores as its threads unless
-``OMP_NUM_THREADS`` sets them.
+``GLAM_NUM_PROCESSES``, ``GLAM_PROCESS_ID``), over ``tcp://``; a rank
+takes its share of the host's cores as its threads unless
+``OMP_NUM_THREADS`` sets them (a rank on a card too: its host work, the
+loaders and the copies into a step graph's static slots, runs on them,
+and ranks that each spin every core stall one another).
 
 The backend follows one rule (:func:`backend_for`): ``nccl`` when every
 rank on this host has a card of its own, ``gloo`` when ranks share a card
@@ -19,6 +21,35 @@ collective the port uses (``all_reduce``, ``broadcast``, ``all_gather``,
 ``all_to_all_single``: ``scripts/gloo_cuda_probe.py`` on the H100); it
 refuses the list ``all_to_all`` and aborts the process on ``send`` and
 ``recv`` of CUDA tensors, which the port does not call.
+
+What a rank's captured step may hold follows from the backend as well
+(:func:`step_graphs_for`, :func:`sharded_step_graphs_for`).  Under
+``nccl`` a collective is a kernel on the rank's card, queued on NCCL's
+stream, which a capture forks from and joins back to the capturing
+stream: a step's collectives go inside its graph ("whole"), the
+all-reduce of a data-parallel step, and the halo exchanges
+(``all_to_all_single``; the ring plan's ``batch_isend_irecv`` send and
+receive), the norms' and readouts' all-reduces and the gradients'
+broadcast of a node-sharded one.  Under ``gloo`` no collective can be
+captured: gloo copies a CUDA tensor to the host, reduces it there on
+its own threads and copies it back.  A data-parallel step then replays
+two graphs around one eager all-reduce ("segmented"); a node-sharded
+step, whose collectives sit inside autograd's forward and backward,
+runs eagerly.  Two rules hold every capture under nccl:
+
+  * the collectives are warm first.  NCCL makes a communicator (and,
+    for send and receive, a peer's channels) at the first collective
+    that needs it, which a capture cannot do; the eager warm-up of a
+    signature (``cuda_graphs.CapturedCalls.warm_up``) issues every
+    collective its step issues;
+  * NCCL's watchdog thread polls the events of the collectives it
+    tracks (``cudaEventQuery``).  A collective issued during a capture
+    is not tracked, but the eager ones before it may still be, and a
+    capture in ``torch.cuda.graph``'s default "global" mode turns the
+    watchdog's query from another thread into an error that spoils the
+    capture.  So a capture under nccl runs in "thread_local" mode
+    (``CAPTURE_ERROR_MODE``), after a device synchronisation; the
+    watchdog stays on and its timeouts hold.
 
 ``process_shard`` partitions a dataset over ranks, ``host_groups`` the
 visible cards into trial groups, and ``global_mesh`` is the ordered list
@@ -109,6 +140,59 @@ def backend_for(device_type: str, local_processes: int,
                     "on this host, and NCCL refuses two ranks on one GPU")
 
 
+# a rank's captured steps by backend: (design, why)
+STEP_GRAPHS = {
+    "nccl": ("whole", "nccl runs its collectives as kernels on the "
+             "rank's card, so each step's graph holds its all-reduce "
+             "(one graph a step, one a group of --scan_steps steps)"),
+    "gloo": ("segmented", "gloo stages CUDA tensors through the host, "
+             "which no graph can hold, so each step replays two graphs "
+             "around one eager all-reduce of the first one's buffer"),
+}
+# the capture mode of a graph that holds nccl collectives (see the module
+# docstring: NCCL's watchdog queries events from its own thread)
+CAPTURE_ERROR_MODE = {"nccl": "thread_local", "gloo": "global"}
+
+
+def step_graphs_for(backend: str, device_type: str = "cuda"
+                    ) -> Tuple[Optional[str], str]:
+    """(design, why) of a data-parallel rank's captured steps under
+    ``backend``: "whole" (nccl), "segmented" (gloo), or None on the
+    CPU, which has no CUDA graphs."""
+    if device_type != "cuda":
+        return None, "a CPU has no CUDA graphs: the steps run eagerly"
+    if backend not in STEP_GRAPHS:
+        raise ValueError(f"no step graphs for backend {backend!r}")
+    return STEP_GRAPHS[backend]
+
+
+def sharded_step_graphs_for(backend: str, device_type: str = "cuda"
+                            ) -> Tuple[Optional[str], str]:
+    """(design, why) of a node-sharded rank's captured steps: "whole"
+    under nccl; None under gloo, whose collectives inside autograd's
+    forward and backward leave no place for an eager one between two
+    graphs, and on the CPU."""
+    if device_type != "cuda":
+        return None, "a CPU has no CUDA graphs: the steps run eagerly"
+    if backend == "nccl":
+        return "whole", ("nccl runs the halo exchanges, the norms' and "
+                         "readouts' all-reduces and the gradients' "
+                         "broadcast as kernels on the rank's card, so "
+                         "each step's graph holds them")
+    return None, ("gloo stages the halo exchanges and the norms' "
+                  "collectives through the host, inside autograd's "
+                  "forward and backward, where no graph can hold them: "
+                  "the steps run eagerly")
+
+
+def step_graphs_rule(device_type: str, local_processes: int,
+                     device_count: int) -> Tuple[str, Optional[str], str]:
+    """(backend, data-parallel design, why) for ranks placed as
+    :func:`backend_for` places them."""
+    backend, _ = backend_for(device_type, local_processes, device_count)
+    return (backend,) + step_graphs_for(backend, device_type)
+
+
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
@@ -134,7 +218,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         torch.cuda.device_count() if device.type == "cuda" else 0)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    elif "OMP_NUM_THREADS" not in os.environ:
+    if "OMP_NUM_THREADS" not in os.environ:
         # the host's cores shared among its ranks: a rank with all of
         # them spins its threads while another waits for it
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))

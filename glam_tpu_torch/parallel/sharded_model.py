@@ -208,7 +208,11 @@ def make_stochastic_inputs(generator: torch.Generator, n_nodes: int,
 class Shard:
     """One rank's rows of B graphs packed into one local graph (see
     :func:`pack_shards`); R = B * Nl rows, T table rows, E edge slots,
-    the real ones first."""
+    the real ones first.  Every array has a shape fixed by the corpus
+    budgets (a CUDA graph of a step takes every protein of a corpus):
+    the CSRs' slots are padded to E, the pads past ``csr_rowptr[-1]``
+    (kernels A and B read E_real there) and, for kernel C, in an extra
+    row R whose output is dropped."""
 
     nodes: torch.Tensor        # [R, F]
     edges: torch.Tensor        # [E, Fe]
@@ -221,10 +225,13 @@ class Shard:
     send_idx: Optional[torch.Tensor]  # a2a: [D, B*H] int64 local rows
     ring: Optional[Tuple[torch.Tensor, ...]]  # ring: [B*H_k] a distance
     csr_rowptr: torch.Tensor   # [T + 1] int32, real edges by receiver
-    csr_snd: torch.Tensor      # [E_real] int32 table row of each
-    csr_eid: torch.Tensor      # [E_real] int32 edge slot of each
-    loop_rowptr: torch.Tensor  # [R + 1] int32, GAT's: a loop, then edges
-    loop_idx: torch.Tensor     # [E_real + R] int32; E + r is row r's loop
+    csr_snd: torch.Tensor      # [E] int32 table row of each (pads: T - 1)
+    csr_eid: torch.Tensor      # [E] int32 edge slot of each (pads: E_real..)
+    pad_rowptr: torch.Tensor   # [R + 2] int32, csr_rowptr's local rows and
+    #                            a last row R of the E - E_real pads
+    loop_rowptr: torch.Tensor  # [R + 2] int32, GAT's: a loop, then edges;
+    #                            the last row R the pads
+    loop_idx: torch.Tensor     # [E + R] int32; E + r is row r's loop
     graph_nodes: torch.Tensor  # [B] float32, each graph's real nodes
     n_pairs: int
     n_local: int
@@ -313,6 +320,14 @@ def pack_shards(per_graph: Sequence[tuple], n_parts: int) -> Shard:
     loop_idx[loop_ptr[:-1]] = E + np.arange(R)
     rows = np.repeat(np.arange(R), in_deg)
     loop_idx[np.arange(n_real) + rows + 1] = csr_eid
+    # the slots padded to E: past the rows (A and B), or in row R (C)
+    pads = np.arange(n_real, E, dtype=np.int32)
+    csr_snd = np.concatenate([csr_snd, np.full(pads.shape, T - 1,
+                                               np.int32)])
+    csr_eid = np.concatenate([csr_eid, pads])
+    loop_idx = np.concatenate([loop_idx, pads])
+    pad_rowptr = np.append(rowptr[:R + 1], E).astype(np.int32)
+    loop_ptr = np.append(loop_ptr, E + R).astype(np.int32)
     if ring:
         send_t, ring_t = None, tuple(
             torch.from_numpy(np.concatenate(
@@ -331,7 +346,8 @@ def pack_shards(per_graph: Sequence[tuple], n_parts: int) -> Shard:
         edge_norm=t(np.ascontiguousarray(enorm_p, np.float32)),
         self_norm=t(np.concatenate(snorm).astype(np.float32)),
         send_idx=send_t, ring=ring_t, csr_rowptr=t(rowptr),
-        csr_snd=t(csr_snd), csr_eid=t(csr_eid), loop_rowptr=t(loop_ptr),
+        csr_snd=t(csr_snd), csr_eid=t(csr_eid), pad_rowptr=t(pad_rowptr),
+        loop_rowptr=t(loop_ptr),
         loop_idx=t(loop_idx),
         graph_nodes=torch.tensor(counts, dtype=torch.float32), n_pairs=B,
         n_local=Nl, table_rows=T)
@@ -486,10 +502,9 @@ class ShardedTower:
             + (table @ w_j).index_select(0, s.senders)
         logits = torch.where(logits >= 0, logits,
                              conv.negative_slope * logits)
-        rowptr = s.csr_rowptr[:R + 1]
         aggr = segment_softmax_spmm(logits[:, None].contiguous(),
                                     table.index_select(0, s.senders),
-                                    rowptr, s.csr_eid)
+                                    s.pad_rowptr, s.csr_eid)[:R]
         return aggr + lp["conv.conv.bias"]
 
     def _gat(self, lp, x_in, s):
@@ -506,7 +521,7 @@ class ShardedTower:
         logits = torch.where(logits >= 0, logits, slope * logits)
         values = torch.cat([table.index_select(0, s.senders), xp])
         out = segment_softmax_spmm(logits[:, None].contiguous(), values,
-                                   s.loop_rowptr, s.loop_idx)
+                                   s.loop_rowptr, s.loop_idx)[:xp.shape[0]]
         return out + lp["conv.conv.bias"]
 
     def _nnconv(self, lp, x_in, s):
@@ -721,14 +736,16 @@ def sync_grads(model: torch.nn.Module, group=None) -> None:
     replicated towers' float sums (the card's atomics) may differ in the
     last bits between ranks, and the replicas must stay equal.  A
     parameter without a gradient keeps none (every rank runs the same
-    graph, so they agree on which)."""
+    graph, so they agree on which; a captured step fixes the set at its
+    capture).  Each gradient becomes a view of the one broadcast buffer,
+    so a replay allocates nothing outside its graph's pool."""
     params = [p for p in model.parameters() if p.grad is not None]
     flat = torch.cat([p.grad.reshape(-1) for p in params])
     dd.broadcast_(flat, 0, group)
     at = 0
     for p in params:
         n = p.numel()
-        p.grad = flat[at:at + n].view_as(p).clone()
+        p.grad = flat[at:at + n].view_as(p)
         at += n
 
 

@@ -21,8 +21,12 @@ host CPU instead.  ``--scan_steps S`` (default 8) is the JAX CLI's: S
 batches of one shape are one dispatch, on the card the replay of a CUDA
 graph of S optimizer steps (``train/step_graph.py``), any other group one
 dispatch a batch (the one-step graph), and evaluation likewise; 1 or
-less gives one-step graphs only.  On the CPU, and with ``--n_devices``
-or ``--pro_shards``, the steps run eagerly in the same groups.
+less gives one-step graphs only.  With ``--n_devices`` a rank replays
+graphs that hold its all-reduce under nccl (one card a rank) and two
+graphs a step around an eager all-reduce under gloo (ranks sharing a
+card); with ``--pro_shards`` a rank replays one graph a step under nccl
+and runs eagerly under gloo (``parallel/distributed.py``).  On the CPU
+the steps run eagerly in the same groups.
 ``--pallas``, ``--probe_compile`` and ``--compile_cache`` are accepted
 and do nothing: the kernels always run on the card.
 ``physprop_perturb`` trains the regression model on its Label-column

@@ -21,7 +21,7 @@ takes part in the collectives.
   * one pair a step by default; ``--pair_batch B`` trains B pairs a
     step, their protein shards packed into one local graph a rank; the
     loss is the weighted mean over the batch, a short last chunk padded
-    with weight-0 repeats of its last pair (``_collate``): the repeats'
+    with weight-0 repeats of its last pair (``_item``): the repeats'
     molecules leave BatchNorm's statistics (their node mask is off) and
     their proteins weigh 0 in the protein tower's;
   * every protein is planned at the corpus's largest shapes
@@ -35,6 +35,19 @@ takes part in the collectives.
     generators seeded from ``seed + 1`` (the molecule tower's on the
     rank's device, the protein tower's on the CPU), not from JAX's keys;
   * ``--probe_compile`` is accepted and does nothing (nothing compiles).
+
+Under nccl (one card a rank) every step and evaluation forward is the
+replay of a CUDA graph (``train/step_graph.py`` ``StepGraphs``, one per
+budget signature: every protein of the corpus packs to one shape,
+``sharded_model.Shard``), its halo exchanges, the norms' and readouts'
+all-reduces and the gradients' broadcast inside
+(``distributed.sharded_step_graphs_for``).  A step's inputs enter the
+graph through static slots: the molecule batch, the rank's packed
+shard, the labels, the weights and the protein tower's noise, which is
+drawn on the host from the CPU generator as the eager step draws it, so
+that captured and eager training see the same noise.  Under gloo and on
+the CPU the steps run eagerly on the same inputs (``_item``,
+``_on_device``), and the log says why.
 """
 from __future__ import annotations
 
@@ -65,6 +78,7 @@ from .metrics import binary_metrics, regression_metrics, screening_metrics
 from .optim import (ReduceLROnPlateau, get_learning_rate,
                     load_optimizer_state, make_optimizer, set_learning_rate)
 from .pair_trainer import _set_pair_max_nodes
+from .step_graph import StepGraphs
 from .trainer import _new_run_dir
 
 
@@ -97,11 +111,6 @@ def pair_losses(task: str, class_weights=None):
         return ce
 
     return loss
-
-
-STEP_GRAPHS_REASON = ("--pro_shards: the halo exchanges and the norms' "
-                      "gloo collectives are staged through the host, so "
-                      "the steps run eagerly")
 
 
 class ShardedPairTrainer:
@@ -173,7 +182,8 @@ class ShardedPairTrainer:
                                f"{sum(ring)} vs a2a rows {n * hb})")
         self.halo = plan
         self._plans: Dict[int, tuple] = {}
-        self._packed: Dict[int, object] = {}
+        self._packed: Dict[int, object] = {}         # B = 1: on the host
+        self._on_card: Dict[int, object] = {}        # and on the device
         self.splits = {"train": dataset.train, "valid": dataset.val,
                        "test": dataset.test}
 
@@ -194,6 +204,17 @@ class ShardedPairTrainer:
         self.scheduler = ReduceLROnPlateau(
             factor=float(args.get("lr_reduce_rate", 0.7)),
             patience=int(args.get("lr_reduce_patience", 20)))
+        backend = torch.distributed.get_backend()
+        design, why = distributed.sharded_step_graphs_for(backend,
+                                                          self.device.type)
+        self.step_graphs = None
+        self.step_graphs_reason = f"--pro_shards {n}, backend {backend}: {why}"
+        if design is not None:
+            self.step_graphs_reason = f"{design}: {self.step_graphs_reason}"
+            self.step_graphs = StepGraphs(self._train, self._infer,
+                                          self.device, self.generator)
+            self.step_graphs.capture_error_mode = \
+                distributed.CAPTURE_ERROR_MODE[backend]
         self._wait = 0
         self._start_epoch = 1
         self._best_state = self._state_copy()
@@ -211,6 +232,8 @@ class ShardedPairTrainer:
                  f"stochastic={self.stochastic}, pair_batch={self.B}")
         if self._halo_note:
             self.log(self._halo_note)
+        self.log(f"step graphs: {self.step_graphs is not None} "
+                 f"({self.step_graphs_reason})")
         self.log(str({k: v for k, v in args.items() if k != "model_cfg"}))
 
     # ------------------------------------------------------------------
@@ -223,10 +246,12 @@ class ShardedPairTrainer:
                                         self._pro_budgets)
         return self._plans[key]
 
-    def _collate(self, chunk):
+    def _item(self, chunk, train: bool = False):
         """(molecule batch, this rank's packed protein shard, labels [B],
-        weights [B]) of up to B pairs on the device: a short chunk is
-        padded with repeats of its last pair at weight 0."""
+        weights [B], noise) of up to B pairs, on the CPU: a short chunk
+        is padded with repeats of its last pair at weight 0; ``noise``
+        is the protein tower's (drop, slope) for a training step of a
+        stochastic model, drawn now, else None."""
         pairs = list(chunk)
         n_real = len(pairs)
         w = [1.0] * n_real + [0.0] * (self.B - n_real)
@@ -241,54 +266,83 @@ class ShardedPairTrainer:
         if self.B == 1:
             key = id(pairs[0][1])
             if key not in self._packed:
-                self._packed[key] = pack_shards(
-                    [self._plan(pairs[0][1])],
-                    self.n_shards).to(self.device)
+                self._packed[key] = pack_shards([self._plan(pairs[0][1])],
+                                                self.n_shards)
             shard = self._packed[key]
         else:
             shard = pack_shards([self._plan(p[1]) for p in pairs],
-                                self.n_shards).to(self.device)
-        y = torch.tensor([float(p[0].y.reshape(-1)[0]) for p in pairs],
-                         device=self.device)
-        return (mol_b.to(self.device), shard, y,
-                torch.tensor(w, device=self.device))
+                                self.n_shards)
+        y = torch.tensor([float(p[0].y.reshape(-1)[0]) for p in pairs])
+        noise = self._noise(shard) if train and self.stochastic else None
+        return mol_b, shard, y, torch.tensor(w), noise
+
+    def _on_device(self, item):
+        """``item`` on the device (a B = 1 shard moved once a protein)."""
+        mol_b, shard, y, w, noise = item
+        if self.B == 1:
+            key = id(shard)
+            if key not in self._on_card:
+                self._on_card[key] = shard.to(self.device)
+            shard = self._on_card[key]
+        else:
+            shard = shard.to(self.device)
+        move = lambda t: t.to(self.device)  # noqa: E731
+        return (move(mol_b), shard, move(y), move(w),
+                None if noise is None else tuple(map(move, noise)))
 
     def _noise(self, shard):
         """This rank's protein-tower noise for the step's B pairs, each
-        pair's drawn over the padded global node count (D * Nl)."""
+        pair's drawn over the padded global node count (D * Nl), on the
+        CPU."""
         n_global = self.n_shards * shard.n_local
         noises = [make_stochastic_inputs(
             self.pro_generator, n_global, self.cfg.hid_dim,
             self.cfg.message_steps, self.n_shards, rate=self._drop_rate)
             for _ in range(self.B)]
-        return tuple(t.to(self.device)
-                     for t in local_noise(noises, self.rank))
+        return local_noise(noises, self.rank)
 
     # ------------------------------------------------------------------
-    def train_step(self, mol_b, shard, y, w) -> torch.Tensor:
-        """One optimizer step on a collated batch; returns the weighted
-        mean loss (the same on every rank)."""
+    def train_step(self, item) -> torch.Tensor:
+        """One optimizer step on an item of :meth:`_item` (on the CPU):
+        through its signature's graph under nccl, else eagerly; returns
+        the weighted mean loss (the same on every rank)."""
         self.model.train(self.stochastic)
-        noise = self._noise(shard) if self.stochastic else None
+        self.forwards += 1
+        self.steps += 1
+        if self.step_graphs is not None:
+            return self.step_graphs.train([item], False)[0]
+        return self._train(self._on_device(item))
+
+    def _train(self, item) -> torch.Tensor:
+        """The step on ``item`` on the device: what a graph holds."""
+        mol_b, shard, y, w, noise = item
         logits = self.forward(mol_b, shard,
                               self.generator if self.stochastic else None,
                               noise, bn_weight=w)
-        self.forwards += 1
         loss = (self.loss(logits, y) * w).sum() / w.sum().clamp(min=1.0)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         sync_grads(self.model)
         self.optimizer.step()
-        self.steps += 1
         return loss.detach()
 
-    def infer(self, mol_b, shard, y):
-        """(logits [B, out], per-pair losses [B]) in evaluation mode."""
+    def _infer(self, item):
+        """(logits [B, out], per-pair losses [B]) of ``item`` on the
+        device, in the mode the caller set."""
+        mol_b, shard, y = item[:3]
+        logits = self.forward(mol_b, shard)
+        return logits, self.loss(logits, y)
+
+    def evaluate(self, item):
+        """(logits, per-pair losses) of an item of :meth:`_item` in
+        evaluation mode, through its graph under nccl."""
         self.model.eval()
+        self.forwards += 1
         with torch.no_grad():
-            logits = self.forward(mol_b, shard)
-            self.forwards += 1
-            return logits, self.loss(logits, y)
+            if self.step_graphs is not None:
+                logits, per = self.step_graphs.evaluate([item], False)
+                return logits[0], per[0]
+            return self._infer(self._on_device(item))
 
     def _state_copy(self):
         return {k: v.detach().clone()
@@ -308,7 +362,7 @@ class ShardedPairTrainer:
             losses = []          # (chunk loss, its real pairs)
             for lo in range(0, len(order), self.B):
                 chunk = [train[i] for i in order[lo:lo + self.B]]
-                lv = self.train_step(*self._collate(chunk))
+                lv = self.train_step(self._item(chunk, train=True))
                 losses.append((lv, len(chunk)))
             vals = torch.stack([lv for lv, _ in losses]).tolist()
             dt = time.perf_counter() - t0
@@ -350,10 +404,10 @@ class ShardedPairTrainer:
         ys, outs, losses = [], [], []
         for lo in range(0, len(split), self.B):
             chunk = split[lo:lo + self.B]
-            mol_b, shard, y, _ = self._collate(chunk)
-            logits, per = self.infer(mol_b, shard, y)
+            item = self._item(chunk)
+            logits, per = self.evaluate(item)
             n = len(chunk)
-            ys.extend(y[:n].tolist())
+            ys.extend(item[2][:n].tolist())
             outs.append(logits[:n].cpu().numpy())
             losses.extend(per[:n].tolist())
         out = np.concatenate(outs)
@@ -383,9 +437,13 @@ class ShardedPairTrainer:
         self.log(str(self.args))
         self.log(f"{loss_info}|{test_result}|{val_new}")
         by_rank = [None] * self.n_shards
+        graphs = {"step_graphs": self.step_graphs is not None,
+                  "reason": self.step_graphs_reason,
+                  "stats": (dict(self.step_graphs.stats)
+                            if self.step_graphs else None)}
         torch.distributed.all_gather_object(
             by_rank, {"launches": launch_counts(), "steps": self.steps,
-                      "forwards": self.forwards})
+                      "forwards": self.forwards, "graphs": graphs})
         if self.is_main:
             record = {
                 "run_id": self.run_id, "loss": loss_info,
@@ -398,8 +456,10 @@ class ShardedPairTrainer:
                 "kernel_launches": launch_counts(),
                 "kernel_launches_by_rank": [r["launches"] for r in by_rank],
                 "forwards_by_rank": [r["forwards"] for r in by_rank],
-                "step_graphs": False,
-                "step_graphs_reason": STEP_GRAPHS_REASON}
+                "step_graphs": self.step_graphs is not None,
+                "step_graphs_reason": self.step_graphs_reason,
+                "step_graph_stats": graphs["stats"],
+                "step_graphs_by_rank": [r["graphs"] for r in by_rank]}
             with open(self.log_save_dir / "result.json", "w") as f:
                 json.dump(record, f, indent=1)
         return loss_info, test_result, val_new

@@ -14,8 +14,11 @@ The epoch loop groups the batches as the JAX trainer does
 S batches of one shape is one dispatch, any other group one dispatch a
 batch, and evaluation likewise (``_gather``).  On the card a dispatch is
 the replay of a CUDA graph (``train/step_graph.py``: the counterpart of
-``jax.jit(train_step)`` and of ``train_scan``'s ``lax.scan``); on the CPU,
-and with data parallelism, the same groups run eagerly, batch by batch.
+``jax.jit(train_step)`` and of ``train_scan``'s ``lax.scan``), a
+data-parallel rank's too (``RankStepGraphs``, in the design its backend
+allows: one graph a step or group with its all-reduce inside under
+nccl, two graphs a step around an eager all-reduce under gloo); on the
+CPU the same groups run eagerly, batch by batch.
 ``GLAM_TRAIN_STATS=1`` adds the JAX trainer's per-epoch line: edges/s
 through the loop (a trailing device synchronisation included) and the
 share of it spent waiting on the prefetch thread.
@@ -92,7 +95,7 @@ from .losses import get_loss
 from .metrics import binary_metrics_multi_target_nan, regression_metrics
 from .optim import (ReduceLROnPlateau, get_learning_rate,
                     load_optimizer_state, make_optimizer, set_learning_rate)
-from .step_graph import StepGraphs, stackable
+from .step_graph import RankStepGraphs, StepGraphs, stackable
 
 # a trial has diverged when its loss or outputs are non-finite or absurdly
 # large but finite (an lr=1e8 run reaches ~1e27 without a NaN)
@@ -248,7 +251,6 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0            # optimizer steps taken
         self.scan_steps = int(self.args.get("scan_steps", 8))
-        self.step_graphs, self.step_graphs_reason = self._make_step_graphs()
         if self.n_devices > 1:
             data_parallel.broadcast_state(self.model)
             weight_fn = self._make_weight()
@@ -258,6 +260,7 @@ class Trainer:
             self._dp_eval = data_parallel.make_dp_eval_step(
                 self.model, self.loss_fn, weight_fn=weight_fn,
                 forward=self.forward)
+        self.step_graphs, self.step_graphs_reason = self._make_step_graphs()
         self.records: Dict[str, List] = {"val_losses": []}
         # per epoch: optimizer steps, molecules and seconds of training
         self.epoch_stats: List[Dict] = []
@@ -323,17 +326,31 @@ class Trainer:
         return tuple(b.to(self.device) for b in self._as_parts(batch))
 
     def _make_step_graphs(self):
-        """(the trainer's ``StepGraphs`` or None, why)."""
-        if self.device.type != "cuda":
-            return None, "a CPU has no CUDA graphs: the steps run eagerly"
-        if self.n_devices > 1:
-            return None, (f"--n_devices {self.n_devices}: gloo collectives "
-                          "are staged through the host, so the steps run "
-                          "eagerly")
-        return (StepGraphs(self._step, self._eval_step, self.device,
-                           self.generator),
-                "one process on the card: steps and evaluations replay "
-                "CUDA graphs")
+        """(the trainer's ``StepGraphs``, a data-parallel rank's
+        ``RankStepGraphs``, or None on the CPU; why)."""
+        if self.n_devices == 1:
+            if self.device.type != "cuda":
+                return None, ("a CPU has no CUDA graphs: the steps run "
+                              "eagerly")
+            return (StepGraphs(self._step, self._eval_step, self.device,
+                               self.generator),
+                    "one process on the card: steps and evaluations replay "
+                    "CUDA graphs")
+        backend = torch.distributed.get_backend()
+        design, why = distributed.step_graphs_for(backend, self.device.type)
+        why = f"--n_devices {self.n_devices}, backend {backend}: {why}"
+        if design is None:
+            return None, why
+        return RankStepGraphs(
+            self._dp_train, self._dp_eval, self.device, self.generator,
+            design, self.scan_steps,
+            distributed.CAPTURE_ERROR_MODE[backend]), f"{design}: {why}"
+
+    def _noise_seed(self, step: int) -> int:
+        """A data-parallel rank's noise seed for optimizer step ``step``
+        (from 1)."""
+        return noise_seed(self.args.get("seed", 1234),
+                          (step - 1) * self.n_devices + self.rank)
 
     # ------------------------------------------------------------------
     def forward(self, parts, generator=None) -> torch.Tensor:
@@ -350,9 +367,7 @@ class Trainer:
         parts = self._as_parts(batch)
         self.step += 1
         if self.n_devices > 1:
-            self.generator.manual_seed(noise_seed(
-                self.args.get("seed", 1234),
-                (self.step - 1) * self.n_devices + self.rank))
+            self.generator.manual_seed(self._noise_seed(self.step))
             return self._dp_train(parts, self.generator).detach()
         return self._step(parts)
 
@@ -383,7 +398,12 @@ class Trainer:
         if self.step_graphs is None:
             return torch.stack([self.train_step(self._to_device(p))
                                 for p in pending])
+        first = self.step + 1
         self.step += len(pending)
+        if self.n_devices > 1:
+            return self.step_graphs.train(
+                pending, self._full_group(pending),
+                [self._noise_seed(first + i) for i in range(len(pending))])
         return self.step_graphs.train(pending, self._full_group(pending))
 
     def _eval_group(self, pending):
@@ -560,17 +580,27 @@ class Trainer:
         loss_info = {"testloss": float(test_loss), "valloss": float(val_loss)}
         val_new = {"val" + k: v for k, v in val_result.items()}
         self.log(f"{loss_info}|{test_result}|{val_new}")
-        by_rank = [launch_counts()]
+        mine = (launch_counts(), self._graphs_record())
+        by_rank = [mine]
         if self.n_devices > 1:
             by_rank = [None] * self.n_devices
-            torch.distributed.all_gather_object(by_rank, launch_counts())
+            torch.distributed.all_gather_object(by_rank, mine)
         if self.is_main:
-            self._write_structured_result(loss_info, test_result, val_new,
-                                          by_rank)
+            self._write_structured_result(
+                loss_info, test_result, val_new, [r[0] for r in by_rank],
+                [r[1] for r in by_rank])
         return loss_info, test_result, val_new
 
+    def _graphs_record(self) -> Dict:
+        """This process's step graphs: whether its steps replayed them,
+        why, and their stats."""
+        return {"step_graphs": self.step_graphs is not None,
+                "reason": self.step_graphs_reason,
+                "stats": (dict(self.step_graphs.stats)
+                          if self.step_graphs else None)}
+
     def _write_structured_result(self, loss_info, test_result, val_new,
-                                 launches_by_rank):
+                                 launches_by_rank, graphs_by_rank):
         """result.json in the run dir and a record appended to
         <work_dir>/results.jsonl: the config, the results, the epochs
         and optimizer steps trained, the seconds, and the kernels'
@@ -607,6 +637,8 @@ class Trainer:
             "step_graphs_reason": self.step_graphs_reason,
             "step_graph_stats": (dict(self.step_graphs.stats)
                                  if self.step_graphs else None),
+            # each rank's: whether it replayed graphs, why, their stats
+            "step_graphs_by_rank": graphs_by_rank,
             "scan_steps": self.scan_steps,
             "kernel_launches_by_rank": launches_by_rank,
         }

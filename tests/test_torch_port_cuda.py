@@ -6,7 +6,8 @@ a node-sharded pair step of 2 ranks against the dense one; kernels A and
 B over a CSR padded to the edge budget against its real slots, and the
 trainer's steps as CUDA graphs (no host synchronisation in a step, 19
 captured steps against eager, fresh noise and counted launches at every
-replay).  Every test here is marked ``cuda`` and skips without a CUDA
+replay; a data-parallel rank's steps through its segmented graphs on 2
+gloo ranks).  Every test here is marked ``cuda`` and skips without a CUDA
 device.
 
 This file imports no JAX, so it also runs on a machine without it:
@@ -745,8 +746,10 @@ def test_dp_step_with_two_ranks_on_one_card(cuda, tmp_path):
 def test_triplet_kernels_over_a_halo_table(cuda):
     """Kernels A and B as the node-sharded TripletMessage tower calls
     them: ``xp`` is a shard's [local ; halo] table, the halo rows are
-    empty CSR rows (their a_i zero), against the plain versions in
-    float64; B's d_xp reaches the halo rows."""
+    empty CSR rows (their a_i zero), the CSR's slots padded to the
+    shard's edge slots (past ``csr_rowptr[-1]``, as the batch's are),
+    against the plain versions over the real slots in float64; B's d_xp
+    reaches the halo rows."""
     from chip_smoke import sharded_protein_cases, shard_kernel_inputs
     H, C = 3, 60
     cases = sharded_protein_cases(length=300, e_dim=32, time=False)
@@ -762,8 +765,10 @@ def test_triplet_kernels_over_a_halo_table(cuda):
     g = torch.from_numpy(rng.randn(T, H * C).astype(np.float32)).to(cuda)
     got = triplet_attention_fwd(*args, H, C)
     got_b = triplet_attention_bwd(*args, *got, g, H, C)
+    E = int(csr[0][-1])
+    assert csr[1].shape[0] == shard.edges.shape[0] > E
     d64 = [a.cpu().double() if a.is_floating_point() else a.cpu()
-           for a in args]
+           for a in args[:7] + [args[7][:E], args[8][:E]]]
     want = triplet_attention_plain(*d64, H, C)
     want_b = triplet_attention_bwd_plain(*d64, *want, g.cpu().double(), H,
                                          C)
@@ -913,3 +918,35 @@ def test_replays_draw_fresh_noise_and_count_their_launches(
     assert len(set(losses.tolist())) == 4
     torch.cuda.synchronize()
     assert common.dirty_tickets() == {}
+
+
+def test_dp_step_graphs_with_two_ranks_on_one_card(cuda, tmp_path):
+    """The data-parallel steps of 2 gloo ranks sharing cuda:0 through
+    their step graphs (the segmented design: two graphs a step around
+    one eager all-reduce) against the same steps eagerly, 19 steps from
+    one state with the learning rate cut between (``chip_smoke.
+    hold_runs``): SGD without noise, and Adam with RReLU and Dropout,
+    whose losses say that each replay draws its eager step's masks from
+    the reseeded generator; launches equal; the ranks bitwise equal."""
+    import json
+    import shutil
+
+    from chip_smoke import DEMO_CSV, DP_GRAPH_CONFIGS, hold_runs
+    from torch_port_dp_worker import GRAPH_PLAN, spawn_ranks, wait_ranks
+    shutil.copytree(DEMO_CSV.parent, tmp_path / "demo" / "raw")
+    small = {"e_dim": 128, "hid_dim_alpha": 2}
+    (tmp_path / "plan.json").write_text(json.dumps({
+        "tasks": ["graphs"], "root": str(tmp_path / "demo"),
+        "graphs": {k: dict(v, **small) for k, v in
+                   DP_GRAPH_CONFIGS.items()}}))
+    got = wait_ranks(spawn_ranks(tmp_path, "cuda"), tmp_path,
+                     timeout=600)["graphs"]
+    for name, r in got.items():
+        runs = r["runs"]
+        res = hold_runs(f"dp {name}", DP_GRAPH_CONFIGS[name]["optim"],
+                        "noise" in name, GRAPH_PLAN, runs, "test")
+        assert res["same_draws"]
+        assert runs["captured"][3]["replays"] > 0
+        states = r["captured_by_rank"]
+        for k in states[0]:
+            assert torch.equal(states[0][k], states[1][k]), k

@@ -23,6 +23,14 @@ trainers' ``--n_devices``) against the JAX package, on the CPU.
         data-parallel pair trainer's (rtol 1e-4);
       - ``process_shard``, ``global_mesh``, the backend rule and
         ``bench_scaling.measure(2, graphs_per_device=8, n_iter=2)``;
+      - one collective (a ``torch.distributed`` call) a training step
+        and one an evaluation step, what lets a replayed step hold its
+        all-reduce (nccl) or sit around one (gloo);
+      - a parameter no rank reaches keeps no gradient, and Adam leaves
+        it and its state alone;
+  * the step graphs' rule: none on the CPU, the whole step's graph under
+    nccl, two graphs around an eager all-reduce under gloo, and node-
+    sharded steps eager under gloo;
   * ``initialize_distributed`` reads the ``GLAM_*`` variables, and
     ``host_groups`` partitions devices.
 """
@@ -180,6 +188,27 @@ def test_initialize_distributed_reads_the_glam_variables(monkeypatch):
     monkeypatch.delenv("GLAM_COORDINATOR")
     with pytest.raises(ValueError, match="GLAM_COORDINATOR"):
         distributed.initialize_distributed(platform="cpu")
+
+
+@pytest.mark.parametrize("where,want", [
+    (("cpu", 2, 0), ("gloo", None, None)),
+    (("cuda", 2, 1), ("gloo", "segmented", None)),
+    (("cuda", 4, 1), ("gloo", "segmented", None)),
+    (("cuda", 4, 4), ("nccl", "whole", "whole")),
+    (("cuda", 2, 8), ("nccl", "whole", "whole"))])
+def test_step_graph_rule(where, want):
+    """A rank's step graphs follow its backend alone, and say why."""
+    backend, design, why = distributed.step_graphs_rule(*where)
+    sharded, sharded_why = distributed.sharded_step_graphs_for(
+        backend, where[0])
+    assert (backend, design, sharded) == want
+    assert why and sharded_why
+    if where[0] == "cpu":
+        assert "CPU" in why and "CPU" in sharded_why
+    elif backend == "gloo":
+        assert "host" in why and "eager" in sharded_why
+    else:
+        assert distributed.CAPTURE_ERROR_MODE[backend] == "thread_local"
 
 
 def test_backend_rule_and_host_groups():
@@ -347,6 +376,36 @@ def test_dp_step_takes_a_gradient_any_rank_has(dp_run):
                                        msg=k)
 
 
+@pytest.mark.parametrize("name", list(worker.CONFIGS))
+def test_dp_steps_make_one_collective(dp_run, name):
+    """The weight W rides in the gradients' buffer, so a training step is
+    one all-reduce; an evaluation step one of [w, loss w]."""
+    got, want = dp_run
+    assert got[f"step_{name}"]["collectives"] == {"train": 1, "eval": 1}
+    assert want[name]["single"]["collectives"] == {"train": 0, "eval": 0}
+
+
+def test_dp_untouched_parameter_keeps_no_gradient(dp_run):
+    """Two Adam steps of three layers, rank k's forward reaching layer k
+    alone: the step's gradient set holds the first two layers on both
+    ranks, the third keeps ``grad None`` and no Adam state, and does not
+    move; the replicas stay equal."""
+    got, _ = dp_run
+    ranks = got["partial_adam"]
+    torch.manual_seed(1)
+    init = torch.nn.ModuleList(torch.nn.Linear(3, 1) for _ in range(
+        worker.PARTIAL_LAYERS + 1)).state_dict()
+    last = f"{worker.PARTIAL_LAYERS}."
+    for r in ranks:
+        assert r["had"] == [True] * (2 * worker.PARTIAL_LAYERS) \
+            + [False, False]
+        assert r["untouched_grads"] == [True, True]
+        assert r["untouched_adam_state"] == [0, 0]
+        for k, v in r["state"].items():
+            assert torch.equal(v, ranks[0]["state"][k]), k
+            assert torch.equal(v, init[k]) == k.startswith(last), k
+
+
 # ------------------------------------------------------------------- CLI
 def test_cli_two_ranks_on_the_cpu(tmp_path, capsys):
     """``run --n_devices 2 --platform cpu`` starts two gloo ranks of
@@ -371,6 +430,10 @@ def test_cli_two_ranks_on_the_cpu(tmp_path, capsys):
     result = json.loads((runs[0] / "result.json").read_text())
     assert len(result["kernel_launches_by_rank"]) == 2
     assert result["config"]["n_devices"] == 2
+    # gloo ranks on the CPU replay no graphs, and each says why
+    assert [g["step_graphs"] for g in result["step_graphs_by_rank"]] \
+        == [False, False]
+    assert all("CPU" in g["reason"] for g in result["step_graphs_by_rank"])
 
 
 def test_cli_ranks_need_a_card_unless_asked_for_the_cpu(tmp_path):

@@ -15,6 +15,10 @@ entry points (``run --pro_shards``, the solver, ``bench_scaling
       - with RReLU noise, Adam and 4 pairs a step, 2 epochs straight
         through against 1 epoch, ``resume``, then the second: the same
         parameters, bitwise;
+      - the step in its graph-ready form (the molecule batch, the shard,
+        the labels, the weights and the protein tower's noise through
+        static slots, as a captured step takes them), run eagerly: the
+        eager step's losses and parameters, bitwise;
       - one epoch of Adam without noise from the same weights as the
         SGD epoch, against the JAX trainer's Adam epoch: first, the first
         step's gradients of both trainers against the dense model's in
@@ -130,6 +134,8 @@ def strainer_run(tmp_path_factory):
         "straight": {"args": dict(noisy, epochs=2), "root": str(small),
                      "train_only": True},
         "first": {"args": noisy, "root": str(small), "train_only": True},
+        "slots": {"args": noisy, "root": str(small), "train_only": True,
+                  "slots": True},
         "resumed": {"args": dict(noisy, epochs=2), "root": str(small),
                     "resume_from": "first", "train_only": True},
     }, work / "strainer.pt")
@@ -298,6 +304,18 @@ def test_resume_equals_straight_through(strainer_run):
             assert torch.equal(resumed["params"][rank][k], v), k
 
 
+def test_graph_ready_step_equals_the_eager_step(strainer_run):
+    """An epoch whose every step and evaluation takes its inputs through
+    static slots (the captured step's form, run eagerly here) trains the
+    eager epoch's noise, losses and parameters, bitwise."""
+    got, _, _ = strainer_run
+    eager, slots = got["first"], got["slots"]
+    assert slots["records"] == eager["records"]
+    for rank in range(2):
+        for k, v in eager["params"][rank].items():
+            assert torch.equal(slots["params"][rank][k], v), k
+
+
 # ------------------------------------------------------------- the CLI
 @pytest.fixture
 def one_thread(monkeypatch):
@@ -323,6 +341,11 @@ def test_cli_trains_with_two_shards(tmp_path, one_thread):
     result = json.loads((run_dir / "result.json").read_text())
     assert len(result["kernel_launches_by_rank"]) == 2
     assert result["config"]["pro_shards"] == 2
+    # gloo ranks on the CPU replay no graphs, and each says why
+    assert result["step_graphs"] is False
+    assert [g["step_graphs"] for g in result["step_graphs_by_rank"]] \
+        == [False, False]
+    assert all("CPU" in g["reason"] for g in result["step_graphs_by_rank"])
     # the best checkpoint, served dense, gives the final line's test loss
     pred = PairPredictor.from_checkpoint(
         run_dir, contact_maps=load_contact_store(

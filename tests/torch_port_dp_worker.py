@@ -17,18 +17,31 @@ caller wrote one, else from its seed.  Rank 0 saves what the ranks
 computed to ``<work dir>/rank0.pt``:
   step     per config: the merged evaluation (outputs, labels, loss) from
            the initial weights, then the state after one SGD step on the
-           first global batch of the training loader, and each rank's
-           kernel launches in that step;
-  time     on the card, each rank's: the first config's step (median
-           host ms of 20, the profile's busy ms), the gradient
+           first global batch of the training loader, each rank's
+           kernel launches in that step, and the collectives (calls of
+           ``torch.distributed``) that step and one evaluation step
+           make;
+  time     on the card, each rank's: the first config's step, eager and
+           replayed through the rank's step graphs in turns (median host
+           ms of 20 each, and the profiles' busy ms after a barrier, with
+           and without the collectives' kernels), the gradient
            all-reduce's buffer (floats, median ms of 20) and, with
            ``halo.pt``, the v1 and v2 halo steps' median ms;
+  graphs   on the card, per config of ``graphs`` ({name: the CLI's
+           args}): 19 steps from one state through the trainer's
+           ``RankStepGraphs`` (8 + 8 + 3, the learning rate cut between)
+           and the same steps eagerly, three times: rank 0's state,
+           losses, launches and graph stats of each run, and every
+           rank's state after the captured run;
   ddi      a 1-epoch DDI pair trainer's per-epoch losses;
   dist     process_shard, global_mesh, the rank count and the backend;
   measure  bench_scaling.measure(ranks, graphs_per_device=8, n_iter=2);
   partial  each rank's state after one make_dp_train_step SGD step of
            PARTIAL_LAYERS linear layers, rank k's forward reaching layer
-           k alone (so each has a gradient on one rank only);
+           k alone (so each has a gradient on one rank only); and after
+           two Adam steps of PARTIAL_LAYERS + 1 layers, the last reached
+           by no rank (``partial_adam``: states, the step's gradient
+           set, the untouched layer's gradients and Adam state);
   halo     the v1 and v2 halo message steps on this rank's shard of
            ``halo.pt`` (parameters, the split graph and the v2 plan),
            every rank's output gathered, and each rank's launches;
@@ -36,11 +49,15 @@ computed to ``<work dir>/rank0.pt``:
            cases of ``sharded.pt`` (:func:`task_sharded`), and on the
            card its step's, halo's and collectives' times
            (``sharded_time``, :func:`task_sharded_time`);
+  sharded_graphs  on the card under nccl, the sharded step captured
+           whole, its collectives inside (:func:`task_sharded_graphs`);
   strainer the sharded DTI trainer (``train/sharded_pair_trainer.py``)
-           on the runs of ``strainer.pt`` (:func:`task_strainer`).
+           on the runs of ``strainer.pt`` (:func:`task_strainer`), one
+           of them through static slots (``slots``).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import sys
@@ -133,19 +150,56 @@ def trainer(name: str, n_devices: int, work: Path, device, args=None,
                    work_dir=str(work / f"{name}_d{n_devices}"), device=device)
 
 
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "all_to_all", "all_to_all_single",
+               "batch_isend_irecv", "reduce_scatter_tensor", "barrier",
+               "all_gather_object", "broadcast_object_list")
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """{"n": the calls of ``torch.distributed``'s collectives} made
+    inside the block."""
+    counts = {"n": 0}
+    saved = {name: getattr(torch.distributed, name) for name in COLLECTIVES}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            counts["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(torch.distributed, name, counted(fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.distributed, name, fn)
+
+
 def step_and_eval(tr: Trainer):
-    """The merged evaluation from the current weights, then one step on
-    the first batch: {out, y, loss, state, launches (of the step)}."""
+    """The merged evaluation from the current weights, one evaluation
+    step on the first validation batch, then one step on the first
+    training batch: {out, y, loss, state, launches (of the step),
+    collectives (of the training and the evaluation step)}."""
     out, y, loss = tr._gather("valid")
+    tr.model.eval()
+    vb = tr._to_device(next(iter(tr.valid_loader)))
+    with torch.inference_mode(), count_collectives() as evaluation:
+        (tr._dp_eval if tr.n_devices > 1 else tr._eval_step)(vb)
     tr.model.train()
     batch = tr._to_device(next(iter(tr.train_loader)))
     before = launch_counts()
-    tr.train_step(batch)
+    with count_collectives() as training:
+        tr.train_step(batch)
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     state = {k: v.detach().cpu().clone()
              for k, v in tr.model.state_dict().items()}
     return {"out": out, "y": y, "loss": loss, "state": state,
-            "launches": launches}
+            "launches": launches,
+            "collectives": {"train": training["n"],
+                            "eval": evaluation["n"]}}
 
 
 def _configs(plan):
@@ -183,8 +237,17 @@ def _median_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def task_time(work, plan, dev):
+def _profile(label, fn):
+    """``chip_smoke.print_profile`` of ``fn`` once every rank has reached
+    it (a barrier, then a synchronisation), so that the profile holds no
+    wait for a late peer."""
     from chip_smoke import print_profile
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    return print_profile(label, fn)
+
+
+def task_time(work, plan, dev):
     if dev.type != "cuda":
         raise ValueError("the time task measures on the card")
     rank, ranks = distributed.world()
@@ -195,14 +258,30 @@ def task_time(work, plan, dev):
     step = lambda: tr.train_step(batch)  # noqa: E731
     for _ in range(3):
         step()
-    got = {"host_ms": _median_ms(step),
-           "busy": print_profile(f"rank {rank} data-parallel step", step)}
+    # the same step replayed through the rank's step graphs, timed in
+    # turns with the eager one (eager, replayed, eager, replayed)
+    graphs = tr.step_graphs
+    host = tuple(p.to("cpu") for p in batch)
+    seeds = iter(range(1 << 30))
+    replay = lambda: graphs.train([host], False, [next(seeds)])  # noqa
+    replay()                  # the warm-up, eager; then the captures
+    replay()
+    turns = {"eager": [], "replayed": []}
+    for _ in range(2):
+        turns["eager"].append(_median_ms(step))
+        turns["replayed"].append(_median_ms(replay))
+    got = {"host_ms": statistics.median(turns["eager"]),
+           "turns": turns, "design": graphs.design,
+           "graph_stats": dict(graphs.stats),
+           "busy": _profile(f"rank {rank} data-parallel step", step),
+           "busy_replayed": _profile(f"rank {rank} data-parallel step "
+                                     f"replayed ({graphs.design})", replay)}
     params = [p for p in tr.model.parameters() if p.requires_grad]
     stats = data_parallel.running_stats(tr.model)
     # make_dp_train_step's buffer: the gradients, the running statistics,
-    # a flag a parameter and the loss
+    # the weight, the weighted loss and a flag a parameter
     n = sum(p.numel() for p in params) + sum(b.numel() for b in stats) \
-        + len(params) + 1
+        + 2 + len(params)
     flat = torch.zeros(n, device=dev)
     got["all_reduce_floats"] = n
     got["all_reduce_ms"] = _median_ms(
@@ -215,6 +294,63 @@ def task_time(work, plan, dev):
           f"{got['busy']['busy_ms']:.4f}; all_reduce of {n} floats "
           f"all_reduce_ms={got['all_reduce_ms']:.4f}", flush=True)
     return {"time": _by_rank(got)}
+
+
+GRAPH_PLAN = [(0, 8), (8, 16), "lr", (16, 19)]
+
+
+def _graph_run(name, args, work, dev, plan, captured):
+    """A fresh trainer's steps of GRAPH_PLAN over its first training
+    items (the learning rate cut by 0.7 at "lr"), through its step graphs
+    if ``captured``, else eagerly: (state with the optimizer's, losses,
+    launches, graph stats, learning rate)."""
+    import gc
+    import itertools
+    from glam_tpu_torch.train.optim import (get_learning_rate,
+                                            set_learning_rate)
+    tr = trainer(name, distributed.world()[1], work, dev, args,
+                 plan.get("root"))
+    if not captured:
+        tr.step_graphs = None
+    tr.model.train()
+    n = max(p[1] for p in GRAPH_PLAN if p != "lr")
+    host = [tr._as_parts(h) for h in itertools.islice(
+        itertools.cycle(tr.train_loader), n)]
+    before = launch_counts()
+    losses = []
+    for part in GRAPH_PLAN:
+        if part == "lr":
+            set_learning_rate(tr.optimizer,
+                              0.7 * get_learning_rate(tr.optimizer))
+            continue
+        losses.append(tr._train_group(host[part[0]:part[1]]))
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    state = {k: v.detach().cpu().clone()
+             for k, v in tr.model.state_dict().items()}
+    state.update({f"{i}.{k}": v.detach().cpu().clone()
+                  for i, st in enumerate(tr.optimizer.state.values())
+                  for k, v in st.items() if torch.is_tensor(v)})
+    out = (state, torch.cat(losses).cpu(), launches,
+           dict(tr.step_graphs.stats) if captured else None,
+           get_learning_rate(tr.optimizer))
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def task_graphs(work, plan, dev):
+    if dev.type != "cuda":
+        raise ValueError("the graphs task runs on the card")
+    out = {}
+    for name, args in plan["graphs"].items():
+        runs = {run: _graph_run(name, args, work, dev, plan,
+                                run == "captured")
+                for run in ("eager", "captured", "eager_2", "eager_3")}
+        out[name] = {"runs": runs,
+                     "captured_by_rank": _by_rank(runs["captured"][0])}
+    return {"graphs": out}
 
 
 def task_ddi(work, plan, dev):
@@ -279,8 +415,26 @@ def task_partial(work, plan, dev):
         torch.optim.SGD(model.parameters(), lr=0.1),
         forward=lambda parts, generator: model[rank](x))
     step((part,))
+    # PARTIAL_LAYERS + 1 layers under Adam: the last reached by no rank
+    torch.manual_seed(1)
+    wide = torch.nn.ModuleList(torch.nn.Linear(3, 1)
+                               for _ in range(PARTIAL_LAYERS + 1)).to(dev)
+    opt = torch.optim.Adam(wide.parameters(), lr=0.1)
+    adam = data_parallel.make_dp_train_step(
+        wide, lambda out, y, m: ((out - y) ** 2).mean(), opt,
+        forward=lambda parts, generator: wide[rank](x))
+    for _ in range(2):
+        adam((part,))
+    last = wide[PARTIAL_LAYERS]
     return {"partial": _by_rank({k: v.cpu()
-                                 for k, v in model.state_dict().items()})}
+                                 for k, v in model.state_dict().items()}),
+            "partial_adam": _by_rank({
+                "state": {k: v.cpu() for k, v in wide.state_dict().items()},
+                "had": adam.had,
+                "untouched_grads": [p.grad is None
+                                    for p in last.parameters()],
+                "untouched_adam_state": [len(opt.state[p])
+                                         for p in last.parameters()]})}
 
 
 def _halo_steps(work, dev):
@@ -467,7 +621,6 @@ def task_sharded_time(work, plan, dev):
     collectives: the all-reduce of the protein tower's shard-local
     parameter and molecule-state gradients (``enter_local``) and the
     broadcast of every gradient (``sync_grads``), ms and floats."""
-    from chip_smoke import print_profile
     from glam_tpu_torch.parallel import sharded_model as sm
     if dev.type != "cuda":
         raise ValueError("the sharded_time task measures on the card")
@@ -492,8 +645,8 @@ def task_sharded_time(work, plan, dev):
             for _ in range(3):
                 step()
             got = {"host_ms": _median_ms(step, reps=10),
-                   "busy": print_profile(f"rank {rank} sharded step "
-                                         f"[{name} {halo}]", step)}
+                   "busy": _profile(f"rank {rank} sharded step "
+                                    f"[{name} {halo}]", step)}
             tower = sm.ShardedTower(model.mol2, model.cfg,
                                     model.cfg.pro_block,
                                     model.cfg.pro_readout)
@@ -521,6 +674,83 @@ def task_sharded_time(work, plan, dev):
                 lambda: distributed.broadcast_(every))
             out[f"{name}_{halo}"] = got
     return {"sharded_time": _by_rank(out)}
+
+
+def task_sharded_graphs(work, plan, dev):
+    """On the card under nccl, for each case of ``sharded.pt`` marked
+    ``time`` and each plan (a2a, ring): the sharded pair step captured
+    whole, its collectives inside.  First a graph of the forward, the
+    loss's backward and the gradients' broadcast: one replay's output,
+    gradients and launches (rank 0's against the dense model by the
+    caller).  Then a graph of the whole Adam step: its host ms replayed
+    and eager in turns (medians of 10), the profiles' busy ms after a
+    barrier (with and without the collectives' kernels), and every
+    rank's parameters after the replays."""
+    from glam_tpu_torch.cuda_graphs import CapturedCalls
+    from glam_tpu_torch.parallel import sharded_model as sm
+    from glam_tpu_torch.train.optim import make_optimizer
+    if dev.type != "cuda":
+        raise ValueError("the sharded_graphs task runs on the card")
+    rank = distributed.world()[0]
+    backend = torch.distributed.get_backend()
+    if distributed.sharded_step_graphs_for(backend)[0] is None:
+        raise ValueError(f"no sharded step graphs under {backend}")
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        if not case.get("time"):
+            continue
+        for halo in ("a2a", "ring"):
+            model, mol_b, shard = _first_pair(case, dev, halo)
+            fwd = sm.make_sharded_pair_forward(model)
+            opt = make_optimizer("Adam", model.named_parameters(), 1e-4)
+            calls = CapturedCalls(dev)
+            calls.capture_error_mode = \
+                distributed.CAPTURE_ERROR_MODE[backend]
+            names = [n for n, _ in model.named_parameters()]
+
+            def grads():
+                model.zero_grad(set_to_none=True)
+                y = fwd(mol_b, shard)
+                ((y - 0.3) ** 2).mean().backward()
+                sm.sync_grads(model)
+                return (y.detach(),) + tuple(
+                    p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in model.parameters())
+
+            def step():
+                grads()
+                opt.step()
+
+            calls.warm_up(grads)          # NCCL's communicators, eagerly
+            graph = calls.capture(grads)
+            before = launch_counts()
+            res = calls.replay(graph)
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            got = {"out": res[0].cpu().clone(),
+                   "grads": {n: g.cpu().clone()
+                             for n, g in zip(names, res[1:])},
+                   "launches": launches}
+            calls.warm_up(step)           # Adam's state, eagerly
+            whole = calls.capture(step)
+            replay = lambda: calls.replay(whole)  # noqa: E731
+            turns = {"eager": [], "replayed": []}
+            for _ in range(2):
+                turns["eager"].append(_median_ms(step, reps=10))
+                turns["replayed"].append(_median_ms(replay, reps=10))
+            got.update(turns=turns, busy=_profile(
+                f"rank {rank} sharded step [{name} {halo}] eager", step),
+                busy_replayed=_profile(
+                    f"rank {rank} sharded step [{name} {halo}] replayed",
+                    replay), graph_stats=dict(calls.stats))
+            params = _by_rank({k: v.detach().cpu().clone()
+                               for k, v in model.state_dict().items()})
+            if rank == 0:
+                got["params"] = params
+            else:
+                got.pop("out"), got.pop("grads")
+            out[f"{name}_{halo}"] = got
+    return {"sharded_graphs": _by_rank(out)}
 
 
 def dense_float64_grads(tr):
@@ -576,6 +806,20 @@ def task_strainer(work, plan, dev):
             tr._best_state = tr._state_copy()
         if run.get("resume_from"):
             tr.resume(dirs[run["resume_from"]])
+        if run.get("slots"):
+            # the graph-ready form: every input of a step and of an
+            # evaluation enters through a static slot (as a captured
+            # step's do), run eagerly
+            from glam_tpu_torch.cuda_graphs import Slots, signature
+            slots = {}
+
+            def through_slots(item, _slots=slots, _tr=tr):
+                sig = signature(item)
+                if sig not in _slots:
+                    _slots[sig] = Slots(item, _tr.device)
+                _slots[sig].load(item)
+                return _slots[sig].parts
+            tr._on_device = through_slots
         got = {}
         if run.get("first_grads"):
             got["float64_grads"] = dense_float64_grads(tr)
@@ -600,8 +844,7 @@ def task_strainer(work, plan, dev):
         if run.get("logits"):
             logits = []
             for pair in tr.splits["test"]:
-                mol_b, shard, y, _ = tr._collate([pair])
-                logits.append(tr.infer(mol_b, shard, y)[0].cpu())
+                logits.append(tr.evaluate(tr._item([pair]))[0].cpu())
             got["logits"] = torch.cat(logits)
             got["test_pairs"] = [(m.smi, p.smi) for m, p in
                                  tr.splits["test"]]
@@ -611,10 +854,12 @@ def task_strainer(work, plan, dev):
     return {"strainer": out}
 
 
-TASKS = {"step": task_step, "time": task_time, "ddi": task_ddi,
+TASKS = {"step": task_step, "time": task_time, "graphs": task_graphs,
+         "ddi": task_ddi,
          "dist": task_dist, "measure": task_measure,
          "partial": task_partial, "halo": task_halo,
          "sharded": task_sharded, "sharded_time": task_sharded_time,
+         "sharded_graphs": task_sharded_graphs,
          "strainer": task_strainer}
 
 
@@ -629,14 +874,18 @@ def spawn_ranks(work, platform, ranks=2):
 
 def wait_ranks(procs, work, timeout=300):
     """Wait for the ranks (stopping them all when one fails or
-    ``timeout`` s pass); fail with every rank's output if one failed;
-    returns rank 0's results."""
-    rc = distributed.wait_ranks(procs, timeout)
-    if rc:
-        logs = "".join(f"--- rank {k}\n" + (Path(work) / f"rank{k}.out"
-                                              ).read_text()[-4000:]
+    ``timeout`` s pass); fail with every rank's output if one failed or
+    they ran past ``timeout``; returns rank 0's results."""
+    def logs():
+        return "".join(f"--- rank {k}\n" + (Path(work) / f"rank{k}.out"
+                                             ).read_text()[-4000:]
                        for k in range(len(procs)))
-        raise RuntimeError(f"a rank exited with {rc}:\n{logs}")
+    try:
+        rc = distributed.wait_ranks(procs, timeout)
+    except TimeoutError as err:
+        raise TimeoutError(f"{err}:\n{logs()}") from None
+    if rc:
+        raise RuntimeError(f"a rank exited with {rc}:\n{logs()}")
     return torch.load(Path(work) / "rank0.pt", weights_only=False)
 
 
