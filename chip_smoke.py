@@ -172,9 +172,18 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      TripletMessage towers, a2a and ring: the sharded pair forward and
      gradients against the dense model on the card, the ranks equal
      after one Adam step, each rank's step host and busy ms, the halo
-     exchange's bytes and ms and the gradient's extra collectives); the
+     exchange's bytes and ms and the gradient's extra collectives);
+     ``overlap``: the same protein's step with ``GLAM_SHARDED_OVERLAP``
+     1, 0, 0, 1 (the halo issued before the terms that do not read it,
+     each step's fusion statistics deferred; and not), outputs bitwise
+     equal, launches equal, gradients within twice the runs' spread, the
+     eager step's ms in turns; ``giant_protein``:
+     ``scripts/giant_protein_demo_torch.py --shards 2 --L 3000 --epochs
+     1`` (the GCN protein tower over 3,000 residues, TripletMessage
+     molecules: A 3 a forward and B 3 a step on each rank, exact); the
      kernels at those paths' shapes (A and B over the 1,000-residue
-     shard's [local ; halo] table); ``bench_scaling --analytic``'s lines;
+     shard's [local ; halo] table and at the giant demo's molecule
+     batch); ``bench_scaling --analytic``'s lines;
   7. the AutoML solver on ``physprop_perturb`` (a fresh copy of
      ``datasets/physprop`` for each search: 12,607 molecules, label
      split 7,684 / 2,561 / 2,362): first, in a fresh process, the
@@ -203,7 +212,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      the ``train_flagship_bf16``, ``train_library_bf16``,
      ``serve_jax_ckpt``, ``viz``, ``train_dp``, ``train_dp_library``,
      ``train_dp_ddi``, ``halo``, ``train_sharded_dti``,
-     ``train_sharded_ring`` and ``sharded_protein`` among them), the
+     ``train_sharded_ring``, ``sharded_protein`` and ``giant_protein``
+     among them), the
      card's line, then the final line.  Each phase's wall seconds are printed.
 
 Exits non-zero, without the final line, if anything fails.
@@ -1992,10 +2002,10 @@ def dp_worker():
     return torch_port_dp_worker
 
 
-def halo_inputs():
+def halo_inputs(ranks=DP_RANKS):
     """The halo phase's graph: the 1,000-residue synthetic protein's
     contact graph, its 49 residue features projected to HALO_CHANNELS by
-    a seeded matrix (to unit scale), split over DP_RANKS shards, the v2
+    a seeded matrix (to unit scale), split over ``ranks`` shards, the v2
     plan, and the step's parameters from seed 0; on the CPU."""
     import numpy as np
     import torch
@@ -2006,7 +2016,7 @@ def halo_inputs():
     x = nodes @ np.random.RandomState(0).randn(nodes.shape[1],
                                                HALO_CHANNELS)
     x = (x / x.std()).astype(np.float32)             # unit scale
-    ns, es, sg, rl, em = gp.split_large_graph(x, edges, snd, rcv, DP_RANKS)
+    ns, es, sg, rl, em = gp.split_large_graph(x, edges, snd, rcv, ranks)
     send_idx, _, snd_l, H = gp.build_halo_exchange(sg, em, ns.shape[1])
     params = gp.init_halo_params(torch.Generator().manual_seed(0),
                                  HALO_CHANNELS, edges.shape[1])
@@ -2231,11 +2241,26 @@ SHARDED_RING_ARGS = SHARDED_ARGS + ["--halo", "ring", "--pair_batch", "4"]
 SHARDED_PROTEIN_TOWERS = ("_GATConv", "_TripletMessage")
 
 
-def sharded_protein_cases(length=1000, hid_alpha=4, e_dim=1024, time=True):
+def giant_demo():
+    """``scripts/giant_protein_demo_torch.py`` as a module (its seeded
+    generator, its trainer's arguments)."""
+    import importlib.util
+    path = ROOT / "scripts" / "giant_protein_demo_torch.py"
+    spec = importlib.util.spec_from_file_location("giant_protein_demo_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sharded_protein_cases(length=1000, hid_alpha=4, e_dim=1024, time=True,
+                          giant=False, overlap_ab=False):
     """The worker's ``sharded.pt`` cases of the 1,000-residue synthetic
-    protein paired with a demo molecule, one a protein tower: a2a and
-    ring, one Adam step (the ranks' parameters), and on the card their
-    times (``time``); with each case's dense reference inputs."""
+    protein (``giant``: the giant demo's generator's protein of
+    ``length`` residues from seed 0) paired with a demo molecule, one a
+    protein tower: a2a and ring, one Adam step (the ranks' parameters),
+    and on the card their times (``time``) and the overlap's A/B
+    (``overlap_ab``); with each case's dense reference inputs."""
     import dataclasses
 
     import numpy as np
@@ -2243,8 +2268,12 @@ def sharded_protein_cases(length=1000, hid_alpha=4, e_dim=1024, time=True):
     from glam_tpu_torch.chem.featurize import smiles_to_arrays
     from glam_tpu_torch.chem.proteins import protein_to_arrays
     from glam_tpu_torch.nn.model import ModelConfig, PairArchitecture
-    seq, cm = synthetic_protein(length=length)
-    nodes, snd, rcv, edges = protein_to_arrays(seq, cm)
+    if giant:
+        g = giant_demo().synth_protein(length, 0)
+        nodes, snd, rcv, edges = g.nodes, g.senders, g.receivers, g.edges
+    else:
+        seq, cm = synthetic_protein(length=length)
+        nodes, snd, rcv, edges = protein_to_arrays(seq, cm)
     smi = "CC(=O)Oc1ccccc1C(=O)O"
     x, s, r, e = smiles_to_arrays(smi)
     mol = (x, e, s, r, np.zeros(1, np.float32), smi)
@@ -2257,10 +2286,11 @@ def sharded_protein_cases(length=1000, hid_alpha=4, e_dim=1024, time=True):
                           max_nodes=64, pro_max_nodes=max(1024, length))
         model = PairArchitecture(cfg, hetero=True,
                                  generator=torch.Generator().manual_seed(0))
-        cases[f"protein{length}{pro}"] = dict(
+        cases[f"{'giant' if giant else 'protein'}{length}{pro}"] = dict(
             kind="pair", cfg=dataclasses.asdict(cfg),
             state=model.state_dict(), graphs=[(nodes, edges, snd, rcv)],
-            mols=[mol], ring=True, adam=True, time=time)
+            mols=[mol], ring=True, adam=True, time=time,
+            overlap_ab=overlap_ab)
     return cases
 
 
@@ -2328,8 +2358,10 @@ def sharded_phase(dev, card, tmp):
     ``sharded_protein``: the 1,000-residue protein's sharded pair forward
     and gradients against the dense model on the card (GAT and
     TripletMessage towers, a2a and ring), one Adam step leaving the ranks
-    equal, each rank's step, halo and collective times; kernels at the
-    shards' shapes; ``bench_scaling --analytic``."""
+    equal, each rank's step, halo and collective times, the overlap on
+    and off in turns (:func:`hold_overlap`); kernels at the shards'
+    shapes; the giant demo at L = 3,000 (:func:`giant_protein_run`);
+    ``bench_scaling --analytic``."""
     import numpy as np
     import torch
     from glam_tpu_torch.data.graph import pad_graphs
@@ -2391,10 +2423,11 @@ def sharded_phase(dev, card, tmp):
     worker = dp_worker()
     work = Path(tmp) / "sharded_ranks"
     work.mkdir(parents=True)
-    cases = sharded_protein_cases()
+    cases = sharded_protein_cases(overlap_ab=True)
     torch.save(cases, work / "sharded.pt")
     (work / "plan.json").write_text(json.dumps({
-        "tasks": ["sharded", "sharded_time"]}))
+        "tasks": ["sharded", "sharded_time", "sharded_overlap"],
+        "dump_after": 540}))
     procs = worker.spawn_ranks(work, "cuda", DP_RANKS)
     dense = {name: dense_pair_reference(case, dev)
              for name, case in cases.items()}
@@ -2446,6 +2479,8 @@ def sharded_phase(dev, card, tmp):
                   f"{t['grad_broadcast_floats']} floats "
                   f"{t['grad_broadcast_ms']:.4f} ms; medians (2 gloo ranks "
                   f"time-sliced on one card, not a scaling number; {card})")
+    hold_overlap(got["sharded_overlap"], f"{DP_RANKS} gloo ranks "
+                 f"time-sliced on one card; {card}")
     # each rank's a2a forward and backward of each tower
     out["launches"]["sharded_protein"] = launches
     gat, triplet = (f"protein1000{t}" for t in SHARDED_PROTEIN_TOWERS)
@@ -2460,6 +2495,10 @@ def sharded_phase(dev, card, tmp):
         gshard.edges.shape[0] + gshard.n_local, 1, 60, dev), dev, card)
     out["kern"]["sharded_protein"] = kern
     print(f"phase sharded_protein: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    out["launches"]["giant_protein"], out["kern"]["giant_protein"] = \
+        giant_protein_run(tmp, rng, dev, card)
+    print(f"phase giant_protein: {time.perf_counter() - t0:.2f} s")
     res = subprocess.run([sys.executable, "-m",
                           "glam_tpu_torch.parallel.bench_scaling",
                           "--analytic"], cwd=ROOT, capture_output=True,
@@ -2470,6 +2509,104 @@ def sharded_phase(dev, card, tmp):
     for line in res.stdout.strip().splitlines():
         print(f"bench_scaling --analytic: {line}")
     return out
+
+
+def hold_overlap(runs_by_case, note):
+    """The worker's ``sharded_overlap`` runs (``GLAM_SHARDED_OVERLAP`` 1,
+    0, 0, 1 of each case and plan): fail unless the no-grad outputs are
+    bitwise equal, the launches equal, and each gradient of an overlapped
+    run within twice the spread of the runs of one setting (plus 1e-6 of
+    its scale) of the run beside it without the overlap; print the eager
+    step's ms in turns."""
+    import torch
+    for key, runs in runs_by_case.items():
+        first = runs[0]
+        for r in runs[1:]:
+            if not torch.equal(r["out"], first["out"]):
+                fail(f"overlap [{key}]: the output with "
+                     f"GLAM_SHARDED_OVERLAP={r['flag']} differs from "
+                     f"{first['flag']}'s by "
+                     f"{float((r['out'] - first['out']).abs().max()):.3e}")
+            if r["launches"] != first["launches"]:
+                fail(f"overlap [{key}]: launches {r['launches']} against "
+                     f"{first['launches']}")
+        worst, widest = 0.0, 0.0
+        for k, g in first["grads"].items():
+            gs = [r["grads"][k] for r in runs]
+            scale = max(float(gs[0].abs().max()), 1.0)
+            spread = max(float((gs[0] - gs[3]).abs().max()),
+                         float((gs[1] - gs[2]).abs().max()))
+            err = max(float((gs[0] - gs[1]).abs().max()),
+                      float((gs[3] - gs[2]).abs().max()))
+            worst, widest = max(worst, err / scale), max(widest,
+                                                         spread / scale)
+            if err > 2 * spread + 1e-6 * scale:
+                fail(f"overlap [{key}]: gradient {k} on and off differ by "
+                     f"{err:.3e}, beyond twice the runs' spread {spread:.3e}"
+                     f" + 1e-6 x its scale {scale:.3e}")
+        turns = ", ".join(f"{r['flag']}: {r['step_ms']:.4f}" for r in runs)
+        print(f"overlap [{key}]: GLAM_SHARDED_OVERLAP 1, 0, 0, 1 eagerly: "
+              f"outputs bitwise equal, launches equal "
+              f"{json.dumps(first['launches'])}; gradients on against off "
+              f"within {worst:.3e} of each leaf's scale (the runs of one "
+              f"setting {widest:.3e} apart); an Adam step's host ms in "
+              f"turns {turns} ({note})")
+
+
+def giant_protein_run(tmp, rng, dev, card):
+    """``scripts/giant_protein_demo_torch.py --shards 2 --L 3000 --epochs
+    1`` as a user runs it, on the card (2 gloo ranks on cuda:0): exit 0,
+    the plan line, launches exact on each rank (A 3 a forward and B 3 a
+    step, the molecule tower's; the GCN protein tower runs none); then
+    kernels A and B at a step's molecule batch (its pair batch of 2).
+    Returns (each rank's launches, the kernels' numbers)."""
+    import numpy as np
+    from glam_tpu_torch.data.graph import pad_graphs
+    argv = ["--shards", str(DP_RANKS), "--L", "3000", "--epochs", "1",
+            "--work_dir", str(Path(tmp) / "giant_protein")]
+    print(f"giant_protein: python scripts/giant_protein_demo_torch.py "
+          f"{' '.join(argv)}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                               "giant_protein_demo_torch.py"),
+                           *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print((proc.stdout + proc.stderr)[-6000:])
+        fail(f"giant_protein: exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.startswith(("corpus:", "plan:", "halo:", "trained",
+                            "step rank", "[distributed]")):
+            print(f"giant_protein: {line}")
+    if not any(line.startswith("plan: node_budget") for line in lines):
+        fail("giant_protein: no plan line")
+    got = json.loads(lines[-1])
+    by_rank = []
+    for k, r in enumerate(got["launches_by_rank"]):
+        r = dict(r)
+        steps, forwards = r.pop("steps"), r.pop("forwards")
+        check_counts(f"giant_protein rank {k}", r, {
+            "triplet_fused_fwd": 3 * forwards,
+            "triplet_fused_bwd": 3 * steps})
+        by_rank.append(r)
+    print(f"giant_protein: L=3000 over {DP_RANKS} ranks, {steps} steps and "
+          f"{forwards} forwards a rank, launches exact on each rank (A 3 x "
+          f"forwards, B 3 x steps) {json.dumps(by_rank)}; val_loss="
+          f"{got['val_loss']:.4f} val_auc={got['val_auc']}; wall_s="
+          f"{wall:.2f} ({card})")
+    if not np.isfinite(got["val_loss"]):
+        fail("giant_protein: the validation loss is not finite")
+    demo = giant_demo()
+    mols = [demo.synth_mol(i, 0.0) for i in range(2)]
+    every = [demo.synth_mol(i, 0.0) for i in range(got["pairs"])]
+    nb = 8 * -(-max(m.nodes.shape[0] for m in every) // 8) + 8
+    eb = 8 * -(-max(m.senders.shape[0] for m in every) // 8) + 8
+    mol_b = pad_graphs(mols, 2, 2 * nb, 2 * eb, num_tasks=1)
+    kern = {w: check_kernel(w, "giant_mol_batch", batch_csr(mol_b), rng, dev,
+                            card) for w in ("fwd", "bwd")}
+    return by_rank, kern
 
 
 def cuda_context_check():
@@ -3559,8 +3696,9 @@ def hold_runs(label, optim, noise, plan, runs, card):
           f"launches equal {json.dumps(runs['captured'][2])}; "
           f"{gs['captures']} captures {gs['capture_s']:.3f} s, pool "
           f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card})")
-    return {"max_rel_err": worst, "eager_spread": spread,
-            "loss_gap": loss_gap, "same_draws": same_draws}
+    return {"max_rel_err": worst, "worst": worst_name,
+            "eager_spread": spread, "loss_gap": loss_gap,
+            "same_draws": same_draws}
 
 
 def host_step_ms(fn, reps=20, per=1):
@@ -3765,8 +3903,8 @@ def main() -> None:
                                       card, tmp)
         par = phase("dp, halo, dp_library, dp_pair", dp_phase, dev, card,
                     tmp)
-        shd = phase("sharded_dti, sharded_ring, sharded_protein",
-                    sharded_phase, dev, card, tmp)
+        shd = phase("sharded_dti, sharded_ring, sharded_protein, overlap, "
+                    "giant_protein", sharded_phase, dev, card, tmp)
         automl = phase("automl", automl_phase, dev, card, demo, tmp)
     phase("traced kernel checks", report_traced)
 
@@ -3919,6 +4057,9 @@ def main() -> None:
             "protein1000_table_shard0": (3, sk["sharded_protein"][w])}
         calls[f"segment_softmax_spmm_{w}"]["sharded_protein"] = {
             "protein1000_gat_shard0": (3, sk["sharded_protein"]["gat"][w])}
+        # the giant demo: its molecule tower's batch of 2 pairs
+        calls[f"triplet_fused_{w}"]["giant_protein"] = {
+            "giant_mol_batch": (3, sk["giant_protein"][w])}
     for path, by_rank in list(par["launches"].items()) \
             + list(shd["launches"].items()):
         for name in launches:

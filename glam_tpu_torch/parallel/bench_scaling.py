@@ -183,7 +183,7 @@ def _rank_main(args):
     if distributed.world()[0] == 0:
         with open(args.out, "w") as f:
             json.dump(result, f)
-    torch.distributed.destroy_process_group()
+    distributed.shutdown()
     return [result]
 
 

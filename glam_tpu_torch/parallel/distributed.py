@@ -51,6 +51,10 @@ runs eagerly.  Two rules hold every capture under nccl:
     (``CAPTURE_ERROR_MODE``), after a device synchronisation; the
     watchdog stays on and its timeouts hold.
 
+:func:`shutdown` leaves the group, the captured graphs collected
+first: an nccl communicator is not destroyed while a graph holding its
+collectives lives.
+
 ``process_shard`` partitions a dataset over ranks, ``host_groups`` the
 visible cards into trial groups, and ``global_mesh`` is the ordered list
 of the ranks' devices.  ``spawn_ranks`` and ``wait_ranks`` start the
@@ -85,6 +89,15 @@ what its result feeds.  The rule (Megatron's f and g):
     transpose sends the cotangent back by ``-k``.  Under gloo, which
     aborts the process on send/recv of CUDA tensors, it stages through
     CPU tensors; under nccl it stays on the device.
+  * :func:`exchange_start` / :func:`exchange_finish`: either exchange
+    split in two, so that work that does not read the received rows runs
+    while they travel (``async_op``: under nccl the exchange runs on
+    NCCL's stream, and the finish makes the current stream wait for it;
+    in a captured graph the two are a fork and a join).  Its backward
+    issues the reverse exchange at the finish's node and waits for it at
+    the start's, so autograd's nodes made between the two in the forward
+    run while it travels.  :func:`all_to_all_grad` and :func:`ring_shift`
+    are a start and its finish back to back.
   * :func:`all_reduce_max` takes no gradient (the softmax shifts cancel;
     the fusion max routes its gradient through the owner shard).
 
@@ -95,6 +108,7 @@ summed twice.  :func:`broadcast_` sends rank 0's tensor to the others.
 from __future__ import annotations
 
 import datetime
+import gc
 import os
 import socket
 import subprocess
@@ -229,6 +243,22 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         print(f"[distributed] {world} ranks, backend {backend}: {why}",
               flush=True)
     return backend
+
+
+def shutdown() -> None:
+    """Leave the process group: every rank alike, after the others
+    (a barrier).  An nccl communicator's destruction waits until every
+    CUDA graph that holds its collectives is destroyed, so the graphs
+    go first: the caller drops its references to them (a trainer, its
+    step graphs), and unreachable ones still held in reference cycles
+    (a trainer's step graphs hold its steps, which hold the trainer) are
+    collected here, their last replays synchronised; otherwise every
+    rank hangs here."""
+    gc.collect()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def world() -> Tuple[int, int]:
@@ -439,21 +469,10 @@ def enter_local(*ts: torch.Tensor, group=None):
     return _EnterLocal.apply(group, *ts)
 
 
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return all_to_all(t, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_to_all(g.contiguous(), ctx.group), None
-
-
 def all_to_all_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     """:func:`all_to_all`, differentiable: the backward sends each row of
     the cotangent back to the rank it came from."""
-    return _AllToAll.apply(t, group)
+    return exchange_finish(exchange_start([t], None, group))[0]
 
 
 class _AllGather(torch.autograd.Function):
@@ -483,32 +502,128 @@ def all_gather_local(t: torch.Tensor, group=None) -> torch.Tensor:
     return _AllGather.apply(t, True, group)
 
 
-def _shift(t: torch.Tensor, k: int, group) -> torch.Tensor:
-    """Send ``t`` to rank (r + k) % D, receive the same shape from rank
-    (r - k) % D; staged through the CPU under gloo for CUDA tensors."""
-    rank, n = dist.get_rank(group), dist.get_world_size(group)
-    stage = t.is_cuda and dist.get_backend(group) == "gloo"
-    send = (t.cpu() if stage else t).contiguous()
-    recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, (rank + k) % n, group),
-           dist.P2POp(dist.irecv, recv, (rank - k) % n, group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv.to(t.device) if stage else recv
-
-
-class _RingShift(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, k, group):
-        ctx.k, ctx.group = k, group
-        return _shift(t, k, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _shift(g, -ctx.k, ctx.group), None, None
-
-
 def ring_shift(t: torch.Tensor, k: int, group=None) -> torch.Tensor:
     """The ring plan's permute at distance ``k``, differentiable: rows
     from rank (r - k) % D; the backward sends the cotangent back."""
-    return _RingShift.apply(t, k, group)
+    return exchange_finish(exchange_start([t], [k], group))[0]
+
+
+# ------------------------------------------------ the split halo exchange
+class Flight:
+    """One exchange in flight each way (see :func:`exchange_start`):
+    ``ks`` the ring distances (None: one all_to_all), ``fwd`` and
+    ``bwd`` the issued forward and backward exchange, each (receive
+    buffers, requests, the send buffers kept until the wait, whether
+    they are staged through the CPU, the device); ``blocking``: each is
+    waited for where it is issued."""
+
+    def __init__(self, ks: Optional[Sequence[int]], group, blocking: bool):
+        self.ks, self.group, self.blocking = ks, group, blocking
+        self.fwd = self.bwd = None
+
+    def issue(self, sends, ks):
+        issued = _issue(sends, ks, self.group)
+        if self.blocking:
+            issued = (_wait(issued), [], [], False, None)
+        return issued
+
+
+def _issue(sends: Sequence[torch.Tensor], ks, group):
+    """Issue one exchange of ``sends`` without waiting for it: one
+    ``all_to_all_single`` of sends[0] [ranks, ...] (``ks`` None), or one
+    ``batch_isend_irecv`` sending sends[i] to rank (r + ks[i]) % D and
+    receiving its shape from (r - ks[i]) % D.  The ring's CUDA tensors
+    are staged through the CPU under gloo, which aborts the process on
+    send and receive of CUDA tensors."""
+    device = sends[0].device
+    if ks is None:
+        send = sends[0].contiguous()
+        recv = torch.empty_like(send)
+        req = dist.all_to_all_single(recv, send, group=group, async_op=True)
+        return [recv], [req], [send], False, device
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    stage = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    send = [(t.cpu() if stage else t).contiguous() for t in sends]
+    recv = [torch.empty_like(t) for t in send]
+    ops = []
+    for k, snd, rcv in zip(ks, send, recv):
+        ops += [dist.P2POp(dist.isend, snd, (rank + k) % n, group),
+                dist.P2POp(dist.irecv, rcv, (rank - k) % n, group)]
+    return recv, dist.batch_isend_irecv(ops), send, stage, device
+
+
+def _wait(issued) -> List[torch.Tensor]:
+    """Wait for an issued exchange: the current stream waits for the
+    communication (nccl), or the host for it (gloo); then its send
+    buffers are let go.  The received tensors, on the senders' device."""
+    recv, reqs, _, stage, device = issued
+    for req in reqs:
+        req.wait()
+    return [r.to(device) for r in recv] if stage else recv
+
+
+class _ExchangeStart(torch.autograd.Function):
+    """Issues the forward exchange; returns an empty token that orders
+    :class:`_ExchangeFinish` after it.  Its backward waits for the
+    backward exchange that the finish's backward issued."""
+
+    @staticmethod
+    def forward(ctx, flight, *sends):
+        ctx.flight = flight
+        flight.fwd = flight.issue(sends, flight.ks)
+        return sends[0].new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        flight = ctx.flight
+        grads = _wait(flight.bwd)
+        flight.bwd = None
+        return (None, *grads)
+
+
+class _ExchangeFinish(torch.autograd.Function):
+    """Waits for the forward exchange; its backward issues the reverse
+    one (the cotangents back to the ranks their rows came from)."""
+
+    @staticmethod
+    def forward(ctx, flight, token):
+        ctx.flight = flight
+        recv = _wait(flight.fwd)
+        flight.fwd = None
+        return tuple(recv)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flight = ctx.flight
+        back = None if flight.ks is None else [-k for k in flight.ks]
+        flight.bwd = flight.issue([g.contiguous() for g in grads], back)
+        return None, grads[0].new_empty(0)
+
+
+def exchange_start(sends: Sequence[torch.Tensor], ks=None, group=None,
+                   blocking: bool = False) -> Tuple[Flight, torch.Tensor]:
+    """Issue a halo exchange and return at once: one ``all_to_all`` of
+    sends[0] [ranks, ...] (``ks`` None: row d goes to rank d), or the
+    ring plan's sends, sends[i] to rank (r + ks[i]) % D, in one
+    ``batch_isend_irecv``.  Under nccl the exchange runs on NCCL's stream
+    while the current stream goes on (in a captured graph, a branch
+    beside the work issued before :func:`exchange_finish`).  Pass the
+    result to :func:`exchange_finish`.  Differentiable: the backward
+    issues the reverse exchange where the finish's backward runs and
+    waits for it where the start's does, so that autograd's work between
+    the two overlaps it.  The send buffers stay referenced until each
+    wait, so that the allocator does not hand them out while the
+    exchange reads them.  Issue no other collective between a start and
+    its finish, either way: two NCCL operations in flight on two
+    communicators can deadlock.  ``blocking``: each way, wait where the
+    exchange is issued (the autograd graph stays the same)."""
+    flight = Flight(None if ks is None else list(ks), group, blocking)
+    return flight, _ExchangeStart.apply(flight, *sends)
+
+
+def exchange_finish(started: Tuple[Flight, torch.Tensor]
+                    ) -> List[torch.Tensor]:
+    """Wait for :func:`exchange_start`'s exchange: the received tensors,
+    one a send (``all_to_all``: [ranks, ...], row s from rank s; ring:
+    sends[i]'s shape, from rank (r - ks[i]) % D)."""
+    return list(_ExchangeFinish.apply(*started))

@@ -43,12 +43,32 @@ Gradients come from each rank's own backward through the collectives of
 ``parallel/distributed.py`` (f, g and their transposes): every rank ends
 with the whole gradient of every parameter.  The dense model's
 ``state_dict`` is the checkpoint, so a sharded-trained model serves
-unchanged.  The JAX package's ``GLAM_SHARDED_OVERLAP`` switch (an A/B
-knob for XLA's scheduler, bit-equal either way) has no counterpart.
+unchanged.
+
+The halo exchange overlaps the work that does not read it, as the JAX
+package's ``run_tower`` lets XLA's scheduler overlap it
+(``glam_tpu/parallel/sharded_model.py:652-689``).  Each conv issues its
+halo as soon as the rows it sends exist (``distributed.exchange_start``,
+under nccl on NCCL's stream; in a captured step a branch of the graph),
+computes the terms that do not read the table, and only then waits for
+it (``exchange_finish``); the backward issues the reverse exchange and
+waits for it around the same terms' backward.  Each message step's
+fusion statistics are deferred: their products and sums run while the
+next step's halo is in flight, their two all-reduces after it has
+arrived (so that one NCCL operation is in flight at a time), the last
+step's after the loop.  ``GLAM_SHARDED_OVERLAP=0``, read when a tower is
+built, turns both off (each exchange waited for where it is issued, each
+step's statistics taken after it).  The autograd graph is the same
+either way, its nodes made in the same order (the statistics read each
+step's output through an alias made right after it), so that autograd
+adds every gradient's terms in one order: on the CPU the outputs and
+gradients are bitwise equal either way; on the card the sums' atomics
+vary the gradients' last bits between any two runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -396,22 +416,35 @@ class ShardedTower:
         self.local_names = [n for n, _ in tower.named_parameters()
                             if not n.startswith(("flat.", "readout.lstm_"))]
         self.params = dict(tower.named_parameters())
+        # the JAX package's A/B switch, read where it reads it
+        self.overlap = os.environ.get("GLAM_SHARDED_OVERLAP", "1") != "0"
 
     # -- collectives -------------------------------------------------
-    def halo(self, z, s: Shard):
-        """[T, ...]: ``z`` [R, ...] and the rows other shards send."""
+    def halo_start(self, z, s: Shard):
+        """Issue the exchange of the rows of ``z`` [R, ...] that other
+        shards read; returns ``finish()`` -> the [T, ...] table, ``z``
+        then the rows they send.  Without the overlap the exchange is
+        waited for here."""
         if s.ring is None:
             D = s.send_idx.shape[0]
-            send = z.index_select(0, s.send_idx.reshape(-1)).view(
-                D, -1, *z.shape[1:])
-            recv = dd.all_to_all_grad(send, self.group)
-            return torch.cat([z, recv.reshape(-1, *z.shape[1:])])
-        parts = [z]
-        for k, idx in enumerate(s.ring, start=1):
-            if idx.numel():
-                parts.append(dd.ring_shift(z.index_select(0, idx), k,
-                                           self.group))
-        return torch.cat(parts)
+            sends, ks = [z.index_select(0, s.send_idx.reshape(-1)).view(
+                D, -1, *z.shape[1:])], None
+        else:
+            ks = [k for k, idx in enumerate(s.ring, start=1) if idx.numel()]
+            sends = [z.index_select(0, s.ring[k - 1]) for k in ks]
+        started = dd.exchange_start(sends, ks, self.group,
+                                    blocking=not self.overlap) \
+            if sends else None
+
+        def finish():
+            recv = dd.exchange_finish(started) if started else []
+            return torch.cat([z] + [r.reshape(-1, *z.shape[1:])
+                                    for r in recv])
+        return finish
+
+    def halo(self, z, s: Shard):
+        """[T, ...]: ``z`` [R, ...] and the rows other shards send."""
+        return self.halo_start(z, s)()
 
     # -- norms -------------------------------------------------------
     def norm(self, lp, x, s: Shard, w):
@@ -476,30 +509,37 @@ class ShardedTower:
             else self.act_g(y)
         return y * s.node_mask[:, None].to(y.dtype), h_prev
 
-    def _triplet(self, lp, x_in, s):
+    # Each conv issues its halo first, computes what does not read the
+    # table, runs ``between`` (the previous step's deferred statistics)
+    # and then waits for the table.
+    def _triplet(self, lp, x_in, s, between):
         conv = self.conv
         C, H, R = conv.channels, conv.heads, x_in.shape[0]
         xp = x_in @ lp["conv.conv.weight_node"]                # [R, H*C]
         w_i, w_e, w_j = lp["conv.conv.weight_triplet_att"].split(C, dim=1)
-        table = self.halo(xp, s)                               # [T, H*C]
+        finish = self.halo_start(xp, s)
         a_i = torch.einsum("nhc,hc->nh", xp.view(R, H, C), w_i)
         a_i = torch.cat([a_i, a_i.new_zeros((s.table_rows - R, H))])
-        a_j = torch.einsum("nhc,hc->nh", table.view(-1, H, C), w_j)
         wemat = conv.head_onehot * w_e.reshape(-1, 1)
+        between()
+        table = finish()                                       # [T, H*C]
+        a_j = torch.einsum("nhc,hc->nh", table.view(-1, H, C), w_j)
         aggr = triplet_attention(
             table.contiguous(), a_i.contiguous(), a_j.contiguous(), s.edges,
             lp["conv.conv.weight_edge"].contiguous(), wemat, s.csr_rowptr,
             s.csr_snd, s.csr_eid, H, C, conv.negative_slope)[:R]
         return aggr @ lp["conv.conv.weight_scale"] + lp["conv.conv.bias"]
 
-    def _light(self, lp, x_in, s):
+    def _light(self, lp, x_in, s, between):
         conv = self.conv
         C, Fe, R = conv.channels, conv.edge_channels, x_in.shape[0]
         xp = x_in @ lp["conv.conv.weight_node"]                # [R, C]
         w_i, w_e, w_j = lp["conv.conv.weight_triplet_att"].split([C, Fe, C])
-        table = self.halo(xp, s)
-        logits = (xp @ w_i).index_select(0, s.receivers) + s.edges @ w_e \
-            + (table @ w_j).index_select(0, s.senders)
+        finish = self.halo_start(xp, s)
+        local = (xp @ w_i).index_select(0, s.receivers) + s.edges @ w_e
+        between()
+        table = finish()
+        logits = local + (table @ w_j).index_select(0, s.senders)
         logits = torch.where(logits >= 0, logits,
                              conv.negative_slope * logits)
         aggr = segment_softmax_spmm(logits[:, None].contiguous(),
@@ -507,47 +547,55 @@ class ShardedTower:
                                     s.pad_rowptr, s.csr_eid)[:R]
         return aggr + lp["conv.conv.bias"]
 
-    def _gat(self, lp, x_in, s):
+    def _gat(self, lp, x_in, s, between):
         conv = self.conv
         xp = F.linear(x_in, lp["conv.conv.weight"])            # [R, C]
         att_src, att_dst = lp["conv.conv.att_src"][0], \
             lp["conv.conv.att_dst"][0]
+        finish = self.halo_start(xp, s)
         a_src, a_dst = xp @ att_src, xp @ att_dst
-        table = self.halo(xp, s)
+        loops = a_src + a_dst                                  # [R]
+        between()
+        table = finish()
         slope = conv.negative_slope
         logits = torch.cat([(table @ att_src).index_select(0, s.senders)
                             + a_dst.index_select(0, s.receivers),
-                            a_src + a_dst])                    # [E + R]
+                            loops])                            # [E + R]
         logits = torch.where(logits >= 0, logits, slope * logits)
         values = torch.cat([table.index_select(0, s.senders), xp])
         out = segment_softmax_spmm(logits[:, None].contiguous(), values,
                                    s.loop_rowptr, s.loop_idx)[:xp.shape[0]]
         return out + lp["conv.conv.bias"]
 
-    def _nnconv(self, lp, x_in, s):
+    def _nnconv(self, lp, x_in, s, between):
         conv = self.conv
         ci, co, R = conv.in_channels, conv.out_channels, x_in.shape[0]
+        finish = self.halo_start(x_in, s)
         h1 = F.relu(F.linear(s.edges, lp["conv.conv.edge_mlp_0.weight"],
                              lp["conv.conv.edge_mlp_0.bias"]))
         wmat = F.linear(h1, lp["conv.conv.edge_mlp_1.weight"],
                         lp["conv.conv.edge_mlp_1.bias"]).view(-1, ci, co)
-        table = self.halo(x_in, s)
+        root = x_in @ lp["conv.conv.root"]
+        between()
+        table = finish()
         msg = torch.bmm(table.index_select(0, s.senders)[:, None, :],
                         wmat)[:, 0]
         em = s.edge_mask[:, None].to(msg.dtype)
         tot = segment_sum(msg * em, s.receivers, R)
         cnt = segment_sum(em[:, 0], s.receivers, R).clamp(min=1.0)
-        return tot / cnt[:, None] + x_in @ lp["conv.conv.root"] \
-            + lp["conv.conv.bias"]
+        return tot / cnt[:, None] + root + lp["conv.conv.bias"]
 
-    def _gcn(self, lp, x_in, s):
+    def _gcn(self, lp, x_in, s, between):
         R = x_in.shape[0]
         xp = F.linear(x_in, lp["conv.conv.weight"])
-        table = self.halo(xp, s)
+        finish = self.halo_start(xp, s)
+        loops = s.self_norm[:, None] * xp
         w = torch.where(s.edge_mask, s.edge_norm, 0.0)
+        between()
+        table = finish()
         out = segment_sum(w[:, None] * table.index_select(0, s.senders),
                           s.receivers, R)
-        return out + s.self_norm[:, None] * xp + lp["conv.conv.bias"]
+        return out + loops + lp["conv.conv.bias"]
 
     _CONVS = {"_TripletMessage": _triplet, "_TripletMessageLight": _light,
               "_GATConv": _gat, "_NNConv": _nnconv, "_GCNConv": _gcn}
@@ -620,18 +668,28 @@ class ShardedTower:
         the molecule's node states xm [B, M, C] (already local) and the
         protein's; the max's value and gradient come from the shard(s)
         that hold it, divided by their count."""
+        return self.fusion_reduce(self.fusion_local(xm, mvalid, x, s),
+                                  mvalid, s)
+
+    def fusion_local(self, xm, mvalid, x, s: Shard):
+        """:meth:`fusion_stats`' shard-local part, no collective: each
+        pair's largest valid product on this shard and their sum."""
         B, Nl, C = s.n_pairs, s.n_local, x.shape[-1]
-        g = self.group
         sc = torch.bmm(xm, x.view(B, Nl, C).transpose(1, 2))   # [B, M, Nl]
         valid = mvalid[:, :, None] & s.node_mask.view(B, 1, Nl)
-        smax = torch.where(valid, sc, -torch.inf).amax((1, 2))   # [B]
+        return (torch.where(valid, sc, -torch.inf).amax((1, 2)),   # [B]
+                torch.where(valid, sc, 0.0).sum((1, 2)))
+
+    def fusion_reduce(self, local, mvalid, s: Shard):
+        """:meth:`fusion_stats`' collectives and division, on
+        :meth:`fusion_local`'s result."""
+        smax, tot = local
+        g = self.group
         owner = smax.detach() == dd.all_reduce_max(smax, g)
         # the owners' max, the sum and the owner count: one all-reduce
         mx, tot, n_own = dd.reduce_to_replicated(torch.stack(
-            [torch.where(owner, smax, 0.0),
-             torch.where(valid, sc, 0.0).sum((1, 2)),
-             owner.to(sc.dtype)]), g)
-        cnt = mvalid.sum(1).to(sc.dtype) * s.graph_nodes.to(sc.dtype)
+            [torch.where(owner, smax, 0.0), tot, owner.to(smax.dtype)]), g)
+        cnt = mvalid.sum(1).to(smax.dtype) * s.graph_nodes.to(smax.dtype)
         return torch.stack([mx / n_own.clamp(min=1.0),
                             tot / cnt.clamp(min=1.0)], -1)
 
@@ -646,18 +704,41 @@ class ShardedTower:
         step_conv = self._CONVS[self.block]
         if fusion is not None:
             (xm_all,) = dd.enter_local(fusion[0], group=self.group)
+            mvalid = fusion[1]
         stats = []
+        # the deferral (glam_tpu/parallel/sharded_model.py:664-689): step
+        # t's statistics wait for step t + 1's halo; their local part runs
+        # while it is in flight, their collectives once it has arrived
+        pending, local = None, []
+
+        def between():
+            if pending is not None:
+                local.append(self.fusion_local(xm_all[pending[0]], mvalid,
+                                               pending[1], s))
+
         for step in range(self.steps):
             x_in = self.norm(lp, x, s, bn_weight)
             if drop is not None:
                 x_in = x_in * drop[step]
             slope = slopes[step] if (slopes is not None and self.rrelu) \
                 else None
-            x, h = self._finish(lp, step_conv(self, lp, x_in, s), x, h, s,
-                                slope)
+            y = step_conv(self, lp, x_in, s, between)
+            if local:
+                stats.append(self.fusion_reduce(local.pop(), mvalid, s))
+            x, h = self._finish(lp, y, x, h, s, slope)
             if fusion is not None:
-                stats.append(self.fusion_stats(xm_all[step], fusion[1], x,
-                                               s))
+                # the statistics read the step's output through an alias
+                # made here either way, so that its gradient's terms add
+                # in one order with the deferral and without it
+                xf = x.view_as(x)
+                if self.overlap:
+                    pending = (step, xf)
+                else:
+                    stats.append(self.fusion_stats(xm_all[step], mvalid, xf,
+                                                   s))
+        if pending is not None:
+            stats.append(self.fusion_stats(xm_all[pending[0]], mvalid,
+                                           pending[1], s))
         pooled = self.pool(lp, x, s)
         return pooled, (torch.stack(stats, 1) if fusion is not None
                         else None)

@@ -292,7 +292,7 @@ def main():
             sharded_step(tmp, dev, card, cs, worker, torch)
             sharded_trainer(tmp, dev, card, cs, torch)
     finally:
-        torch.distributed.destroy_process_group()
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -19,6 +19,12 @@ against the port's dense models and the JAX package, on the CPU.
       - the ring plan against a2a (1e-5), its gradients against dense;
       - the pair model with GCN, GAT and TripletMessage protein towers
         against the dense ``PairArchitecture`` and the JAX package's;
+      - the pair model with each of the 5 convs as its protein tower,
+        a2a and ring, with ``GLAM_SHARDED_OVERLAP`` 1 and 0: outputs
+        bitwise equal, gradients within rtol 1e-6 + atol 1e-8 (the JAX
+        package's ``test_overlap_reorder_value_identical``), and the
+        overlapped forward within 1e-4 of the JAX package's sharded
+        forward;
       - two pairs packed in one step: each row equals its pair alone
         (1e-5), the gradients the mean of the pairs' (2e-4);
       - the noise at 2 shards against 1 shard with the same generator
@@ -199,6 +205,27 @@ def _jax_out(jcls, jcfg, state, jbatches, stats=None):
     return np.asarray(model.apply(variables, *jbatches, True))
 
 
+def _jax_sharded_out(case):
+    """The JAX package's sharded pair forward (``make_sharded_pair_forward``,
+    its overlap on, the default) on the case's first pair over D CPU
+    devices, a2a."""
+    from glam_tpu.parallel.data_parallel import make_mesh
+    cfg = jax_model.ModelConfig(**case["cfg"])
+    pro = case["graphs"][0]
+    g1 = _jax_batch(case["mols"][:1])
+    g2 = _jax_batch([(*pro, np.zeros(1, np.float32))])
+    model = jax_model.PairArchitecture(cfg, hetero=True)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), g1,
+                                               g2, True))
+    params = jsm.extract_pair_params(
+        _jax_params(shapes["params"], case["state"]), cfg.pro_block,
+        cfg.pro_readout)
+    fwd = jsm.make_sharded_pair_forward(
+        make_mesh(jax.devices()[:D], ("graph",)), cfg)
+    inputs = tuple(jnp.asarray(a) for a in jsm.shard_inputs(*pro, D))
+    return np.asarray(fwd(params, g1, *inputs))
+
+
 def single_cfg(conv, readout, norm="_None", N=120):
     return dict(mol_block=conv, mol_readout=readout, message_steps=2,
                 e_dim=64, hid_dim_alpha=2, max_nodes=N + 8, graph_norm=norm,
@@ -254,6 +281,11 @@ def _cases():
             state=_port_model(cfg, pair=True).state_dict(),
             graphs=proteins, mols=mols, batched=pro == "_GATConv",
             adam=pro == "_TripletMessage", sgd=pro == "_GCNConv")
+    for conv in CONVS:
+        cfg = pair_cfg(conv, "GlobalLAPool")
+        cases[f"overlap{conv}"] = dict(
+            kind="pair", cfg=cfg, graphs=proteins[:1], mols=mols[:1],
+            state=_port_model(cfg, pair=True).state_dict(), overlap=True)
     for act in ("CELU", "RReLU"):
         cfg = pair_cfg("_GATConv", "GlobalPool5", graph_act=act)
         cases[f"noise_{act}"] = dict(
@@ -273,6 +305,9 @@ def _references(cases):
     dense = {}
     for name, case in cases.items():
         if name.startswith("noise_"):
+            continue
+        if case.get("overlap"):
+            dense[name] = {"jax_sharded": _jax_sharded_out(case)}
             continue
         model = _loaded(case)
         if case["kind"] == "single":
@@ -466,6 +501,27 @@ def test_noise_is_the_same_at_one_and_two_shards(sharded_run, act):
     if act == "CELU":                # rate 0 and no RReLU: no noise at all
         torch.testing.assert_close(got["rate0"]["out"], got["a2a"]["out"],
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("conv", CONVS)
+def test_overlap_reorder_value_identical(sharded_run, conv):
+    """tests/test_sharded_model.py's test of the same name, on 2 gloo
+    ranks: ``GLAM_SHARDED_OVERLAP=0`` (each halo waited for where it is
+    issued, each step's fusion statistics taken after it) and the default
+    overlap (the table-free terms and the previous step's statistics
+    while the halo is in flight) compute the same function, a2a and
+    ring: outputs bitwise equal, gradients within the JAX test's
+    tolerance.  The overlapped forward stays within 1e-4 of the JAX
+    package's overlapped sharded forward."""
+    got, dense = sharded_run
+    got, want = got[f"overlap{conv}"], dense[f"overlap{conv}"]
+    for halo in ("a2a", "ring"):
+        on, off = got["overlap"][halo]["1"], got["overlap"][halo]["0"]
+        assert torch.equal(on["out"], off["out"]), halo
+        _close_tree(on["grads"], off["grads"], dict(rtol=1e-6, atol=1e-8),
+                    f"{halo} gradients, overlap on against off")
+    np.testing.assert_allclose(got["overlap"]["a2a"]["1"]["out"].numpy()[0],
+                               want["jax_sharded"], **FWD)
 
 
 def test_adam_step_leaves_the_ranks_equal(sharded_run):

@@ -25,8 +25,10 @@ computed to ``<work dir>/rank0.pt``:
            replayed through the rank's step graphs in turns (median host
            ms of 20 each, and the profiles' busy ms after a barrier, with
            and without the collectives' kernels), the gradient
-           all-reduce's buffer (floats, median ms of 20) and, with
-           ``halo.pt``, the v1 and v2 halo steps' median ms;
+           all-reduce's buffer (floats, median ms of 20; under nccl also
+           through a gloo group of the same ranks) and, with ``halo.pt``
+           (cut for the job's ranks), the v1 and v2 halo steps' median
+           ms;
   graphs   on the card, per config of ``graphs`` ({name: the CLI's
            args}): 19 steps from one state through the trainer's
            ``RankStepGraphs`` (8 + 8 + 3, the learning rate cut between)
@@ -48,9 +50,15 @@ computed to ``<work dir>/rank0.pt``:
   sharded  the node-sharded tower (``parallel/sharded_model.py``) on the
            cases of ``sharded.pt`` (:func:`task_sharded`), and on the
            card its step's, halo's and collectives' times
-           (``sharded_time``, :func:`task_sharded_time`);
+           (``sharded_time``, :func:`task_sharded_time`); both skip the
+           cases marked ``captured_only``;
   sharded_graphs  on the card under nccl, the sharded step captured
-           whole, its collectives inside (:func:`task_sharded_graphs`);
+           whole, its collectives inside (:func:`task_sharded_graphs`),
+           and for the cases marked ``overlap_ab`` that step with
+           ``GLAM_SHARDED_OVERLAP`` 1 and 0 (:func:`_overlap_ab`);
+  sharded_overlap  eagerly on any backend, those cases' forward,
+           gradients and step with the overlap on and off in turns
+           (:func:`task_sharded_overlap`);
   strainer the sharded DTI trainer (``train/sharded_pair_trainer.py``)
            on the runs of ``strainer.pt`` (:func:`task_strainer`), one
            of them through static slots (``slots``).
@@ -58,10 +66,13 @@ computed to ``<work dir>/rank0.pt``:
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
+import os
 import statistics
 import sys
 import time
+import traceback
 import types
 from pathlib import Path
 
@@ -286,13 +297,23 @@ def task_time(work, plan, dev):
     got["all_reduce_floats"] = n
     got["all_reduce_ms"] = _median_ms(
         lambda: distributed.all_reduce_sum(flat))
+    if torch.distributed.get_backend() != "gloo":
+        # the same buffer through gloo on the same ranks (staged through
+        # the host), for the backends to be read against each other
+        gloo = torch.distributed.new_group(backend="gloo")
+        got["all_reduce_gloo_ms"] = _median_ms(
+            lambda: distributed.all_reduce_sum(flat, gloo))
     if (work / "halo.pt").exists():
         v1, v2 = _halo_steps(work, dev)
         got["halo_ms"] = [_median_ms(v1), _median_ms(v2)]
+    gloo = got.get("all_reduce_gloo_ms")
     print(f"rank {rank}: {torch.distributed.get_backend()} on {dev}: one "
           f"data-parallel step host_ms={got['host_ms']:.4f} busy_ms="
           f"{got['busy']['busy_ms']:.4f}; all_reduce of {n} floats "
-          f"all_reduce_ms={got['all_reduce_ms']:.4f}", flush=True)
+          f"all_reduce_ms={got['all_reduce_ms']:.4f}"
+          + ("" if gloo is None else f" (through gloo {gloo:.4f})")
+          + f"; host ms in turns eager {turns['eager']}, replayed "
+          f"{turns['replayed']}", flush=True)
     return {"time": _by_rank(got)}
 
 
@@ -441,8 +462,11 @@ def _halo_steps(work, dev):
     """This rank's v1 and v2 halo steps on its shard of ``halo.pt``, as
     calls of no arguments."""
     from glam_tpu_torch.parallel import graph_partition as gp
-    rank = distributed.world()[0]
+    rank, ranks = distributed.world()
     h = torch.load(work / "halo.pt")
+    if h["nodes"].shape[0] != ranks:       # on every rank alike
+        raise ValueError(f"halo.pt holds {h['nodes'].shape[0]} shards for "
+                         f"{ranks} ranks")
     p = {k: v.to(dev) for k, v in h["params"].items()}
     s = {k: v[rank].to(dev) for k, v in h.items() if k != "params"}
     v1, v2 = gp.make_halo_message_step(), gp.make_halo_message_step_v2()
@@ -563,12 +587,27 @@ def _first_pair(case, dev, halo="a2a"):
     return _sharded_model(case, dev), mol_b, shard
 
 
+def with_overlap(flag: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``GLAM_SHARDED_OVERLAP`` set to
+    ``flag`` while the sharded towers it builds read it."""
+    saved = os.environ.get("GLAM_SHARDED_OVERLAP")
+    os.environ["GLAM_SHARDED_OVERLAP"] = flag
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        if saved is None:
+            del os.environ["GLAM_SHARDED_OVERLAP"]
+        else:
+            os.environ["GLAM_SHARDED_OVERLAP"] = saved
+
+
 def task_sharded(work, plan, dev):
     """Every case of ``sharded.pt`` ({name: {kind, cfg, state, graphs
     (nodes, edges, senders, receivers) a protein, mols, train, halo}}):
     the forward and gradients at a2a (and ring where the case asks),
     two pairs packed in one step against each alone, the noise at 2
-    shards against 1 (rank 0 alone) and at rate 0, and one Adam step's
+    shards against 1 (rank 0 alone) and at rate 0, a2a and ring with
+    ``GLAM_SHARDED_OVERLAP`` 1 and 0 (``overlap``), and one Adam step's
     parameters on each rank."""
     from glam_tpu_torch.parallel import sharded_model as sm
     rank = distributed.world()[0]
@@ -576,6 +615,8 @@ def task_sharded(work, plan, dev):
     solo = torch.distributed.new_group([0])
     out = {}
     for name, case in cases.items():
+        if case.get("captured_only"):
+            continue
         got = {"a2a": sharded_case(case, dev)}
         got["launches"] = _by_rank(got["a2a"]["launches"])
         if case.get("ring"):
@@ -590,6 +631,10 @@ def task_sharded(work, plan, dev):
             if rank == 0:
                 got["noise_d1"] = sharded_case(case, dev, group=solo,
                                                noise=(5, 0.2))
+        if case.get("overlap"):      # GLAM_SHARDED_OVERLAP on and off
+            got["overlap"] = {halo: {flag: with_overlap(
+                flag, sharded_case, case, dev, halo=halo)
+                for flag in ("1", "0")} for halo in ("a2a", "ring")}
         if case.get("sgd"):          # one make_sharded_*_train_step
             model, mol_b, shard = _first_pair(case, dev)
             y = torch.full((1, model.cfg.out_dim), 0.3, device=dev)
@@ -628,7 +673,7 @@ def task_sharded_time(work, plan, dev):
     cases = torch.load(work / "sharded.pt", weights_only=False)
     out = {}
     for name, case in cases.items():
-        if not case.get("time"):
+        if not case.get("time") or case.get("captured_only"):
             continue
         for halo in ("a2a", "ring"):
             model, mol_b, shard = _first_pair(case, dev, halo)
@@ -749,8 +794,160 @@ def task_sharded_graphs(work, plan, dev):
                 got["params"] = params
             else:
                 got.pop("out"), got.pop("grads")
+            if case.get("overlap_ab"):
+                got["ab"] = _overlap_ab(case, dev, halo, backend,
+                                        f"{name} {halo}")
             out[f"{name}_{halo}"] = got
     return {"sharded_graphs": _by_rank(out)}
+
+
+def task_sharded_overlap(work, plan, dev):
+    """Eagerly (any backend), for each case of ``sharded.pt`` marked
+    ``overlap_ab`` and each plan (a2a, ring), four runs in turns with
+    ``GLAM_SHARDED_OVERLAP`` 1, 0, 0, 1, each from the case's state: the
+    no-grad forward's output, the gradients of the worker's loss (synced
+    as a step takes them), the launches of that forward and backward, and
+    one Adam step's host ms (median of 5 after 2)."""
+    from glam_tpu_torch.parallel import sharded_model as sm
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    out = {}
+    for name, case in cases.items():
+        if not case.get("overlap_ab"):
+            continue
+        for halo in ("a2a", "ring"):
+            runs = []
+            for flag in ("1", "0", "0", "1"):
+                model, mol_b, shard = _first_pair(case, dev, halo)
+                fwd = with_overlap(flag, sm.make_sharded_pair_forward, model)
+                with torch.no_grad():
+                    y = fwd(mol_b, shard).cpu()
+                before = launch_counts()
+                ((fwd(mol_b, shard) - 0.3) ** 2).mean().backward()
+                sm.sync_grads(model)
+                launches = {k: v - before[k]
+                            for k, v in launch_counts().items()}
+                grads = _grads(model)
+                opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+                def step(fwd=fwd, mol_b=mol_b, shard=shard, model=model,
+                         opt=opt):
+                    loss = ((fwd(mol_b, shard) - 0.3) ** 2).mean()
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    sm.sync_grads(model)
+                    opt.step()
+
+                for _ in range(2):
+                    step()
+                ms = _median_ms(step, reps=5) if dev.type == "cuda" \
+                    else None
+                runs.append({"flag": flag, "out": y, "grads": grads,
+                             "launches": launches, "step_ms": ms})
+            out[f"{name}_{halo}"] = runs
+    return {"sharded_overlap": out}
+
+
+def overlap_schedule(fn):
+    """From a profiler trace of one call of ``fn``: the device kernels,
+    the NCCL ones among them (their count and summed duration, the
+    halo's ``AllToAll``/``SendRecv`` ones apart), the busy ms without
+    them, and the other kernels that start inside an NCCL kernel's span
+    (their count and summed ms: the tower's work beside the exchange)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    own = [e for e in kernels if "nccl" not in e.name.lower()]
+    halo = [e for e in nccl if any(k in e.name.lower() for k in
+                                   ("alltoall", "sendrecv", "send", "recv"))]
+    spans = [(e.time_range.start, e.time_range.end) for e in nccl]
+    inside = [e for e in own
+              if any(a <= e.time_range.start < b for a, b in spans)]
+    in_halo = [e for e in own if any(
+        a <= e.time_range.start < b for a, b in
+        ((h.time_range.start, h.time_range.end) for h in halo))]
+    ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3  # noqa
+    names = {}
+    for e in in_halo:
+        names[e.name[:48]] = names.get(e.name[:48], 0) + 1
+    return {"kernels": len(kernels), "busy_ms": ms(kernels),
+            "busy_own_ms": ms(own), "nccl_kernels": len(nccl),
+            "nccl_ms": ms(nccl), "halo_kernels": len(halo),
+            "halo_ms": ms(halo), "inside_nccl": len(inside),
+            "inside_nccl_ms": ms(inside), "inside_halo": len(in_halo),
+            "inside_halo_ms": ms(in_halo),
+            "inside_halo_names": sorted(names.items(),
+                                        key=lambda kv: -kv[1])[:8]}
+
+
+def _overlap_ab(case, dev, halo, backend, label):
+    """The case's sharded Adam step with ``GLAM_SHARDED_OVERLAP`` 1 and 0,
+    each captured whole from the case's state: the no-grad forward's
+    output eagerly and replayed (bitwise equal across the two), the
+    launches of a replay of the step, its host ms replayed and eager in
+    turns (1, 0, 0, 1; medians of 10), and each replay's
+    :func:`overlap_schedule` after a barrier."""
+    from glam_tpu_torch.cuda_graphs import CapturedCalls
+    from glam_tpu_torch.parallel import sharded_model as sm
+    from glam_tpu_torch.train.optim import make_optimizer
+    runs = {}
+    for flag in ("1", "0"):
+        model, mol_b, shard = _first_pair(case, dev, halo)
+        fwd = with_overlap(flag, sm.make_sharded_pair_forward, model)
+        opt = make_optimizer("Adam", model.named_parameters(), 1e-4)
+        calls = CapturedCalls(dev)
+        calls.capture_error_mode = distributed.CAPTURE_ERROR_MODE[backend]
+
+        def infer(fwd=fwd, mol_b=mol_b, shard=shard):
+            with torch.no_grad():
+                return (fwd(mol_b, shard),)
+
+        def step(fwd=fwd, mol_b=mol_b, shard=shard, model=model, opt=opt):
+            loss = ((fwd(mol_b, shard) - 0.3) ** 2).mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            sm.sync_grads(model)
+            opt.step()
+            return (loss.detach(),)
+
+        eager_out = infer()[0].cpu()
+        calls.warm_up(infer)
+        forward = calls.capture(infer)
+        replayed_out = calls.replay(forward)[0].cpu().clone()
+        calls.warm_up(step)
+        whole = calls.capture(step)
+        before = launch_counts()
+        calls.replay(whole)
+        torch.cuda.synchronize()
+        runs[flag] = {
+            "out": eager_out, "out_replayed": replayed_out,
+            "launches": {k: v - before[k]
+                         for k, v in launch_counts().items()},
+            "replayed": lambda calls=calls, whole=whole: calls.replay(whole),
+            "eager": step}
+    turns = {f"{kind} {flag}": [] for kind in ("replayed", "eager")
+             for flag in ("1", "0")}
+    for kind in ("replayed", "eager"):
+        for flag in ("1", "0", "0", "1"):
+            turns[f"{kind} {flag}"].append(_median_ms(runs[flag][kind],
+                                                      reps=10))
+    schedule = {}
+    for flag in ("1", "0"):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        schedule[flag] = overlap_schedule(runs[flag]["replayed"])
+        print(f"overlap {label} GLAM_SHARDED_OVERLAP={flag} replayed: "
+              f"{json.dumps(schedule[flag])}", flush=True)
+    out = {"turns": turns, "schedule": schedule,
+           **{f"{k} {flag}": runs[flag][k] for flag in ("1", "0")
+              for k in ("out", "out_replayed", "launches")}}
+    del runs
+    torch.cuda.empty_cache()
+    return out
 
 
 def dense_float64_grads(tr):
@@ -860,6 +1057,7 @@ TASKS = {"step": task_step, "time": task_time, "graphs": task_graphs,
          "partial": task_partial, "halo": task_halo,
          "sharded": task_sharded, "sharded_time": task_sharded_time,
          "sharded_graphs": task_sharded_graphs,
+         "sharded_overlap": task_sharded_overlap,
          "strainer": task_strainer}
 
 
@@ -895,18 +1093,38 @@ def main(work: str, platform: str):
     torch.set_num_threads(1 if platform == "cpu" else 2)
     work = Path(work)
     plan = json.loads((work / "plan.json").read_text())
+    if plan.get("dump_after"):
+        # every thread's stack in the rank's log, should the ranks still
+        # run then (the caller stops them at its timeout)
+        faulthandler.dump_traceback_later(plan["dump_after"])
     distributed.initialize_distributed(platform=platform)
     rank = distributed.world()[0]
     dev = distributed.rank_device(rank, platform)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for name in plan["tasks"]:
+        print(f"rank {rank}: task {name}", flush=True)
         out.update(TASKS[name](work, plan, dev))
     if rank == 0:
         torch.save(out, work / "rank0.pt")
-    torch.distributed.barrier()
-    torch.distributed.destroy_process_group()
+    # the tasks' trainers hold their step graphs in reference cycles
+    distributed.shutdown()
+
+
+def run(work: str, platform: str):
+    """:func:`main`; a rank that fails leaves at once with exit code 1.
+    A rank that raised would otherwise tear its process group down at
+    interpreter exit while its peers wait in a collective for it, and an
+    nccl group's teardown can wait for them in turn: the ranks would
+    hang rather than fail."""
+    try:
+        main(work, platform)
+    except BaseException:                # SystemExit from a check too
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2])
+    run(sys.argv[1], sys.argv[2])
