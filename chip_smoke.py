@@ -25,11 +25,17 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      serving path's TripletMessageLight and Set2Set calls (the last
      node's padded edges and the padding graph are rows of ~44,000 and
      ~13,800 entries) and on random CSRs with empty rows and a
-     5,000-entry row at (H, C) = (3, 16) and H*C = 512; each call must
-     give bitwise the same results twice (B: d_eh, d_pre and d_a_i; its
-     d_xp is summed with atomics) and run the device kernels its design
-     states (A one; B two, the d_xp fill and the kernel; C one each way,
-     the backward with unlisted entries also zero-filling): the calls of
+     5,000-entry row at (H, C) = (3, 16) and H*C = 512; the CSR sum
+     (``segment_sum_csr``, the fixed-order sum behind every segment sum,
+     gather backward and kernel B's d_xp and d_a_j) on random CSRs with
+     empty segments and a 5,000-entry one at widths 1-1,024, float32
+     and bfloat16, and at the serving batch's CSRs (nodes by graph, edge
+     slots by sender and by receiver), beside ``torch.segment_reduce``
+     and ``index_add_`` on its identity-permutation case; each call must
+     give bitwise the same results twice (every output, B's d_xp too)
+     and run the device kernels its design states (A one; B two, the
+     kernel and the CSR sum of d_xp's edge terms; C one each way, the
+     backward with unlisted entries also zero-filling): the calls of
      every kernel check of the run are traced at its end, in one fresh
      process, and the kernel lines printed then; then ``stress``:
      kernels A and B 40 rounds over the card tests' CSRs with rows of
@@ -75,10 +81,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      flagship, the library, DDI and DTI, ``captured vs eager``: 2 x 8 + 3
      steps from one state through the graphs (an eager group of 8, one
      8-step replay, a ReduceLROnPlateau cut of the learning rate, three
-     one-step replays) and eagerly three times, the parameters, BatchNorm
-     statistics and optimizer state held at rtol 1e-4 + 1e-6 x scale or,
-     as a share of each tensor's largest entry, within 1e-4 beyond twice
-     the spread of three eager runs, the launches equal (the
+     one-step replays) and eagerly, the parameters, BatchNorm statistics,
+     optimizer state and losses bitwise equal, the launches equal (the
      flagship also with SGD, with its RReLU and Dropout noise, whose
      losses must show the replays drawing the eager steps' masks, and
      Ranger over 13 steps at S = 4); and ``step graphs [...]``: the step
@@ -91,8 +95,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
        trained ``best_save.pt`` serves on the card as on the CPU;
        kernels A and B and their Function against the CPU on a batch of
        the trainer's own loader (its CSR padded to the edge budget: A's
-       and B's results bitwise those over its real slots, B's d_xp
-       within 1e-6); one step's gradients card vs CPU; step
+       and B's results bitwise those over its real slots); the CSR sum
+       at that batch's CSRs; one step's gradients card vs CPU; step
        time and a profile;
      - TripletMessageLight + Set2Set with _BatchNorm (graph, flat) and
        _LayerNorm (end), 2 epochs: kernel C 6 times per forward and per
@@ -111,8 +115,15 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
        card as close to the float32 ones as the CPU's (BF16_GRAD_TOL),
        the step's times
        beside the float32 run's;
-     - the CLI's default (_NNConv, GlobalPool5, _PairNorm), 1 epoch: no
-       kernel; then one step of a _GCNConv model's gradients card vs CPU;
+     - the CLI's default (_NNConv, GlobalPool5, _PairNorm), 1 epoch: the
+       CSR sum alone; then one step of a _GCNConv model's gradients card
+       vs CPU;
+     - ``reproducible``: the flagship and DDI trained 2 epochs twice from
+       one seed, and 1 epoch, ``--resume``, 1 more; the library and GAT
+       paths twice over 1 epoch: state dicts, optimizer states and final
+       lines bitwise equal;
+     every run's launches of the CSR sum exact against its config's
+     count (``csr_sums``);
   6. the pair families, each through ``glam_tpu_torch.run.main`` on its
      bundled corpus at full width (hid 60, 3 steps, e_dim 1024,
      GlobalPool5 in both towers), launches counted around each run:
@@ -159,11 +170,13 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      against the plain ``reference_halo_step`` on the card, with the
      bytes a rank receives and each step's ms; ``dp_library`` (Light +
      Set2Set with BatchNorm: C 6 each way) and ``dp_pair`` (DDI: A 6, B
-     6); the kernels at a rank's batch and at the halo's CSR; then the
+     6), these three runs started together, before the ranks' timed
+     tasks; the kernels at a rank's batch and at the halo's CSR; then the
      node-sharded protein tower on 2 gloo ranks of the card:
-     ``sharded_dti`` and ``sharded_ring`` (``python -m
-     glam_tpu_torch.run --dataset bindingdb_c ... --pro_shards 2``, the
-     second with ``--halo ring --pair_batch 4``, 1 epoch, the
+     ``sharded_dti`` and ``sharded_ring``, started together (``python -m
+     glam_tpu_torch.run --dataset bindingdb_c ... --pro_shards 2``,
+     ``--pair_batch 2``, the second with ``--halo ring --pair_batch 4``,
+     1 epoch, the
      TripletMessage molecule tower and the GAT protein tower: launches
      of A, B, C and C's backward exact on each rank, the final line
      once, the checkpoint served by ``PairPredictor`` on the card as on
@@ -193,8 +206,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      path, on a 768-molecule physprop batch and the 128-molecule demo
      batch; then the search at seed ``AUTOML_SEED`` (4 configurations x
      1 seed x 1 epoch; its configurations hold a _TripletMessage and
-     kernel C users, or it fails), its low-fidelity phase at
-     ``GLAM_TPU_TRIAL_SLOTS=1``, and ``glam.main`` (then the top 2 x 1
+     kernel C users, or it fails), the low-fidelity phase of its first
+     one at ``GLAM_TPU_TRIAL_SLOTS=1``, and ``glam.main`` (then the top 2 x 1
      seed x 2 epochs, the blend and PASP) at 4 slots on the one card,
      each timed, the card's utilisation sampled every 0.5 s; every trial
      must exit 0, write its final line and its result.json, replay CUDA
@@ -206,7 +219,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      finite; ``EnsemblePredictor`` card vs CPU; each config's kernel
      calls checked at its trainer's batch and at the test batch;
   8. a JSON line of the kernels (times per launch on the path that
-     launches each most; every path's launches, per-launch means and
+     launches each most; the CSR sum's the mean over the calls timed at
+     that path, with ``index_add_ms``; every path's launches, per-launch means and
      each call's numbers at its own shapes under ``by_path``, the AutoML
      paths ``automl_search``, ``automl_trials`` and ``automl_blend`` and
      the ``train_flagship_bf16``, ``train_library_bf16``,
@@ -222,6 +236,7 @@ from __future__ import annotations
 
 import ast
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -240,7 +255,7 @@ DEMO_CSV = ROOT / "datasets" / "demo" / "raw" / "demo.csv"
 TOL = 1e-4
 # card against CPU, one step's parameter gradients: each tensor within
 # GRAD_RTOL relative plus GRAD_ATOL times its largest entry (float32 sums
-# in other orders, atomics in kernel B and in index_add_).  A tensor whose
+# in other orders on the card and on the CPU).  A tensor whose
 # largest CPU entry is under GRAD_ZERO times the tree's largest is zero in
 # exact arithmetic, rounding noise of terms that cancel (GlobalLAPool's
 # gate bias: a softmax does not move when every logit does; 4.5e-9 of the
@@ -270,6 +285,7 @@ AUTOML_SEED = 73
 AUTOML_ARGS = {"n_init_configs": 4, "n_low_fidelity_seed": 1,
                "low_fidelity_epochs": 1, "n_top_blend": 2,
                "n_high_fidelity_seed": 1, "high_fidelity_epochs": 2}
+AUTOML_SERIAL = 1
 PHYSPROP_CSV = ROOT / "datasets" / "physprop" / "raw" / "physprop_perturb.csv"
 # the widths the search draws that kernels A and B (H = 3, C = hid) and
 # C (H = 1: C = hid, or 2 hid in GlobalLAPool) take on their one-lane
@@ -508,7 +524,7 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
     ('bwd', fed kernel A's output and statistics) against its plain version
     (fed the plain forward's) on the card, on random inputs drawn from
     ``rng`` around ``csr``: the errors, whether two calls are bitwise equal
-    (A's outputs; B's d_eh, d_pre and d_a_i: d_xp is summed with atomics),
+    (every output of A and of B),
     and the median device times beside the bound.  Fails on disagreement
     or on results that differ between calls.  The device kernels of one
     call are traced at the end of the run (:func:`report_traced`), which
@@ -516,7 +532,7 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
     import numpy as np
     import torch
     from glam_tpu_torch.ops.kernels.triplet_fused import (
-        triplet_attention_bwd, triplet_attention_bwd_plain,
+        sender_csr_of, triplet_attention_bwd, triplet_attention_bwd_plain,
         triplet_attention_fwd, triplet_attention_plain)
 
     args = kernel_inputs(rng, *csr, H, C, dev)
@@ -537,29 +553,29 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
         g = torch.from_numpy(rng.randn(N, H * C).astype(np.float32)).to(dev)
         stats = triplet_attention_fwd(*args, H, C)
         plain_stats = triplet_attention_plain(*real, H, C)
+        # the sender CSR of every slot, made once as a batch carries it:
+        # a call is kernel B and the CSR sum of d_xp
+        snd = sender_csr_of(args[7], args[8], N)
         run = lambda: triplet_attention_bwd(  # noqa: E731
-            *args, *stats, g, H, C)
+            *args, *stats, g, H, C, 0.2, *snd)
         plain = lambda: triplet_attention_bwd_plain(  # noqa: E731
             *real, *plain_stats, g, H, C)
         got, want, again = run(), plain(), run()
         ok = bool((got[3][empty] == 0).all())
         bound, bound_by, design = triplet_bwd_bound_ms(args, H, C)
     torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in
-               zip(got[which == "bwd":], again[which == "bwd":]))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     padded = ""
     if slots > E:
         # a CSR padded to the batch's edge budget: the same results as
-        # over its real slots alone, bitwise (B's d_xp: its atomics)
+        # over its real slots alone, bitwise
         if which == "fwd":
             over_real = triplet_attention_fwd(*real, H, C)
         else:
             over_real = triplet_attention_bwd(*real, *stats, g, H, C)
         torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, b) for a, b in
-                      zip(got[which == "bwd":], over_real[which == "bwd":]))
-        if not bitwise or not torch.allclose(got[0], over_real[0],
-                                             rtol=1e-6, atol=1e-6):
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, over_real))
+        if not bitwise:
             fail(f"{kname} on {name}: the CSR padded to {slots} slots "
                  f"and its {E} real slots give other results")
         padded = f" padded_csr_bitwise={bitwise} ({slots} slots)"
@@ -669,7 +685,7 @@ def trace_main(path):
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
         segment_softmax_spmm_bwd, segment_softmax_spmm_fwd)
     from glam_tpu_torch.ops.kernels.triplet_fused import (
-        triplet_attention_bwd, triplet_attention_fwd)
+        sender_csr_of, triplet_attention_bwd, triplet_attention_fwd)
     traced = []
     for kind, which, saved, (H, C) in torch.load(path):
         args = [t.cuda() for t in saved]
@@ -684,8 +700,9 @@ def trace_main(path):
             g = torch.ones(args[0].shape[0], H * C, device="cuda")
             fwd = lambda: triplet_attention_fwd(*args, H, C)  # noqa: E731
             stats = fwd()
+            snd = sender_csr_of(args[7], args[8], args[0].shape[0])
             bwd = lambda: triplet_attention_bwd(  # noqa: E731
-                *args, *stats, g, H, C)
+                *args, *stats, g, H, C, 0.2, *snd)
         traced.append({w: device_kernels(fn) for w, fn in
                        (("fwd", fwd), ("bwd", bwd))
                        if which in (w, "both")})
@@ -696,9 +713,10 @@ def trace_main(path):
 # end (:func:`report_traced`), in order: (kind, which, call name, its
 # arguments on the CPU, (H, C), the numbers or {'fwd': ..., 'bwd': ...})
 TRACED = []
-# device kernels a call must run: kernel A one; kernel B two, the zero
-# fill of d_xp (summed into with atomics) and the kernel; kernel C one
-# each way (a backward with unlisted entries also zero-fills)
+# device kernels a call must run: kernel A one; kernel B two, the kernel
+# and the CSR sum of d_xp's edge terms over the sender CSR (a batch's, as
+# the model passes it); kernel C one each way (a backward with unlisted
+# entries also zero-fills)
 TRIPLET_KERNELS = {"fwd": 1, "bwd": 2}
 
 
@@ -853,7 +871,147 @@ def kernel_phase(dev, demo, card):
             f"random_h{H}_c{C}", spmm_inputs(rng, rowptr, idx, M, H, C, dev),
             dev, card)
     out["spmm"] = spmm
+    csr_random_checks(dev, card)
+    csr_checks("serve", demo_batch(demo), 3, 60, dev, card)
     return out
+
+
+# the CSR sum (segment_sum_csr): {path: {call: numbers}} at each path's
+# shapes
+CSR_CALLS = {}
+
+
+def csr_bound_ms(x, rowptr, perm):
+    """The least time of a CSR sum: each listed row of x read once, the
+    permutation and the row pointers read, each output row written once,
+    over the card's memory rate (one add per element read: bytes bound
+    it)."""
+    n, S = int(rowptr[-1]), rowptr.numel() - 1
+    C, e = math.prod(x.shape[1:]), x.element_size()
+    moved = n * C * e + S * C * e + 4 * (S + 1) + (4 * n if perm is not None
+                                                   else 0)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def check_csr_sum(path, name, x, rowptr, perm, card):
+    """The CSR sum's kernel at one call's shapes against its plain
+    version in float64 (:func:`csr_sum_tol`), two calls bitwise equal,
+    its device time beside the plain version's, the bound and the PyTorch calls that compute its
+    identity-permutation case (the listed rows gathered first):
+    ``torch.segment_reduce`` with lengths, and ``index_add_`` with its
+    fill.  Kept under ``CSR_CALLS[path][name]``."""
+    import torch
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import (
+        segment_sum_csr, segment_sum_csr_plain)
+    n, S = int(rowptr[-1]), rowptr.numel() - 1
+    run = lambda: segment_sum_csr(x, rowptr, perm)  # noqa: E731
+    plain = lambda: segment_sum_csr_plain(x, rowptr, perm, n)  # noqa: E731
+    before = segment_sum_csr.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if segment_sum_csr.launches != before + 2:
+        fail(f"segment_sum_csr [{name}]: "
+             f"{segment_sum_csr.launches - before} launches for 2 calls")
+    same = torch.equal(got, again)
+    want, tol = csr_sum_tol(x, rowptr, perm, n)
+    max_abs = _errors(got.double(), want)[0]
+    ok = bool(((got.double() - want).abs() <= tol).all())
+    rows = (x[:n] if perm is None else
+            x.index_select(0, perm[:n].long())).contiguous()
+    lengths = (rowptr[1:] - rowptr[:-1]).long()
+    ids = torch.repeat_interleave(torch.arange(S, device=x.device), lengths,
+                                  output_size=n)
+    lib = lambda: torch.segment_reduce(  # noqa: E731
+        rows, "sum", lengths=lengths, axis=0, unsafe=True, initial=0)
+    add = lambda: torch.zeros(  # noqa: E731
+        (S,) + tuple(x.shape[1:]), device=x.device,
+        dtype=x.dtype).index_add_(0, ids, rows)
+    k_ms, p_ms = device_ms(run), device_ms(plain, reps=20)
+    lib_ms, add_ms = device_ms(lib), device_ms(add)
+    bound = csr_bound_ms(x, rowptr, perm)
+    longest = int(lengths.max()) if S else 0
+    line = (f"kernel segment_sum_csr [{name}] S={S} entries={n} "
+            f"C={math.prod(x.shape[1:])} {str(x.dtype)[6:]} "
+            f"perm={perm is not None} longest={longest}: max_abs_err="
+            f"{max_abs:.3e} (tol up to {float(tol.max()):.3e}) kernel_ms="
+            f"{k_ms:.4f} plain_ms="
+            f"{p_ms:.4f} segment_reduce_ms={lib_ms:.4f} index_add_ms="
+            f"{add_ms:.4f} bound_ms={bound:.5f} (bytes) share_of_bound="
+            f"{bound / k_ms:.3f} deterministic={same} ({card})")
+    print(line)
+    if not ok:
+        fail(f"segment_sum_csr disagrees with its plain version on {name}: "
+             f"max_abs_err {max_abs}")
+    if not same:
+        fail(f"segment_sum_csr on {name}: two calls differ")
+    out = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "index_add_ms": add_ms, "bound_ms": bound,
+           "bound_by": "bytes", "deterministic": same}
+    CSR_CALLS.setdefault(path, {})[name] = out
+    return out
+
+
+def csr_sum_tol(x, rowptr, perm, n):
+    """The CSR sum of ``x`` in float64 (the plain version) and each
+    entry's tolerance: 1e-6 of the sum of its segment's magnitudes (a
+    float32 sum in another order: the worst case is (n - 1) 2**-24 of it,
+    a fixed-order chunked sum lies near sqrt(n) 2**-24), plus, for
+    bfloat16 rows, 2**-8 of the result (the one rounding to bfloat16)."""
+    import torch
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import (
+        segment_sum_csr_plain)
+    wide = x.double()
+    want = segment_sum_csr_plain(wide, rowptr, perm, n)
+    tol = 1e-6 * segment_sum_csr_plain(wide.abs(), rowptr, perm, n) + 1e-12
+    if x.dtype != torch.float32:
+        tol = tol + 2 ** -8 * want.abs()
+    return want, tol
+
+
+def csr_checks(path, batch, H, C, dev, card, dtype=None):
+    """The CSR sum at a path's batch, at the calls of its model: over the
+    node rows by graph (widths 1 and C: the norms' and readouts' sums,
+    the backward of their gathers), the edge slots by sender (H and H*C:
+    kernel B's d_a_j and d_xp, the gathers' backward) and by receiver (1
+    and C), on random rows in ``dtype`` (float32 when None)."""
+    import torch
+    dtype = dtype or torch.float32
+    g = torch.Generator().manual_seed(17)
+    b = batch.to(dev)
+    N, E = b.num_nodes, b.num_edges
+    cases = {"graph_c1": ((N,), b.graph_rowptr, None),
+             f"graph_c{C}": ((N, C), b.graph_rowptr, None),
+             f"sender_c{H}": ((E, H), b.snd_rowptr, b.snd_eid),
+             f"sender_c{H * C}": ((E, H * C), b.snd_rowptr, b.snd_eid),
+             "receiver_c1": ((E,), b.pad_rowptr, b.csr_eid),
+             f"receiver_c{C}": ((E, C), b.pad_rowptr, b.csr_eid)}
+    for name, (shape, rowptr, perm) in cases.items():
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        check_csr_sum(path, f"{path}_{name}", x, rowptr, perm, card)
+
+
+def csr_random_checks(dev, card):
+    """The CSR sum on random CSRs of 3,200 segments (0-40 entries, one of
+    5,000, 200 empty at the end) over shuffled rows, at the widths the
+    paths give it and at 1,024, in float32 and bfloat16; and without a
+    permutation."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(16)
+    for C, dtype, shuffled in ((1, "float32", True), (3, "float32", True),
+                               (60, "float32", True),
+                               (180, "float32", True),
+                               (1024, "float32", True),
+                               (60, "bfloat16", True),
+                               (1, "bfloat16", True),
+                               (60, "float32", False)):
+        rowptr, idx, M = random_segments(rng)
+        x = torch.from_numpy(rng.randn(M, C).astype(np.float32)).to(
+            dev, getattr(torch, dtype))
+        perm = torch.from_numpy(idx).to(dev) if shuffled else None
+        check_csr_sum("random", f"random_c{C}_{dtype}"
+                      f"{'' if shuffled else '_in_order'}", x,
+                      torch.from_numpy(rowptr).to(dev), perm, card)
 
 
 def function_grads(host, g, H, C, dev, dtype):
@@ -1115,7 +1273,8 @@ def serving_phase(dev, demo, card):
                   f"real_nodes={int(b.node_mask.sum())}/{b.num_nodes} "
                   f"real_edges={b.num_real_edges}/{b.num_edges}")
     check_counts("flagship serving", launches,
-                 {"triplet_fused_fwd": cfg.message_steps * n_batches})
+                 {"triplet_fused_fwd": cfg.message_steps * n_batches,
+                  "segment_sum_csr": csr_sums(cfg)[0] * n_batches})
     if st["captures"] != 1 or st["signatures"] != 1:
         fail(f"flagship serving: the pinned budgets' batches took "
              f"{st['captures']} captures and {st['signatures']} "
@@ -1334,10 +1493,12 @@ def reset_counts():
     """Set every kernel's launch count to 0."""
     from glam_tpu_torch.ops.kernels.segment_softmax_spmm import (
         segment_softmax_spmm, segment_softmax_spmm_bwd)
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import segment_sum_csr
     from glam_tpu_torch.ops.kernels.triplet_fused import (
         triplet_attention, triplet_attention_bwd)
     for counted in (triplet_attention, triplet_attention_bwd,
-                    segment_softmax_spmm, segment_softmax_spmm_bwd):
+                    segment_softmax_spmm, segment_softmax_spmm_bwd,
+                    segment_sum_csr):
         counted.launches = 0
 
 
@@ -1434,7 +1595,8 @@ def training_phase(dev, card, tmp):
     cfg = trainer.model.cfg
     check_counts("flagship training", launches, {
         "triplet_fused_bwd": cfg.message_steps * steps,
-        "triplet_fused_fwd": cfg.message_steps * forwards})
+        "triplet_fused_fwd": cfg.message_steps * forwards,
+        "segment_sum_csr": csr_want(cfg, steps, forwards)})
     print(f"training [flagship]: H={trainer.model.mol.conv.conv.heads} "
           f"launches triplet_fused_bwd={launches['triplet_fused_bwd']} = "
           f"{cfg.message_steps} x {steps} steps, triplet_fused_fwd="
@@ -1465,6 +1627,7 @@ def training_phase(dev, card, tmp):
     kern = {w: check_kernel(w, "train_batch", csr, rng, dev, card)
             for w in ("fwd", "bwd")}
     function_on_card_vs_cpu(dev, csr, rng)
+    csr_checks("train", batch, 3, cfg.hid_dim, dev, card)
     grads_card_vs_cpu(trainer, cfg, batch, dev)
     captured_vs_eager("flagship", trainer, card)
     captured_vs_eager("flagship", trainer, card, optim="SGD")
@@ -1473,7 +1636,8 @@ def training_phase(dev, card, tmp):
                       plan=PLAN_RANGER)
     STEP_TIMES["flagship"] = step_timing(trainer, batch.to(dev), card)
     return {k: launches[k] for k in ("triplet_fused_fwd",
-                                     "triplet_fused_bwd")}, kern
+                                     "triplet_fused_bwd",
+                                     "segment_sum_csr")}, kern
 
 
 def library_phase(dev, card, tmp, demo):
@@ -1489,14 +1653,16 @@ def library_phase(dev, card, tmp, demo):
 
     trainer, launches, steps, forwards = run_cli(tmp, LIBRARY_ARGS,
                                                  "light_set2set")
+    cfg = trainer.model.cfg
     check_counts("light_set2set training", launches, {
         "segment_softmax_spmm_fwd": 6 * forwards,
-        "segment_softmax_spmm_bwd": 6 * steps})
-    cfg = trainer.model.cfg
+        "segment_softmax_spmm_bwd": 6 * steps,
+        "segment_sum_csr": csr_want(cfg, steps, forwards)})
     batch = next(iter(trainer.train_loader))
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
                             cfg.hid_dim, np.random.RandomState(2), dev, card)
+    csr_checks("train_light_set2set", batch, 1, cfg.hid_dim, dev, card)
     captured_vs_eager("light_set2set", trainer, card)
     STEP_TIMES["light_set2set"] = step_timing(trainer, batch.to(dev), card)
 
@@ -1520,7 +1686,8 @@ def library_phase(dev, card, tmp, demo):
     n_batches = len(on_card.batches([g for g in on_card.featurize(demo)
                                      if g is not None]))
     check_counts("light_set2set serving", served,
-                 {"segment_softmax_spmm_fwd": 6 * n_batches})
+                 {"segment_softmax_spmm_fwd": 6 * n_batches,
+                  "segment_sum_csr": csr_sums(cfg)[0] * n_batches})
     if not (np.isfinite(a[valid]).all() and np.allclose(
             a, b, rtol=TOL, atol=TOL, equal_nan=True)):
         fail(f"trained BatchNorm checkpoint: card and CPU predictions "
@@ -1548,28 +1715,33 @@ def gat_phase(dev, card, tmp):
     import numpy as np
     trainer, launches, steps, forwards = run_cli(tmp, GAT_ARGS,
                                                  "gat_lapool")
+    cfg = trainer.model.cfg
     check_counts("gat_lapool training", launches, {
         "segment_softmax_spmm_fwd": 4 * forwards,
-        "segment_softmax_spmm_bwd": 4 * steps})
-    cfg = trainer.model.cfg
+        "segment_softmax_spmm_bwd": 4 * steps,
+        "segment_sum_csr": csr_want(cfg, steps, forwards)})
     batch = next(iter(trainer.train_loader))
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     kern = check_spmm_calls("train", batch, cfg.mol_block, cfg.mol_readout,
                             cfg.hid_dim, np.random.RandomState(3), dev, card)
+    csr_checks("train_gat_lapool", batch, 1, cfg.hid_dim, dev, card)
     return launches, kern
 
 
-def default_phase(dev, tmp):
+def default_phase(dev, tmp, card):
     """The CLI with no --mol_block (_NNConv, GlobalPool5, _PairNorm) for 1
-    epoch: no kernel launches; then one step of a full-width _GCNConv
+    epoch: of the kernels only the CSR sum's launches (NNConv's sums over
+    receivers, PairNorm's over graphs, their gathers' backward); then one step of a full-width _GCNConv
     model's gradients card vs CPU on a batch of that trainer."""
     import dataclasses
     import torch
     from glam_tpu_torch.nn.model import Architecture
     torch.cuda.reset_peak_memory_stats()
-    trainer, launches, _, _ = run_cli(tmp, ["--epochs", "1"], "default")
-    check_counts("default-config training", launches, {})
+    trainer, launches, steps, forwards = run_cli(tmp, ["--epochs", "1"],
+                                                 "default")
     cfg = trainer.model.cfg
+    check_counts("default-config training", launches, {
+        "segment_sum_csr": csr_want(cfg, steps, forwards)})
     print(f"training [default]: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (NNConv's "
           f"per-edge [E, {cfg.hid_dim}, {cfg.hid_dim}] weights at the "
@@ -1581,6 +1753,9 @@ def default_phase(dev, tmp):
     grads_card_vs_cpu(trainer, gcn, next(iter(trainer.train_loader)), dev,
                       train_mode=True, state=Architecture(
                           gcn, torch.Generator().manual_seed(0)).state_dict())
+    csr_checks("train_default", next(iter(trainer.train_loader)), 1,
+               cfg.hid_dim, dev, card)
+    return launches
 
 
 def serve_card_vs_cpu(label, run_dir, pairs, dev, contact_maps=None,
@@ -1645,7 +1820,8 @@ def ddi_phase(dev, card, tmp):
     cfg = trainer.model.cfg
     n = 2 * cfg.message_steps
     check_counts("ddi training", launches, {
-        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps})
+        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps,
+        "segment_sum_csr": csr_want(cfg, steps, forwards, hetero=False)})
     print(f"training [ddi]: launches triplet_fused_fwd="
           f"{launches['triplet_fused_fwd']} = {n} x {forwards} forwards, "
           f"triplet_fused_bwd={launches['triplet_fused_bwd']} = {n} x "
@@ -1655,6 +1831,7 @@ def ddi_phase(dev, card, tmp):
     batch = next(iter(trainer.train_loader))
     kern = check_triplet_towers("ddi", batch, np.random.RandomState(4),
                                 dev, card)
+    csr_checks("train_ddi", batch[0], 3, cfg.hid_dim, dev, card)
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     captured_vs_eager(label, trainer, card)
     timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
@@ -1677,7 +1854,8 @@ def dti_phase(dev, card, tmp):
     check_counts("dti training", launches, {
         "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps,
         "segment_softmax_spmm_fwd": n * forwards,
-        "segment_softmax_spmm_bwd": n * steps})
+        "segment_softmax_spmm_bwd": n * steps,
+        "segment_sum_csr": csr_want(cfg, steps, forwards, hetero=True)})
     print(f"training [dti]: launches {n} x {forwards} forwards and {n} x "
           f"{steps} steps of A/C and B/C-backward: {json.dumps(launches)} "
           f"({card})")
@@ -1823,7 +2001,8 @@ def dti_serving_phase(dev, card, demo):
               f"atol {TOL})")
     check_counts("dti_serving", launches, {
         "triplet_fused_fwd": cfg.message_steps * n_batches,
-        "segment_softmax_spmm_fwd": cfg.message_steps * n_batches})
+        "segment_softmax_spmm_fwd": cfg.message_steps * n_batches,
+        "segment_sum_csr": csr_sums(cfg, hetero=True)[0] * n_batches})
     b1, b2 = next(iter(pred.loader(
         [s for s in pred.samples(requests["demo64_x_protein1000"])])))
     moved = (b1.to(dev), b2.to(dev))
@@ -1857,7 +2036,8 @@ def screening_phase(dev, card, tmp):
     cfg = trainer.model.cfg
     n = cfg.message_steps
     check_counts("screening training", launches, {
-        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps})
+        "triplet_fused_fwd": n * forwards, "triplet_fused_bwd": n * steps,
+        "segment_sum_csr": csr_want(cfg, steps, forwards, hetero=True)})
     if trainer.args["loss"] != "wce" or cfg.pro_block != "_GCNConv":
         fail(f"screening: loss {trainer.args['loss']}, protein tower "
              f"{cfg.pro_block}; the CLI's defaults are wce and _GCNConv")
@@ -1906,17 +2086,12 @@ def demo_root(tmp):
     return root
 
 
-def run_ranks_cli(tmp, flags, label, dataset="demo", graphs=None,
-                  ranks=DP_RANKS):
-    """``python -m glam_tpu_torch.run ... --n_devices 2`` (or
+def start_ranks_cli(tmp, flags, label, dataset="demo", threads=None):
+    """Start ``python -m glam_tpu_torch.run ... --n_devices 2`` (or
     ``--pro_shards 2``) as a user runs it, on the card: the launcher
-    starts the gloo ranks, each on cuda:0 (``ranks`` of them; nccl
-    ranks, one card each, on a host with as many cards).
-    Checks the exit code, that the final line is printed once and parses,
-    that every rank replayed step graphs in the design ``graphs`` (None:
-    none, eagerly), prints each rank's design and graph stats, and
-    returns (run dir, result.json, each rank's launches, optimizer
-    steps, forwards a rank, wall s)."""
+    starts the gloo ranks, each on cuda:0.  ``threads`` sets each rank's
+    ``OMP_NUM_THREADS`` (runs started together share the host's cores).
+    Its output goes to files; :func:`finish_ranks_cli` waits for it."""
     if dataset == "demo":
         data = ["--dataset", "demo", "--loss", "bcel", "--dataset_root",
                 str(demo_root(tmp))]
@@ -1924,23 +2099,64 @@ def run_ranks_cli(tmp, flags, label, dataset="demo", graphs=None,
         data = ["--dataset", dataset, "--dataset_root",
                 str(ROOT / "datasets" / PAIR_ROOTS[dataset])]
     work = Path(tmp) / label
+    work.mkdir(parents=True)
     argv = data + ["--work_dir", str(work)] + flags
+    env = dict(os.environ)
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
+    with open(work / "stdout.txt", "w") as out, \
+            open(work / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "glam_tpu_torch.run",
+                                 *argv], cwd=ROOT, stdout=out, stderr=err,
+                                env=env)
+    return dict(label=label, dataset=dataset, argv=argv, work=work,
+                proc=proc, t0=time.perf_counter())
+
+
+def start_together(tmp, runs):
+    """Start the runs ``[(flags, label, dataset), ...]`` at once, each
+    rank with its share of the host's cores as threads."""
+    threads = max(1, (os.cpu_count() or 1) // (DP_RANKS * len(runs)))
+    return [start_ranks_cli(tmp, flags, label, dataset, threads)
+            for flags, label, dataset in runs]
+
+
+def run_ranks_cli(tmp, flags, label, dataset="demo", graphs=None,
+                  ranks=DP_RANKS):
+    """:func:`start_ranks_cli`, then :func:`finish_ranks_cli`."""
+    return finish_ranks_cli(start_ranks_cli(tmp, flags, label, dataset),
+                            graphs, ranks)
+
+
+def finish_ranks_cli(run, graphs=None, ranks=DP_RANKS):
+    """Wait for a run of :func:`start_ranks_cli` (``ranks`` ranks; nccl
+    ranks, one card each, on a host with as many cards).
+    Checks the exit code, that the final line is printed once and parses,
+    that every rank replayed step graphs in the design ``graphs`` (None:
+    none, eagerly), prints each rank's design and graph stats, and
+    returns (run dir, result.json, each rank's launches, optimizer
+    steps, forwards a rank, wall s: from its start, beside the runs
+    started with it)."""
+    label, dataset, work = run["label"], run["dataset"], run["work"]
     print(f"training [{label}]: python -m glam_tpu_torch.run "
-          f"{' '.join(argv)}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "glam_tpu_torch.run",
-                           *argv], cwd=ROOT, capture_output=True, text=True,
-                          timeout=900)
-    wall = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode:
+          f"{' '.join(run['argv'])}")
+    try:
+        run["proc"].wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        run["proc"].wait()
+        fail(f"{label}: still running after 900 s")
+    wall = time.perf_counter() - run["t0"]
+    stdout = (work / "stdout.txt").read_text()
+    out = stdout + (work / "stderr.txt").read_text()
+    if run["proc"].returncode:
         print(out[-6000:])
         fail(f"{label}: run with {ranks} ranks exited "
-             f"{proc.returncode}")
+             f"{run['proc'].returncode}")
     for line in out.splitlines():
         if line.startswith(("[distributed]", "[launcher]")):
             print(f"  {line}")
-    finals = [ln for ln in proc.stdout.splitlines()
+    finals = [ln for ln in stdout.splitlines()
               if ln.startswith("{'testloss'")]
     if len(finals) != 1:
         fail(f"{label}: the final line printed {len(finals)} times")
@@ -2089,18 +2305,51 @@ def dp_phase(dev, card, tmp):
           f"time-sliced on one card, not a scaling number ({card})")
     out = {"launches": {}, "kern": {}, "secs": {}}
 
+    # the three runs through the CLI start together (their checks read
+    # counts and results, no time); the ranks' timed tasks run after
     t0 = time.perf_counter()
-    _, _, by_rank, steps, forwards, _ = run_ranks_cli(tmp, DP_ARGS, "dp",
-                                                      graphs=backend_design)
-    check_rank_counts("dp", by_rank, {"triplet_fused_fwd": 3 * forwards,
-                                      "triplet_fused_bwd": 3 * steps})
+    runs = start_together(tmp, [(DP_ARGS, "dp", "demo"),
+                                (DP_LIBRARY_ARGS, "dp_library", "demo"),
+                                (DP_ARGS, "dp_pair", "drugbank_caster")])
+    _, _, by_rank, steps, forwards, _ = finish_ranks_cli(
+        runs[0], graphs=backend_design)
+    check_rank_counts("dp", by_rank, {
+        "triplet_fused_fwd": 3 * forwards, "triplet_fused_bwd": 3 * steps,
+        "segment_sum_csr": csr_want(cli_cfg(DP_ARGS), steps, forwards)})
     out["launches"]["train_dp"] = by_rank
     rng = np.random.RandomState(11)
     csr = batch_csr(rank_batch(tmp, DP_ARGS))
     out["kern"]["train_dp"] = {w: check_kernel(w, "dp_rank_batch", csr, rng,
                                                dev, card)
                                for w in ("fwd", "bwd")}
-    out["secs"]["dp"] = time.perf_counter() - t0
+
+    _, _, by_rank, steps, forwards, _ = finish_ranks_cli(
+        runs[1], graphs=backend_design)
+    check_rank_counts("dp_library", by_rank, {
+        "segment_softmax_spmm_fwd": 6 * forwards,
+        "segment_softmax_spmm_bwd": 6 * steps,
+        "segment_sum_csr": csr_want(cli_cfg(DP_LIBRARY_ARGS), steps,
+                                    forwards)})
+    out["launches"]["train_dp_library"] = by_rank
+    out["kern"]["train_dp_library"] = check_spmm_calls(
+        "dp_rank", rank_batch(tmp, DP_LIBRARY_ARGS), "_TripletMessageLight",
+        "Set2Set", 60, np.random.RandomState(13), dev, card)
+
+    _, _, by_rank, steps, forwards, _ = finish_ranks_cli(
+        runs[2], graphs=backend_design)
+    check_rank_counts("dp_pair", by_rank, {
+        "triplet_fused_fwd": 6 * forwards, "triplet_fused_bwd": 6 * steps,
+        "segment_sum_csr": csr_want(cli_cfg(DP_ARGS), steps, forwards,
+                                    hetero=False)})
+    out["launches"]["train_dp_ddi"] = by_rank
+    from glam_tpu_torch.data.batching import PairGraphLoader
+    from glam_tpu_torch.data.pair_datasets import DDIDataset
+    ds = DDIDataset(str(ROOT / "datasets" / PAIR_ROOTS["drugbank_caster"]))
+    pair = next(iter(PairGraphLoader(ds.train, 64, 1, shuffle=True,
+                                     seed=1234, n_devices=DP_RANKS, rank=0)))
+    out["kern"]["train_dp_ddi"] = check_triplet_towers(
+        "dp_ddi", pair, np.random.RandomState(14), dev, card)
+    out["secs"]["dp_runs"] = time.perf_counter() - t0
 
     # the one-step parity, the ranks' times, and the halo steps, by
     # the ranks of the port's data-parallel checks on the card
@@ -2141,7 +2390,8 @@ def dp_phase(dev, card, tmp):
              f"{step['loss']} against one process's {single['loss']}")
     for k, launches in enumerate(step["launches"]):
         check_counts(f"dp step rank {k}", launches,
-                     {"triplet_fused_fwd": 3, "triplet_fused_bwd": 3})
+                     {"triplet_fused_fwd": 3, "triplet_fused_bwd": 3,
+                      "segment_sum_csr": csr_want(DP_STEP_ARGS, 1, 1)})
     print(f"dp one-step parity [flagship, SGD, no noise]: {DP_RANKS} gloo "
           f"ranks, each on {dev}, against one process on the card, batch "
           f"64: max error {worst:.3e} of each tensor's scale (tol rtol "
@@ -2157,7 +2407,9 @@ def dp_phase(dev, card, tmp):
                   worker.GRAPH_PLAN, runs, card)
         n = len(runs["captured"][1])
         check_counts(f"dp graphs {name} rank 0", runs["captured"][2],
-                     {"triplet_fused_fwd": 3 * n, "triplet_fused_bwd": 3 * n})
+                     {"triplet_fused_fwd": 3 * n, "triplet_fused_bwd": 3 * n,
+                      "segment_sum_csr": csr_want(DP_GRAPH_CONFIGS[name],
+                                                  n, n)})
         states = r["captured_by_rank"]
         if not all(torch.equal(states[0][k], st[k]) for st in states
                    for k in states[0]):
@@ -2202,39 +2454,15 @@ def dp_phase(dev, card, tmp):
     out["kern"]["halo"] = check_spmm_both(
         "halo_shard0", spmm_inputs(np.random.RandomState(12), rowptr, idx, m,
                                    1, HALO_CHANNELS, dev), dev, card)
-
-    t0 = time.perf_counter()
-    _, _, by_rank, steps, forwards, _ = run_ranks_cli(
-        tmp, DP_LIBRARY_ARGS, "dp_library", graphs=backend_design)
-    check_rank_counts("dp_library", by_rank, {
-        "segment_softmax_spmm_fwd": 6 * forwards,
-        "segment_softmax_spmm_bwd": 6 * steps})
-    out["launches"]["train_dp_library"] = by_rank
-    out["kern"]["train_dp_library"] = check_spmm_calls(
-        "dp_rank", rank_batch(tmp, DP_LIBRARY_ARGS), "_TripletMessageLight",
-        "Set2Set", 60, np.random.RandomState(13), dev, card)
-    out["secs"]["dp_library"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    _, _, by_rank, steps, forwards, _ = run_ranks_cli(
-        tmp, DP_ARGS, "dp_pair", "drugbank_caster", graphs=backend_design)
-    check_rank_counts("dp_pair", by_rank, {"triplet_fused_fwd": 6 * forwards,
-                                           "triplet_fused_bwd": 6 * steps})
-    out["launches"]["train_dp_ddi"] = by_rank
-    from glam_tpu_torch.data.batching import PairGraphLoader
-    from glam_tpu_torch.data.pair_datasets import DDIDataset
-    ds = DDIDataset(str(ROOT / "datasets" / PAIR_ROOTS["drugbank_caster"]))
-    pair = next(iter(PairGraphLoader(ds.train, 64, 1, shuffle=True,
-                                     seed=1234, n_devices=DP_RANKS, rank=0)))
-    out["kern"]["train_dp_ddi"] = check_triplet_towers(
-        "dp_ddi", pair, np.random.RandomState(14), dev, card)
-    out["secs"]["dp_pair"] = time.perf_counter() - t0
     return out
 
 
-SHARDED_ARGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
-                "--pro_block", "_GATConv", "--pro_shards", str(DP_RANKS)]
-SHARDED_RING_ARGS = SHARDED_ARGS + ["--halo", "ring", "--pair_batch", "4"]
+# the two sharded runs through the CLI, a2a and ring: one epoch of
+# dti_demo's 360 training pairs, 2 and 4 pairs a step
+SHARDED_FLAGS = ["--epochs", "1", "--mol_block", "_TripletMessage",
+                 "--pro_block", "_GATConv", "--pro_shards", str(DP_RANKS)]
+SHARDED_ARGS = SHARDED_FLAGS + ["--pair_batch", "2"]
+SHARDED_RING_ARGS = SHARDED_FLAGS + ["--halo", "ring", "--pair_batch", "4"]
 # the 1,000-residue step: the CLI's full-width model (hid 60, 3 steps,
 # e_dim 1024, GlobalPool5 readouts) in evaluation mode, weights from
 # seed 0
@@ -2382,17 +2610,21 @@ def sharded_phase(dev, card, tmp):
     ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
     test_pairs = [(g1.smi, g2.smi) for g1, g2 in ds.test]
     rng = np.random.RandomState(21)
-    for label, flags, path, B in (
-            ("sharded_dti", SHARDED_ARGS, "train_sharded_dti", 1),
-            ("sharded_ring", SHARDED_RING_ARGS, "train_sharded_ring", 4)):
-        t0 = time.perf_counter()
-        run_dir, result, by_rank, steps, forwards, _ = run_ranks_cli(
-            tmp, flags, label, "bindingdb_c")
+    # both runs start together (their checks read counts and results)
+    t0 = time.perf_counter()
+    sharded = (("sharded_dti", SHARDED_ARGS, "train_sharded_dti", 2),
+               ("sharded_ring", SHARDED_RING_ARGS, "train_sharded_ring", 4))
+    runs = start_together(tmp, [(flags, label, "bindingdb_c")
+                                for label, flags, _, _ in sharded])
+    for run, (label, flags, path, B) in zip(runs, sharded):
+        run_dir, result, by_rank, steps, forwards, _ = finish_ranks_cli(run)
         check_rank_counts(label, by_rank, {
             "triplet_fused_fwd": 3 * forwards,
             "triplet_fused_bwd": 3 * steps,
             "segment_softmax_spmm_fwd": 3 * forwards,
-            "segment_softmax_spmm_bwd": 3 * steps})
+            "segment_softmax_spmm_bwd": 3 * steps,
+            "segment_sum_csr": csr_want(cli_cfg(flags), steps, forwards,
+                                        hetero=True, sharded_protein=True)})
         print(f"training [{label}]: launches exact on each rank: A and C "
               f"3 x {forwards} forwards, B and C's backward 3 x {steps} "
               f"steps")
@@ -2417,7 +2649,8 @@ def sharded_phase(dev, card, tmp):
             shard.edges.shape[0] + B * shard.n_local, 1, 60, dev), dev,
             card)
         out["kern"][path] = kern
-        print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    print(f"phase sharded_dti and sharded_ring, started together: "
+          f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     worker = dp_worker()
@@ -2458,11 +2691,13 @@ def sharded_phase(dev, card, tmp):
         # one forward and backward of the two towers, 3 message steps
         a = 6 if name.endswith("_TripletMessage") else 3
         c = 3 if name.endswith("_GATConv") else 0
+        csr = csr_want(cases[name]["cfg"], 1, 1, hetero=True,
+                       sharded_protein=True)
         for k, counts in enumerate(got["sharded"][name]["launches"]):
             check_counts(f"sharded_protein {name} rank {k}", counts, {
                 "triplet_fused_fwd": a, "triplet_fused_bwd": a,
                 "segment_softmax_spmm_fwd": c,
-                "segment_softmax_spmm_bwd": c})
+                "segment_softmax_spmm_bwd": c, "segment_sum_csr": csr})
             for n, v in counts.items():
                 launches[k][n] = launches[k].get(n, 0) + v
     for k, r in enumerate(got["sharded_time"]):
@@ -2589,7 +2824,10 @@ def giant_protein_run(tmp, rng, dev, card):
         steps, forwards = r.pop("steps"), r.pop("forwards")
         check_counts(f"giant_protein rank {k}", r, {
             "triplet_fused_fwd": 3 * forwards,
-            "triplet_fused_bwd": 3 * steps})
+            "triplet_fused_bwd": 3 * steps,
+            "segment_sum_csr": csr_want(
+                giant_demo().trainer_args(DP_RANKS, 2), steps, forwards,
+                hetero=True, sharded_protein=True)})
         by_rank.append(r)
     print(f"giant_protein: L=3000 over {DP_RANKS} ranks, {steps} steps and "
           f"{forwards} forwards a rank, launches exact on each rank (A 3 x "
@@ -2685,10 +2923,76 @@ def config_calls(cfg, mol_in_dim=15):
 
 def per_forward(cfg):
     """{kernel: launches per forward} of a config; a training step runs
-    the same counts of kernels B and C's backward."""
+    the same counts of kernels B and C's backward, and ``csr_sums``' more
+    of the CSR sum."""
     a = sum(n for kind, _, _, n in config_calls(cfg) if kind == "triplet")
     c = sum(n for kind, _, _, n in config_calls(cfg) if kind != "triplet")
-    return {"triplet_fused_fwd": a, "segment_softmax_spmm_fwd": c}
+    return {"triplet_fused_fwd": a, "segment_softmax_spmm_fwd": c,
+            "segment_sum_csr": csr_sums(cfg)[0]}
+
+
+# the fixed-order CSR sum's calls (segment_sum_csr): (in a forward, more
+# in its backward) per message step for each conv (the sums over
+# receivers of NNConv and GCNConv; the backward of the gathers of
+# TripletMessageLight and GATConv, a_i or a_dst, a_j or a_src and xp, of
+# NNConv's and GCNConv's senders' rows, and kernel B's d_xp and d_a_j);
+# for PairNorm and LayerNorm, two sums over graphs a forward and two
+# gathers' backward (not at the pre-norm, whose input, the node features,
+# takes no gradient); for the readouts, GlobalPool5's sum and Set2Set's 3
+# gathers by graph
+CSR_CONV = {"_TripletMessage": (0, 2), "_TripletMessageLight": (0, 3),
+            "_GATConv": (0, 3), "_NNConv": (1, 1), "_GCNConv": (1, 1)}
+CSR_NORM = {"_PairNorm": 2, "_LayerNorm": 2}
+CSR_READOUT = {"GlobalPool5": (1, 0), "Set2Set": (0, 3),
+               "GlobalLAPool": (0, 0)}
+# a node-sharded protein tower's own (parallel/sharded_model.py): NNConv's
+# two sums and GCNConv's one over receivers a step, kernel B's two a
+# step's backward; its norms and readouts are dense
+CSR_SHARDED = {"_TripletMessage": (0, 2), "_NNConv": (2, 0),
+               "_GCNConv": (1, 0)}
+
+
+def csr_sums(cfg, hetero=None, sharded_protein=False):
+    """(launches of the CSR sum in a forward, more in a training step's
+    backward) of a config (a dict or a ModelConfig): one tower (hetero
+    None), DDI's two molecule towers (False) or DTI's molecule and
+    protein towers (True; ``sharded_protein``: the protein's a
+    node-sharded tower)."""
+    from glam_tpu_torch.nn.model import ModelConfig
+    c = {**dataclasses.asdict(ModelConfig()),
+         **(cfg if isinstance(cfg, dict) else dataclasses.asdict(cfg))}
+    norm = lambda k: CSR_NORM.get(c.get(k, "_None").strip(), 0)  # noqa
+    steps = int(c["message_steps"])
+    towers = [(c["mol_block"], c["mol_readout"])]
+    if hetero is not None:
+        towers.append((c["pro_block"], c["pro_readout"]) if hetero
+                      else towers[0])
+    fwd = bwd = 0
+    for i, (block, readout) in enumerate(towers):
+        if i == 1 and sharded_protein:
+            f, b = CSR_SHARDED.get(block.strip(), (0, 0))
+            fwd, bwd = fwd + steps * f, bwd + steps * b
+            continue
+        cf, cb = CSR_CONV[block.strip()]
+        rf, rb = CSR_READOUT[readout.strip()]
+        fwd += norm("pre_norm") + steps * (norm("graph_norm") + cf) + rf
+        bwd += steps * (norm("graph_norm") + cb) + rb
+    return fwd, bwd
+
+
+def csr_want(cfg, steps, forwards, **kw):
+    """The CSR sum's launches in ``steps`` training steps and
+    ``forwards`` forwards (the steps' own among them)."""
+    f, b = csr_sums(cfg, **kw)
+    return f * forwards + b * steps
+
+
+def cli_cfg(flags):
+    """The ModelConfig that ``glam_tpu_torch.run`` makes of ``flags``."""
+    from glam_tpu_torch.nn.model import model_config_from_args
+    from glam_tpu_torch.run import build_parser
+    return model_config_from_args(vars(build_parser().parse_known_args(
+        flags)[0]))
 
 
 def spmm_call_inputs(kind, batch, C, rng, dev):
@@ -2779,9 +3083,9 @@ class UtilSampler:
                 f"{max(m for _, m in s):.0f} MiB")
 
 
-def run_search(tmp, slots, label, full):
-    """The solver on a fresh copy of physprop_perturb with
-    GLAM_TPU_TRIAL_SLOTS=slots on the one card: ``glam.main`` (low
+def run_search(tmp, slots, label, full, args=AUTOML_ARGS):
+    """The solver's search ``args`` on a fresh copy of physprop_perturb
+    with GLAM_TPU_TRIAL_SLOTS=slots on the one card: ``glam.main`` (low
     fidelity, high fidelity, blend and PASP) when ``full``, else the
     low-fidelity phase alone; the card sampled throughout; the trials'
     output in a file.  Returns (solver, {'wall_s', 'low_s', 'util',
@@ -2796,7 +3100,7 @@ def run_search(tmp, slots, label, full):
     os.environ["GLAM_TPU_TRIAL_SLOTS"] = str(slots)
     out_path = work / "trials_stdout.txt"
     print(f"automl search [{label}]: GLAM_TPU_TRIAL_SLOTS={slots}, seed "
-          f"{AUTOML_SEED}, {json.dumps(AUTOML_ARGS)}"
+          f"{AUTOML_SEED}, {json.dumps(args)}"
           f"{'' if full else ' (low-fidelity phase only)'}; the trials' "
           f"output goes to {out_path.name}", flush=True)
     reset_counts()
@@ -2810,13 +3114,13 @@ def run_search(tmp, slots, label, full):
                 argv = ["--dataset", "physprop_perturb", "--dataset_root",
                         str(root), "--seed", str(AUTOML_SEED),
                         "--work_dir", str(work)]
-                for k, v in AUTOML_ARGS.items():
+                for k, v in args.items():
                     argv += [f"--{k}", str(v)]
                 solver = glam.main(argv)
             else:
                 solver = GLAM("physprop_perturb", str(root),
                               seed=AUTOML_SEED, work_dir=str(work),
-                              **{k: v for k, v in AUTOML_ARGS.items()
+                              **{k: v for k, v in args.items()
                                  if k in ("n_init_configs",
                                           "n_low_fidelity_seed",
                                           "low_fidelity_epochs")})
@@ -2834,7 +3138,7 @@ def run_search(tmp, slots, label, full):
         os.dup2(saved, 1)
         os.close(saved)
     launches = read_counts()
-    n_low = AUTOML_ARGS["n_init_configs"] * AUTOML_ARGS["n_low_fidelity_seed"]
+    n_low = args["n_init_configs"] * args["n_low_fidelity_seed"]
     low = solver.trials[:n_low]
     low_end = max(t["start"] + t["seconds"] for t in low)
     return solver, {"wall_s": wall, "low_s": low_end - t0,
@@ -2897,7 +3201,8 @@ def check_trials(label, solver, dev, card, smis, n_val_b, n_test_b):
                 "segment_softmax_spmm_fwd":
                     pf["segment_softmax_spmm_fwd"] * forwards,
                 "segment_softmax_spmm_bwd":
-                    pf["segment_softmax_spmm_fwd"] * steps}
+                    pf["segment_softmax_spmm_fwd"] * steps,
+                "segment_sum_csr": csr_want(cfg, steps, forwards)}
         check_counts(f"automl [{label}] trial {cfg['note']} (its own "
                      "process)", res["kernel_launches"], want)
         if not res.get("step_graphs"):
@@ -2985,8 +3290,12 @@ def automl_phase(dev, card, demo, tmp):
     n_test_b = math.ceil(len(ds.test) / 32)
     smis = [g.smi for g in ds.test[:37]]
     results = {}
-    for slots, label, full in ((1, "slots1", False), (4, "slots4", True)):
-        solver, r = run_search(tmp, slots, label, full)
+    # at one slot, the low-fidelity phase of the first AUTOML_SERIAL
+    # configuration(s): a trial alone on the card beside the 4 slots'
+    serial = dict(AUTOML_ARGS, n_init_configs=AUTOML_SERIAL)
+    for slots, label, full, args in ((1, "slots1", False, serial),
+                                     (4, "slots4", True, AUTOML_ARGS)):
+        solver, r = run_search(tmp, slots, label, full, args)
         print(f"automl search [{label}]: {len(solver.trials)} trials, "
               f"{solver.dm.num_slots} slots on {solver.dm.num_cards} card; "
               f"low-fidelity phase wall_s={r['low_s']:.2f} ({r['util_low']});"
@@ -3356,7 +3665,8 @@ def bf16_phase(dev, card, tmp, label, flags, f32_label):
             "segment_softmax_spmm_fwd": per["segment_softmax_spmm_fwd"]
             * forwards,
             "segment_softmax_spmm_bwd": per["segment_softmax_spmm_fwd"]
-            * steps}
+            * steps,
+            "segment_sum_csr": csr_want(cfg, steps, forwards)}
     check_counts(f"{label} training", launches, want)
     if trainer.compute_dtype != torch.bfloat16:
         fail(f"{label}: compute dtype {trainer.compute_dtype}")
@@ -3393,6 +3703,9 @@ def bf16_training(dev, card, tmp):
     rng = np.random.RandomState(10)
     kern_a = {w: check_kernel(w, "train_bf16_batch", batch_csr(batch), rng,
                               dev, card) for w in ("fwd", "bwd")}
+    import torch
+    csr_checks("train_flagship_bf16", batch, 3, 60, dev, card,
+               torch.bfloat16)
     lib_launches, batch, trainer = bf16_phase(
         dev, card, tmp, "light_set2set_bf16", BF16_LIBRARY_ARGS,
         "light_set2set")
@@ -3566,20 +3879,14 @@ def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
                       plan=PLAN_19, lr=1e-3):
     """From one state (the trainer's weights), the steps of ``plan`` over
     the trainer's own loader batches through ``StepGraphs`` (its replays'
-    launches counted) and the same steps eagerly, three times: the
-    parameters, the BatchNorm statistics and the optimizer state after
-    them, the losses, and the launches.  Each tensor of the captured run
-    must lie within rtol GRAPH_RTOL + GRAPH_ATOL x its largest entry of
-    the first eager run's, or, as a share of its largest entry, within
-    GRAPH_RTOL beyond twice the largest such share between two eager runs
-    (B's d_xp and index_add_'s atomics change the last bits of a
-    gradient, in another order when the kernels run back to back in a
-    replay, and Adam's steps move a parameter by its full rate whatever a
-    near-zero gradient's size).  The losses are held alike.  With
-    ``noise`` the model draws Dropout masks and RReLU slopes from the
-    trainer's generator, so the losses say that the graphs' Philox draws
-    are the eager ones.  Restores the trainer's model and optimizer.
-    Returns the line's numbers."""
+    launches counted) and the same steps eagerly: the parameters, the
+    BatchNorm statistics and the optimizer state after them, the losses
+    and the launches, bitwise equal (every sum of a one-process step runs
+    in a fixed order: :func:`hold_bitwise`).  With ``noise`` the model
+    draws Dropout masks and RReLU slopes from the trainer's generator, so
+    the losses say that the graphs' Philox draws are the eager ones.
+    Restores the trainer's model and optimizer.  Returns the line's
+    numbers."""
     import itertools
     import torch
     from glam_tpu_torch.train.optim import (ReduceLROnPlateau,
@@ -3595,7 +3902,7 @@ def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
     host = [trainer._as_parts(h) for h in itertools.islice(
         itertools.cycle(trainer.train_loader), n)]
     runs = {}
-    for run in ("eager", "captured", "eager_2", "eager_3"):
+    for run in ("eager", "captured"):
         model = build_model(trainer, cfg)
         model.load_state_dict(state)
         model.train()
@@ -3630,14 +3937,54 @@ def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
                      torch.cat(losses), read_counts(), graphs.stats,
                      get_learning_rate(trainer.optimizer))
     trainer.model, trainer.optimizer, trainer.step_graphs = saved
-    return hold_runs(label, optim, noise, plan, runs, card)
+    return hold_bitwise(label, optim, noise, plan, runs, card)
+
+
+def hold_bitwise(label, optim, noise, plan, runs, card):
+    """Hold a captured run against an eager one from one state (``runs``:
+    {eager, captured: (state, losses, launches, graph stats, learning
+    rate)}): every state tensor and every loss bitwise equal, the launches
+    equal; prints the line and returns its numbers."""
+    import torch
+    eager, got = runs["eager"][0], runs["captured"][0]
+    differ = [k for k in eager if not torch.equal(got[k], eager[k])]
+    if differ:
+        k = differ[0]
+        err = float((got[k].double() - eager[k].double()).abs().max())
+        fail(f"captured vs eager [{label}, {optim}]: {len(differ)} of "
+             f"{len(eager)} state tensors differ, {k} by {err:.3e}")
+    la, le = runs["captured"][1], runs["eager"][1]
+    if not torch.equal(la, le):
+        fail(f"captured vs eager [{label}, {optim}]: the losses differ by "
+             f"{float((la - le).abs().max()):.3e}: the replays did not "
+             "take the eager steps")
+    if runs["captured"][2] != runs["eager"][2]:
+        fail(f"captured vs eager [{label}]: launches {runs['captured'][2]} "
+             f"against {runs['eager'][2]} eagerly")
+    gs = runs["captured"][3]
+    print(f"captured vs eager [{label}, {optim}, "
+          f"{'RReLU + Dropout' if noise else 'no noise'}]: {len(la)} steps "
+          f"({', '.join(str(p) for p in plan)}), {len(eager)} state "
+          f"tensors (parameters, BatchNorm statistics, optimizer state) "
+          f"and the losses bitwise equal (draws equal: True); lr after the "
+          f"plateau {runs['captured'][4]:.3e} = eager "
+          f"{runs['eager'][4]:.3e}; "
+          f"launches equal {json.dumps(runs['captured'][2])}; "
+          f"{gs['captures']} captures {gs['capture_s']:.3f} s, pool "
+          f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card})")
+    return {"max_rel_err": 0.0, "bitwise": True, "same_draws": True}
 
 
 def hold_runs(label, optim, noise, plan, runs, card):
     """Hold a captured run against three eager runs from one state
     (``runs``: {eager, captured, eager_2, eager_3: (state, losses,
-    launches, graph stats, learning rate)}) as :func:`captured_vs_eager`
-    says; prints the line and returns its numbers."""
+    launches, graph stats, learning rate)}), where a path still sums with
+    atomics (the gloo data-parallel ranks' collectives): each tensor of
+    the captured run within rtol GRAPH_RTOL + GRAPH_ATOL x its largest
+    entry of the first eager run's, or, as a share of its largest entry,
+    within GRAPH_RTOL beyond twice the largest such share between two
+    eager runs; the losses alike.  Prints the line and returns its
+    numbers."""
     import torch
     eager, got = runs["eager"][0], runs["captured"][0]
     others = [runs["eager"][0], runs["eager_2"][0], runs["eager_3"][0]]
@@ -3809,6 +4156,107 @@ def epoch_timing(trainer, card):
           + f" ({card})")
 
 
+def run_state(trainer):
+    """A run's end: its state dict (BatchNorm statistics included), its
+    optimizer's state and its final line."""
+    import torch
+    opt = {f"{i}.{k}": v for i, st in enumerate(
+        trainer.optimizer.state.values()) for k, v in st.items()
+        if torch.is_tensor(v)}
+    last = (trainer.log_save_dir / "log.txt").read_text().strip() \
+        .splitlines()[-1]
+    return dict(trainer.model.state_dict()), opt, last
+
+
+def same_state(label, a, b):
+    """Fail unless two runs' ends (:func:`run_state`) are bitwise equal:
+    every tensor (``torch.equal``) and the final line."""
+    import torch
+    for part, x, y in (("state", a[0], b[0]), ("optimizer", a[1], b[1])):
+        if x.keys() != y.keys():
+            fail(f"reproducible [{label}]: the {part} keys differ")
+        differ = [k for k in x if not torch.equal(x[k], y[k])]
+        if differ:
+            k = differ[0]
+            err = float((x[k].double() - y[k].double()).abs().max())
+            fail(f"reproducible [{label}]: {len(differ)} {part} tensors "
+                 f"differ, {k} by {err:.3e}")
+    if a[2] != b[2]:
+        fail(f"reproducible [{label}]: final lines differ: {a[2]!r} and "
+             f"{b[2]!r}")
+    return len(a[0]) + len(a[1])
+
+
+REPRODUCIBLE = (("flagship", TRAIN_ARGS, "demo", True),
+                ("ddi", DDI_ARGS, "drugbank_caster", True),
+                ("light_set2set", LIBRARY_ARGS, "demo", False),
+                ("gat_lapool", GAT_ARGS, "demo", False))
+
+
+def reproducible_phase(card, tmp):
+    """The JAX trainer's promise (glam_tpu/train/trainer.py:790-796) on
+    the card: the flagship and DDI trained 2 epochs twice from one seed
+    through ``glam_tpu_torch.run`` (step graphs replayed), and 1 epoch,
+    ``--resume``, 1 more: the state dicts (BatchNorm statistics
+    included), the optimizer states and the final lines bitwise equal;
+    the library and GAT paths twice over one epoch, likewise."""
+    for label, flags, dataset, resume in REPRODUCIBLE:
+        epochs = 2 if resume else 1
+        runs = {}
+        for run in ("first", "second") + (("half", "resumed") if resume
+                                          else ()):
+            extra = ["--epochs", str(1 if run == "half" else epochs)]
+            if run == "resumed":
+                extra += ["--resume", str(runs["half"].log_save_dir)]
+            runs[run] = run_cli(tmp, flags + extra,
+                                f"reproducible_{label}_{run}", dataset)[0]
+        first = run_state(runs["first"])
+        n = same_state(f"{label}, two runs", first,
+                       run_state(runs["second"]))
+        said = f"two runs of {epochs} epoch(s) from seed " \
+               f"{runs['first'].args.get('seed')}"
+        if resume:
+            same_state(f"{label}, resumed", first,
+                       run_state(runs["resumed"]))
+            said += " and 1 epoch + --resume + 1 epoch"
+        print(f"reproducible [{label}]: {said}: {n} tensors (weights, "
+              f"BatchNorm statistics, optimizer state) and the final line "
+              f"bitwise equal ({card})")
+
+
+def csr_mean(calls):
+    """The mean numbers of one launch of the CSR sum over a path's calls
+    ({call: numbers}), each call once."""
+    return {key: statistics.mean(r[key] for r in calls.values())
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                        "index_add_ms")}
+
+
+def csr_kernel_entry(launches):
+    """The CSR sum's entry of the kernels line: its launches on every path
+    and, at the path that launches it most among those whose calls were
+    timed, the mean numbers of one launch over those calls
+    (:func:`csr_mean`); ``library_ms`` is ``torch.segment_reduce`` with
+    lengths, ``index_add_ms`` ``index_add_`` with its fill, both of the
+    identity-permutation case."""
+    timed = {p: c for p, c in CSR_CALLS.items() if p in launches}
+    top = max(timed, key=launches.get)
+    checked = [r for c in CSR_CALLS.values() for r in c.values()]
+    by_path = {path: dict(csr_mean(timed[path]) if path in timed else {},
+                          launches=n, calls=timed.get(path, {}))
+               for path, n in launches.items()}
+    return dict(
+        name="segment_sum_csr", route="cuda",
+        source="glam_tpu_torch/csrc/segment_sum_csr.cu",
+        replaces="none: a port-only kernel for the fixed-order sums of "
+                 "glam_tpu/ops/segment.py:21 (XLA's jax.ops.segment_sum)",
+        launches=sum(launches.values()),
+        max_abs_err=max(r["max_abs_err"] for r in checked),
+        **csr_mean(timed[top]), bound_by="bytes", timed_at=top,
+        by_path=by_path, random=CSR_CALLS.get("random", {}),
+        deterministic=all(r["deterministic"] for r in checked))
+
+
 def phase(label, fn, *args):
     """``fn(*args)``, its wall seconds printed."""
     t0 = time.perf_counter()
@@ -3894,7 +4342,8 @@ def main() -> None:
         bf16_a, kern_bf16_a, bf16_c, kern_bf16_c = phase(
             "bf16", bf16_training, dev, card, tmp)
         gat_trained, kern_gat = phase("gat", gat_phase, dev, card, tmp)
-        phase("default", default_phase, dev, tmp)
+        default_launches = phase("default", default_phase, dev, tmp, card)
+        phase("reproducible", reproducible_phase, card, tmp)
         ddi_trained, kern_ddi, _ = phase("ddi", ddi_phase, dev, card, tmp)
         dti_trained, kern_dti, _ = phase("dti", dti_phase, dev, card, tmp)
         dti_served, kern_srv = phase("dti_serving", dti_serving_phase, dev,
@@ -4069,6 +4518,26 @@ def main() -> None:
         for path, n in counts.items():
             if n < 1:
                 fail(f"{name} never launched on the {path} path")
+    # the CSR sum: every path's launches (a rank path's summed over its
+    # ranks)
+    csr = "segment_sum_csr"
+    csr_launches = dict(train_default=default_launches[csr],
+                        serve=served[csr], train=trained[csr],
+                        serve_light_set2set=lib_served[csr],
+                        train_light_set2set=lib_trained[csr],
+                        train_gat_lapool=gat_trained[csr])
+    csr_launches.update({path: n[csr] for path, n in pair_paths.items()})
+    csr_launches.update({path: n[csr] for path, n in more_paths.items()})
+    csr_launches.update({path: automl["launches"][path][csr] for path in
+                         ("automl_search", "automl_trials",
+                          "automl_blend")})
+    csr_launches.update({path: sum(r.get(csr, 0) for r in by_rank)
+                         for path, by_rank in list(par["launches"].items())
+                         + list(shd["launches"].items())
+                         if path != "halo"})
+    # a path whose config sums nothing (Light + Set2Set with BatchNorm
+    # serving: no forward sum) launches it no time, as check_counts held
+    csr_launches = {path: n for path, n in csr_launches.items() if n}
     for name, (src, replaces) in meta.items():
         counts = launches[name]
         by_path = {path: dict(per_launch(calls[name][path]), launches=n,
@@ -4093,6 +4562,7 @@ def main() -> None:
                 r["device_kernels"] for r in checked),
             "deterministic": all(r["deterministic"] for r in checked),
         })
+    kernels.append(csr_kernel_entry(csr_launches))
     print(json.dumps({"kernels": kernels}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@
 //
 // it emits
 //
-//   d_xp[s]  += alpha_h * g[r] * eh                 (to senders, atomics)
+//   d_xpe[e]  = alpha_h * g[r] * eh     (d_xp[s] = sum over s's edges)
 //   dalpha_h  = sum_{c in head h} eh * xp[s] * g[r]
 //   dpre_h    = alpha_h * (dalpha_h - D_r,h) * (pre_raw_h >= 0 ? 1 : slope)
 //   D_r,h     = sum_row alpha_h * dalpha_h = <g[r], out[r]> on head h
@@ -21,33 +21,34 @@
 //
 // D_r is the softmax backward's row term read from the forward's output
 // (out[r] = sum_e alpha * eh * xp[s]), as FlashAttention's backward does,
-// so no edge waits for the rest of its row: one pass.  d_eh and d_pre are
-// written at the edge's original index (csr_eid).  The caller's edges put
-// the real ones first, the first rowptr[n] = E_real slots of csr_eid a
-// permutation of [0, E_real): the kernel zeroes the padded edges' rows
-// [E_real, E) itself, so neither needs a fill.  Slots past rowptr[n] (a
-// CSR padded to the batch's edge budget) belong to no row and are not
-// read.  The rest of the gradient (d_edge_attr, d_We, d_wemat, d_a_j) is
-// small matrix products and a scatter done by the caller.
+// so no edge waits for the rest of its row: one pass.  d_xpe, d_eh and
+// d_pre are written at the edge's original index (csr_eid).  The caller's
+// edges put the real ones first, the first rowptr[n] = E_real slots of
+// csr_eid a permutation of [0, E_real): the kernel zeroes the padded
+// edges' rows [E_real, E) itself, so none needs a fill.  Slots past
+// rowptr[n] (a CSR padded to the batch's edge budget) belong to no row and
+// are not read.  The caller sums d_xpe and d_pre over the sender CSR
+// (segment_sum_csr.cu) into d_xp and d_a_j; the rest of the gradient
+// (d_edge_attr, d_We, d_wemat) is small matrix products.
 //
 // Design (triplet_common.cuh has the layout: a row of 1-32 edges a warp,
 // longer rows cut into 32-slot chunks of slot warps).  A lane takes one
 // edge (indices, features, logits, alpha); then lanes over float4 groups
 // of channels walk the chunk's edges, each edge's dalpha a warp sum per
-// head, and write d_eh, d_pre and d_xp's atomics.  A row's d_a_i is summed
-// by its warp; a long row leaves one partial sum per chunk, merged in CSR
-// order by the warp that takes its last ticket.
+// head, and write d_xpe, d_eh and d_pre.  A row's d_a_i is summed by its
+// warp; a long row leaves one partial sum per chunk, merged in CSR order
+// by the warp that takes its last ticket.
 //
-// d_xp goes to senders, which the receiver CSR does not group, so it is
-// summed with float atomicAdd into a d_xp the caller zeroes (the one fill
-// of a call).  Its sums run in another order on every call: d_xp is not
-// bitwise reproducible and agrees with a sequential sum to float32
-// rounding.  d_eh, d_pre and d_a_i are written once each: bitwise the same
-// on every call.
+// d_xp goes to senders, which the receiver CSR does not group.  The JAX
+// kernel assembles it in a fixed order (a one-hot matmul, then an
+// overlap-add, glam_tpu/ops/pallas/triplet_fused.py:359,541); here each
+// edge's term is written once (d_xpe) and the CSR sum over senders adds
+// them in an order fixed by the sender CSR.  Every output is written once
+// by one thread: bitwise the same on every call.
 //
 // Bound.  A few flops per byte, so memory traffic bounds it: the sender
 // rows of xp, the g and out rows of receivers with edges, the edge
-// features, and the d_xp, d_eh and d_pre outputs.  At a training batch it
+// features, and the d_xpe, d_eh and d_pre outputs.  At a training batch it
 // waits on one launch and a warp's chain of dependent loads.
 //
 // Interface: plain C, loaded with ctypes.  The launch returns
@@ -76,7 +77,7 @@ struct Params {
   const float* row_max;     // [n, heads]
   const float* row_inv;     // [n, heads]
   const float* g;           // [n, hc]
-  float* d_xp;              // [n, hc], zeroed by the caller
+  float* d_xpe;             // [E, hc], each edge's term of d_xp
   float* d_eh;              // [E, hc]
   float* d_pre;             // [E, heads]
   float* d_a_i;             // [n, heads]
@@ -92,14 +93,6 @@ struct Params {
 __host__ __device__ inline size_t smem_floats(int hc, int heads, int fe) {
   return (size_t)fe * hc + (size_t)hc * heads + up4(fe * heads) +
          (size_t)kWarps * kChunk * (fe + 2 * heads);
-}
-
-// Hopper adds a float4 in one atomic
-__device__ __forceinline__ void atomic_add(float* p, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(p), v);
-}
-__device__ __forceinline__ void atomic_add(float* p, float v) {
-  atomicAdd(p, v);
 }
 
 // (dpre @ wemat^T)[j] for channel j
@@ -181,7 +174,7 @@ __device__ __forceinline__ void edge_alpha(const float (&x)[MAXH],
 }
 
 // The chunk's slots [ta, tb) of one row (its g on this lane's groups, D
-// per head): writes d_eh, d_pre and d_xp's atomics and adds each edge's
+// per head): writes d_xpe, d_eh and d_pre and adds each edge's
 // dpre to dai.  The senders' rows gathered U at a time (the first U
 // already in xs if `preloaded`).
 template <int W, int VPL, int MAXH, int U>
@@ -227,16 +220,15 @@ __device__ __forceinline__ void walk(
           dai[h] += dpre[h];
         }
       }
-      const int s = __shfl_sync(kFull, my_snd, t);
       const int e = __shfl_sync(kFull, my_e, t);
-      float* dx = q.d_xp + (size_t)s * hc;
+      T* dxe = reinterpret_cast<T*>(q.d_xpe + (size_t)e * hc);
       T* deh = reinterpret_cast<T*>(q.d_eh + (size_t)e * hc);
 #pragma unroll
       for (int v = 0; v < VPL; ++v) {
         if (!gr.ok[v]) continue;
         const int gi = lane + kWarp * v;
         const float a = al[gr.head[v]];
-        atomic_add(dx + gi * W, a * mul(gv[v], eh[v]));
+        dxe[gi] = a * mul(gv[v], eh[v]);
         T d = a * mul(gv[v], xs[u][v]);
         add_wemat<MAXH>(d, gi * W, wm_s, H, dpre);
         deh[gi] = d;
@@ -246,8 +238,8 @@ __device__ __forceinline__ void walk(
   }
 }
 
-// Zeros for the padded edges' rows of d_eh and d_pre: this row block's
-// share of [rowptr[n], edges).
+// Zeros for the padded edges' rows of d_xpe, d_eh and d_pre: this row
+// block's share of [rowptr[n], edges).
 template <int W>
 __device__ __forceinline__ void zero_padded_edges(const Params& q) {
   using T = typename Vec<W>::T;
@@ -261,8 +253,10 @@ __device__ __forceinline__ void zero_padded_edges(const Params& q) {
   const int e1 = real + min(tail, (b + 1) * per);
   const int groups = q.hc / W;
   T* d = reinterpret_cast<T*>(q.d_eh) + (size_t)e0 * groups;
+  T* dx = reinterpret_cast<T*>(q.d_xpe) + (size_t)e0 * groups;
   for (int i = threadIdx.x; i < (e1 - e0) * groups; i += blockDim.x) {
     d[i] = zero<T>();
+    dx[i] = zero<T>();
   }
   for (int i = threadIdx.x; i < (e1 - e0) * q.heads; i += blockDim.x) {
     q.d_pre[(size_t)e0 * q.heads + i] = 0.f;
@@ -450,17 +444,17 @@ long long triplet_bwd_smem_bytes(int hc, int heads, int fe) {
 
 // Pointers are device pointers; `stream` is a cudaStream_t.  n >= 1,
 // rowptr[n] <= slots <= edges, and eid's first rowptr[n] slots a
-// permutation of [0, rowptr[n]); the slots past rowptr[n] are not read.  d_xp
-// must be zeroed; the kernel writes every row of d_eh, d_pre and d_a_i.
+// permutation of [0, rowptr[n]); the slots past rowptr[n] are not read.  The
+// kernel writes every row of d_xpe, d_eh, d_pre and d_a_i.
 // With chunks = ceil(slots / 32): part holds chunks * 2 * 8 floats and
 // tickets `chunks` ints that are zero (and are zero again when the kernel
 // ends).  vec = 1 allows float4 channel groups: C % 4 == 0 and xp, g, out,
-// d_xp and d_eh 16-byte aligned.
+// d_xpe and d_eh 16-byte aligned.
 int triplet_bwd(const float* xp, const float* a_i, const float* a_j,
                 const float* edge_attr, const float* we, const float* wemat,
                 const int* rowptr, const int* snd, const int* eid,
                 const float* out, const float* row_max, const float* row_inv,
-                const float* g, float* d_xp, float* d_eh, float* d_pre,
+                const float* g, float* d_xpe, float* d_eh, float* d_pre,
                 float* d_a_i, float* part, int* tickets, int n, int slots,
                 int edges, int hc, int heads, int channels, int fe,
                 float slope, int vec, void* stream) {
@@ -478,7 +472,7 @@ int triplet_bwd(const float* xp, const float* a_i, const float* a_j,
   const int slot_blocks = (slots + kThreads - 1) / kThreads;
   const Params q{xp,    a_i,     a_j,     edge_attr, we,      wemat,
                  rowptr, snd,    eid,     out,       row_max, row_inv,
-                 g,     d_xp,    d_eh,    d_pre,     d_a_i,   part,
+                 g,     d_xpe,   d_eh,    d_pre,     d_a_i,   part,
                  tickets, n,     slots,   edges,     hc,      heads,
                  channels, fe,   slot_blocks, slope};
   const int blocks = slot_blocks + (n + kWarps - 1) / kWarps;

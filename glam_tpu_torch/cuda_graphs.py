@@ -29,14 +29,19 @@ predictors' captured forwards (``serve.py``) share:
 
 A failure to capture raises; nothing continues eagerly in its place.  A
 capture and its replays run under the grad mode the caller sets, which
-must be the eager path's (under ``inference_mode`` the card's segment
-sums take their in-order path, so a replay equals the eager forward
-bitwise).
+must be the eager path's.  Every segment sum runs in a fixed order
+(``ops/segment.py``), so a replay equals the eager call bitwise.  A
+capture first collects Python's garbage and keeps the collector off
+until it ends: a dead reference cycle that holds another graph (a
+trainer holds its graphs, which hold its steps, which hold the trainer)
+must not be freed mid-capture, where destroying a graph is a CUDA call
+that invalidates the capture.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -192,13 +197,20 @@ class CapturedCalls:
         for generator in generators:
             graph.register_generator_state(generator)
         torch.cuda.synchronize(self.device)
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         before = launch_counts()
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, pool=pool, stream=self.stream,
-                              capture_error_mode=self.capture_error_mode):
-            out = body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream,
+                                  capture_error_mode=self.capture_error_mode):
+                out = body()
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         add_launches(launches, -1)         # the capture ran nothing

@@ -25,9 +25,14 @@ over them gives that node's own projection (``TripletMessageLight``) and
 ``NNConv`` averages their messages.  ``padded_csr`` and ``self_loop_csr``
 are the CSRs over every edge slot (and GAT's self-loops) that the
 segment-softmax kernel walks, built on the host with the batch
-(``pad_rowptr``, ``loop_rowptr``, ``loop_idx``); ``graph_csr`` groups
-node rows by graph for the readouts, derived on the batch's device
-without a host synchronisation.
+(``pad_rowptr``, ``loop_rowptr``, ``loop_idx``).  Two more CSRs group
+rows for the fixed-order sums (``ops/segment.py``): ``sender_csr`` every
+edge slot by sender (``snd_rowptr``, ``snd_eid``; the padded edges in
+the last node's row, as ``pad_rowptr`` has them), and ``graph_rowptr``
+the node rows by graph (the prefix sums of ``n_node``: ``pad_graphs``
+lays each graph's nodes out contiguously, in graph order).
+``by_receiver``, ``by_sender`` and ``by_graph`` give them as
+:class:`~glam_tpu_torch.ops.segment.Segments`.
 
 Index dtypes: the padded edge and node index arrays are int64 (what torch
 indexing takes); the CSR arrays are int32 (what the kernel takes).
@@ -39,6 +44,8 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.segment import Segments
 
 
 class GraphArrays(NamedTuple):
@@ -77,6 +84,9 @@ class GraphBatch:
     pad_rowptr: torch.Tensor   # [N + 1] int32 csr_rowptr, last entry E
     loop_rowptr: torch.Tensor  # [N + 1] int32 self_loop_csr's row starts
     loop_idx: torch.Tensor     # [E + N] int32 self_loop_csr's entries
+    snd_rowptr: torch.Tensor   # [N + 1] int32 sender_csr's row starts
+    snd_eid: torch.Tensor      # [E] int32 edge ids by sender
+    graph_rowptr: torch.Tensor  # [G + 1] int32 node rows by graph
 
     @property
     def num_nodes(self) -> int:
@@ -120,6 +130,21 @@ class GraphBatch:
         return self.pad_rowptr, self.csr_eid
 
     @property
+    def by_receiver(self) -> Segments:
+        """Every edge slot by receiver (``padded_csr``)."""
+        return Segments(self.receivers, self.pad_rowptr, self.csr_eid)
+
+    @property
+    def by_sender(self) -> Segments:
+        """Every edge slot by sender (``sender_csr``)."""
+        return Segments(self.senders, self.snd_rowptr, self.snd_eid)
+
+    @property
+    def by_graph(self) -> Segments:
+        """Node rows by graph: in order, so no permutation."""
+        return Segments(self.node_graph, self.graph_rowptr)
+
+    @property
     def self_loop_csr(self):
         """``padded_csr`` with a self-loop first in every row: (rowptr
         [N+1], idx [E+N]) int32, where entry E + r is node r's loop (GAT
@@ -161,6 +186,16 @@ def budget_csr(rowptr: np.ndarray, snd: np.ndarray, eid: np.ndarray,
     loop_idx[np.arange(num_edges) + rows + 1] = csr_eid
     loop_idx[loop_rowptr[:-1]] = num_edges + np.arange(n)
     return csr_snd, csr_eid, pad_rowptr, loop_rowptr, loop_idx
+
+
+def sender_csr(senders: np.ndarray, num_nodes: int):
+    """Sender-sorted CSR of every edge slot: (rowptr [N+1], eid [E]),
+    int32.  Edges of one sender keep their order, so the padded edges
+    (sent by the last node, after the real ones) end its row."""
+    order = np.argsort(senders, kind="stable")
+    rowptr = np.zeros((num_nodes + 1,), np.int32)
+    np.cumsum(np.bincount(senders, minlength=num_nodes), out=rowptr[1:])
+    return rowptr, order.astype(np.int32)
 
 
 def receiver_csr(senders: np.ndarray, receivers: np.ndarray,
@@ -246,6 +281,9 @@ def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
                                             receivers[:e_off], num_nodes)
     csr_snd, csr_eid, pad_rowptr, loop_rowptr, loop_idx = budget_csr(
         rowptr, csr_snd, csr_eid, num_edges)
+    snd_rowptr, snd_eid = sender_csr(senders, num_nodes)
+    graph_rowptr = np.zeros((G + 1,), np.int32)
+    np.cumsum(n_node, out=graph_rowptr[1:])
     t = torch.from_numpy
     return GraphBatch(
         nodes=t(nodes), edges=t(edges), senders=t(senders),
@@ -254,4 +292,5 @@ def pad_graphs(graphs: Sequence[GraphArrays], num_graphs: int,
         edge_mask=t(edge_mask), graph_mask=t(graph_mask), y=t(y),
         csr_rowptr=t(rowptr), csr_snd=t(csr_snd), csr_eid=t(csr_eid),
         pad_rowptr=t(pad_rowptr), loop_rowptr=t(loop_rowptr),
-        loop_idx=t(loop_idx))
+        loop_idx=t(loop_idx), snd_rowptr=t(snd_rowptr), snd_eid=t(snd_eid),
+        graph_rowptr=t(graph_rowptr))

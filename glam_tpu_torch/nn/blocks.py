@@ -10,7 +10,7 @@ Noise (dropout masks, RReLU slopes) is drawn only in ``train()`` mode,
 from the ``torch.Generator`` the caller passes; a ``_BatchNorm`` takes
 batch statistics in ``train()`` mode and its running ones in ``eval()``
 mode.  Node-level blocks hand their norm the batch's ``node_graph``,
-``n_node`` and ``node_mask``, as the JAX package's
+``n_node``, ``node_mask`` and ``graph_rowptr``, as the JAX package's
 ``blocks.py:55-58,115-118`` do; the conv gets the whole batch and reads
 the edge structure it needs.
 """
@@ -79,9 +79,10 @@ class LinearBlock(torch.nn.Module):
         return {"linear.weight": b, "linear.bias": b}
 
     def forward(self, x: torch.Tensor, generator=None, node_graph=None,
-                n_node=None, node_mask=None) -> torch.Tensor:
+                n_node=None, node_mask=None,
+                graph_rowptr=None) -> torch.Tensor:
         x = self.norm(x, node_graph=node_graph, n_node=n_node,
-                      node_mask=node_mask)
+                      node_mask=node_mask, graph_rowptr=graph_rowptr)
         return self.act(self.linear(self.dropout(x, generator)), generator)
 
 
@@ -126,7 +127,7 @@ class MessageBlock(torch.nn.Module):
         if h is None:
             h = x
         y = self.norm(x, node_graph=g.node_graph, n_node=g.n_node,
-                      node_mask=g.node_mask)
+                      node_mask=g.node_mask, graph_rowptr=g.graph_rowptr)
         y = self.dropout(y, generator)
         y = self.conv(y, g)
         if self.gru is not None:

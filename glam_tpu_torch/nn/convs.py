@@ -20,8 +20,10 @@ from the last node to the last node with zero features, and that node's
 row matches the JAX package's.  Weights keep
 the JAX layout ([in, out]) except those of ``torch.nn.Linear`` and the
 GCN/GAT ``weight``, which are torch's [out, in] (``convert`` transposes
-them).  Gathers go through ``index_select``, whose backward is an
-``index_add_``.
+them).  Gathers by sender or receiver go through the batch's CSRs
+(``g.by_sender.gather``, ``g.by_receiver.gather``), whose backward sums
+each node's rows in a fixed order, and so do the sums over receivers:
+no ``index_add_`` atomics, the same bits on every call.
 """
 from __future__ import annotations
 
@@ -30,7 +32,6 @@ import torch.nn.functional as F
 
 from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm
 from ..ops.kernels.triplet_fused import triplet_attention
-from ..ops.segment import segment_mean, segment_sum
 from .init import (glorot_bound, kaiming_uniform_bound, pyg_uniform_bound,
                    torch_linear_bound)
 
@@ -101,7 +102,7 @@ class TripletMessage(torch.nn.Module):
             xp.float(), a_i.float(), a_j.float(), g.edges.float(),
             self.weight_edge.float().contiguous(), wemat.float(),
             g.csr_rowptr, g.csr_snd, g.csr_eid, H, C,
-            self.negative_slope).to(xp.dtype)
+            self.negative_slope, g.snd_rowptr, g.snd_eid).to(xp.dtype)
         return aggr @ self.weight_scale + self.bias
 
 
@@ -132,14 +133,13 @@ class TripletMessageLight(torch.nn.Module):
         xp = x @ self.weight_node                          # [N, C]
         w_i, w_e, w_j = self.weight_triplet_att.split([C, Fe, C])
         a_i, a_j = xp @ w_i, xp @ w_j                      # [N]
-        logits = _leaky_relu(a_i.index_select(0, g.receivers)
-                             + g.edges @ w_e
-                             + a_j.index_select(0, g.senders),
-                             self.negative_slope)          # [E]
+        snd = g.by_sender
+        logits = _leaky_relu(g.by_receiver.gather(a_i) + g.edges @ w_e
+                             + snd.gather(a_j), self.negative_slope)  # [E]
         rowptr, idx = g.padded_csr
         aggr = segment_softmax_spmm(
-            logits[:, None].float(), xp.index_select(0, g.senders).float(),
-            rowptr, idx).to(xp.dtype)
+            logits[:, None].float(), snd.gather(xp).float(), rowptr,
+            idx).to(xp.dtype)
         return aggr + self.bias
 
 
@@ -174,9 +174,9 @@ class NNConv(torch.nn.Module):
         ci, co = self.in_channels, self.out_channels
         h1 = F.relu(self.edge_mlp_0(g.edges))
         wmat = self.edge_mlp_1(h1).view(-1, ci, co)         # [E, Ci, Co]
-        msg = torch.bmm(x.index_select(0, g.senders)[:, None, :],
+        msg = torch.bmm(g.by_sender.gather(x)[:, None, :],
                         wmat)[:, 0]                         # [E, Co]
-        aggr = segment_mean(msg, g.receivers, x.shape[0])
+        aggr = g.by_receiver.mean(msg)
         return aggr + x @ self.root + self.bias
 
 
@@ -196,13 +196,12 @@ class GCNConv(torch.nn.Module):
                 "bias": 0.0}
 
     def forward(self, x, g):
-        N = x.shape[0]
-        snd, rcv = g.senders, g.receivers
+        snd, rcv = g.by_sender, g.by_receiver
         xp = F.linear(x, self.weight)
-        deg = segment_sum(xp.new_ones(snd.shape[0]), rcv, N) + 1.0
+        deg = rcv.count().to(xp.dtype) + 1.0
         dinv = torch.rsqrt(deg.clamp(min=1e-12))
-        norm = dinv.index_select(0, snd) * dinv.index_select(0, rcv)
-        out = segment_sum(norm[:, None] * xp.index_select(0, snd), rcv, N)
+        norm = snd.gather(dinv) * rcv.gather(dinv)
+        out = rcv.sum(norm[:, None] * snd.gather(xp))
         return out + (dinv * dinv)[:, None] * xp + self.bias
 
 
@@ -234,16 +233,16 @@ class GATConv(torch.nn.Module):
         xh = xp.view(N, H, C)
         a_src = torch.einsum("nhc,hc->nh", xh, self.att_src)
         a_dst = torch.einsum("nhc,hc->nh", xh, self.att_dst)
-        loop = torch.arange(N, device=x.device)
-        snd = torch.cat([g.senders, loop])
-        rcv = torch.cat([g.receivers, loop])
-        logits = _leaky_relu(a_src.index_select(0, snd)
-                             + a_dst.index_select(0, rcv),
-                             self.negative_slope)          # [E+N, H]
+        # the E edges, then N self-loops (entry E + r is r's own row)
+        snd, rcv = g.by_sender, g.by_receiver
+        logits = _leaky_relu(
+            torch.cat([snd.gather(a_src), a_src])
+            + torch.cat([rcv.gather(a_dst), a_dst]),
+            self.negative_slope)                           # [E+N, H]
         rowptr, idx = g.self_loop_csr
-        out = segment_softmax_spmm(logits.float(),
-                                   xp.index_select(0, snd).float(), rowptr,
-                                   idx).to(xp.dtype)
+        out = segment_softmax_spmm(
+            logits.float(), torch.cat([snd.gather(xp), xp]).float(), rowptr,
+            idx).to(xp.dtype)
         return out + self.bias
 
 

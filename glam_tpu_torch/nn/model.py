@@ -87,14 +87,15 @@ class _Tower(torch.nn.Module):
     def forward(self, g: GraphBatch, return_nodes: bool = False,
                 generator: Optional[torch.Generator] = None):
         x = self.lin0(g.nodes, generator, node_graph=g.node_graph,
-                      n_node=g.n_node, node_mask=g.node_mask)
+                      n_node=g.n_node, node_mask=g.node_mask,
+                      graph_rowptr=g.graph_rowptr)
         h = None
         xs = []
         for _ in range(self.message_steps):
             x, h = self.conv(x, g, h, generator)
             xs.append(x)
-        out = self.flat(self.readout(x, g.node_graph, g.node_pos, g.n_node),
-                        generator)
+        out = self.flat(self.readout(x, g.node_graph, g.node_pos, g.n_node,
+                                     g.graph_rowptr), generator)
         return (out, xs) if return_nodes else out
 
 

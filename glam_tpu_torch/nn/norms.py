@@ -11,17 +11,19 @@
   _None          identity
 
 Every norm takes ``forward(x, node_graph=None, n_node=None,
-node_mask=None)``: the graph id of each node row and the node count of
-each graph (the padding graph included), or None for graph-level rows.
+node_mask=None, graph_rowptr=None)``: the graph id of each node row and
+the node count of each graph (the padding graph included), or None for
+graph-level rows, and the batch's row pointers of nodes by graph
+(``GraphBatch.graph_rowptr``; the prefix sums of ``n_node`` when None).
 ``_BatchNorm`` takes statistics of the batch in ``train()`` mode (over
 the rows of ``node_mask``, or every row without one) and updates its
 running statistics, buffers ``mean`` and ``var`` (so ``state_dict``,
 checkpoints and resume carry them); in ``eval()`` mode it normalises
 with them, as the JAX package's ``use_running_average=deterministic``.
 
-Gathers per graph go through ``index_select``, not ``x[idx]``: its
-backward is an ``index_add_``, where ``x[idx]``'s is a sorting
-``index_put_`` (most of a training step's device time on the card).
+Sums per graph and the backward of gathers per graph run in a fixed
+order, through the CSR of the nodes by graph (``ops/segment.py``
+``Segments``): the same bits on every call.
 """
 from __future__ import annotations
 
@@ -29,8 +31,17 @@ import math
 
 import torch
 
-from ..ops.segment import segment_sum
+from ..data.graph import graph_csr
+from ..ops.segment import Segments
 from .init import Const
+
+
+def by_graph(node_graph, n_node, graph_rowptr=None) -> Segments:
+    """Node rows by graph: the batch's CSR, or one made from ``n_node``
+    (on its device, no host synchronisation)."""
+    if graph_rowptr is None:
+        graph_rowptr = graph_csr(n_node, node_graph.shape[0])[0]
+    return Segments(node_graph, graph_rowptr)
 
 
 class NoNorm(torch.nn.Module):
@@ -91,19 +102,17 @@ class GraphLayerNorm(torch.nn.Module):
         return {"scale": Const(1.0), "bias": 0.0}
 
     def forward(self, x: torch.Tensor, node_graph=None, n_node=None,
-                **_) -> torch.Tensor:
+                graph_rowptr=None, **_) -> torch.Tensor:
         if node_graph is None:
             xc = x - x.mean()
             out = xc / torch.sqrt((xc ** 2).mean() + self.eps)
         else:
-            G = n_node.shape[0]
+            graphs = by_graph(node_graph, n_node, graph_rowptr)
             norm = n_node.to(x.dtype).clamp(min=1.0) * x.shape[-1]
-            mean = segment_sum(x.sum(-1), node_graph, G, True) / norm
-            xc = x - mean.index_select(0, node_graph)[:, None]
-            var = segment_sum((xc * xc).sum(-1), node_graph, G,
-                              True) / norm
-            out = xc / torch.sqrt(var + self.eps).index_select(
-                0, node_graph)[:, None]
+            mean = graphs.sum(x.sum(-1)) / norm
+            xc = x - graphs.gather(mean)[:, None]
+            var = graphs.sum((xc * xc).sum(-1)) / norm
+            out = xc / graphs.gather(torch.sqrt(var + self.eps))[:, None]
         return out * self.scale + self.bias
 
 
@@ -118,17 +127,17 @@ class PairNorm(torch.nn.Module):
         self.scale, self.eps = scale, eps
 
     def forward(self, x: torch.Tensor, node_graph=None, n_node=None,
-                **_) -> torch.Tensor:
+                graph_rowptr=None, **_) -> torch.Tensor:
         if node_graph is None:
             xc = x - x.mean(0)
             ms = (xc * xc).sum(-1).mean()
             return self.scale * xc / torch.sqrt(self.eps + ms)
-        G = n_node.shape[0]
+        graphs = by_graph(node_graph, n_node, graph_rowptr)
         cnt = n_node.to(x.dtype).clamp(min=1.0)
-        mean = segment_sum(x, node_graph, G, True) / cnt[:, None]
-        xc = x - mean.index_select(0, node_graph)
-        ms = segment_sum((xc * xc).sum(-1), node_graph, G, True) / cnt
-        inv = torch.rsqrt(self.eps + ms).index_select(0, node_graph)
+        mean = graphs.sum(x) / cnt[:, None]
+        xc = x - graphs.gather(mean)
+        ms = graphs.sum((xc * xc).sum(-1)) / cnt
+        inv = graphs.gather(torch.rsqrt(self.eps + ms))
         return self.scale * xc * inv[:, None]
 
 
@@ -143,6 +152,7 @@ class GraphSizeNorm(torch.nn.Module):
         n = n_node.to(x.dtype)
         inv = torch.where(n_node > 0, 1.0 / torch.sqrt(n.clamp(min=1.0)),
                           torch.ones_like(n))
+        # inv comes from the counts alone: no gradient to sum
         return x * inv.index_select(0, node_graph)[:, None]
 
 

@@ -9,18 +9,22 @@ x [N, C] padded node rows -> [G, k*C].
 
 The attention readouts send their softmax-weighted sums through the
 segment-softmax kernel (``segment_softmax_spmm``), with graphs as rows
-and nodes as entries.  The padding graph is one of those rows, so its
+and nodes as entries; GlobalPool5's sum and the backward of Set2Set's
+gather per graph run through the fixed-order CSR sum.  Every readout
+takes ``forward(x, node_graph, node_pos, n_node, graph_rowptr=None)``,
+the last the batch's row pointers of nodes by graph (made from
+``n_node`` when None).  The padding graph is one of those rows, so its
 softmax over every padding node is computed as the JAX package does.
 """
 from __future__ import annotations
 
 import torch
 
-from ..data.graph import graph_csr
 from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm
-from ..ops.segment import segment_sum, segment_topk_by_channel
+from ..ops.segment import segment_topk_by_channel
 from .cells import lstm_cell
 from .init import rnn_bound, torch_linear_bound
+from .norms import by_graph
 
 
 class GlobalPool5(torch.nn.Module):
@@ -30,9 +34,9 @@ class GlobalPool5(torch.nn.Module):
         super().__init__()
         self.channels, self.max_nodes, self.k = channels, max_nodes, k
 
-    def forward(self, x, node_graph, node_pos, n_node):
+    def forward(self, x, node_graph, node_pos, n_node, graph_rowptr=None):
         G = n_node.shape[0]
-        total = segment_sum(x, node_graph, G, True)
+        total = by_graph(node_graph, n_node, graph_rowptr).sum(x)
         mean = total / n_node.clamp(min=1).to(x.dtype)[:, None]
         topk = segment_topk_by_channel(x, node_graph, node_pos, G,
                                        self.max_nodes, self.k)
@@ -54,12 +58,13 @@ class GlobalLAPool(torch.nn.Module):
         return {"gate_nn.weight": b, "gate_nn.bias": b, "nn.weight": b,
                 "nn.bias": b}
 
-    def forward(self, x, node_graph, node_pos, n_node):
-        rowptr, idx = graph_csr(n_node, x.shape[0])
-        # kernel C takes float32 (see TripletMessage.forward)
+    def forward(self, x, node_graph, node_pos, n_node, graph_rowptr=None):
+        graphs = by_graph(node_graph, n_node, graph_rowptr)
+        # kernel C takes float32 (see TripletMessage.forward); the node
+        # rows are in graph order, so slot k is node k
         return segment_softmax_spmm(self.gate_nn(x).float(),
-                                    self.nn(x).float(), rowptr,
-                                    idx).to(x.dtype)
+                                    self.nn(x).float(), graphs.rowptr,
+                                    _node_order(x)).to(x.dtype)
 
 
 class Set2Set(torch.nn.Module):
@@ -87,9 +92,10 @@ class Set2Set(torch.nn.Module):
         return {n: b for n in ("lstm_w_ih", "lstm_w_hh", "lstm_b_ih",
                                "lstm_b_hh")}
 
-    def forward(self, x, node_graph, node_pos, n_node):
+    def forward(self, x, node_graph, node_pos, n_node, graph_rowptr=None):
         C, G = self.channels, n_node.shape[0]
-        rowptr, idx = graph_csr(n_node, x.shape[0])
+        graphs = by_graph(node_graph, n_node, graph_rowptr)
+        rowptr, idx = graphs.rowptr, _node_order(x)
         q_star = x.new_zeros((G, 2 * C))
         h = x.new_zeros((G, C))
         c = x.new_zeros((G, C))
@@ -97,11 +103,16 @@ class Set2Set(torch.nn.Module):
             q, c = lstm_cell(q_star, h, c, self.lstm_w_ih, self.lstm_w_hh,
                              self.lstm_b_ih, self.lstm_b_hh)
             h = q
-            e = (x * q.index_select(0, node_graph)).sum(-1)       # [N]
+            e = (x * graphs.gather(q)).sum(-1)                    # [N]
             r = segment_softmax_spmm(e[:, None].float(), x.float(), rowptr,
                                      idx).to(x.dtype)             # [G, C]
             q_star = torch.cat([q, r], dim=-1)
         return q_star
+
+
+def _node_order(x):
+    """Kernel C's slot entries over node rows in order: 0..N-1 (int32)."""
+    return torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
 
 
 def get_readout(name: str, channels: int, max_nodes: int):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels: kernel A and B (``triplet_fused``), kernel C
-both ways (``segment_softmax_spmm``), their ``build`` and shared
-``common`` launch code."""
+both ways (``segment_softmax_spmm``), the fixed-order CSR sum
+(``segment_sum_csr``), their ``build`` and shared ``common`` launch
+code."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,11 +10,13 @@ from typing import Dict
 def _counted():
     from .segment_softmax_spmm import (segment_softmax_spmm,
                                        segment_softmax_spmm_bwd)
+    from .segment_sum_csr import segment_sum_csr
     from .triplet_fused import triplet_attention, triplet_attention_bwd
     return {"triplet_fused_fwd": triplet_attention,
             "triplet_fused_bwd": triplet_attention_bwd,
             "segment_softmax_spmm_fwd": segment_softmax_spmm,
-            "segment_softmax_spmm_bwd": segment_softmax_spmm_bwd}
+            "segment_softmax_spmm_bwd": segment_softmax_spmm_bwd,
+            "segment_sum_csr": segment_sum_csr}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("triplet_fused", "triplet_fused_bwd", "segment_softmax_spmm",
-           "segment_softmax_spmm_bwd")
+           "segment_softmax_spmm_bwd", "segment_sum_csr")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 HOST_SOURCES = ("glam_native",)

@@ -44,7 +44,7 @@ import functools
 
 import torch
 
-from ..segment import csr_rows, segment_sum
+from ..segment import csr_rows, index_sum
 from . import build, common
 
 _EPS = 1e-16
@@ -73,11 +73,11 @@ def segment_softmax_spmm_plain(logits, values, rowptr, idx):
     nonempty = (rowptr[1:] > rowptr[:-1])[:, None]
     row_max = torch.where(nonempty, row_max, torch.zeros_like(row_max))
     ex = torch.exp(x - row_max.index_select(0, rows))
-    row_inv = torch.where(nonempty, 1.0 / (segment_sum(ex, rows, R) + _EPS),
+    row_inv = torch.where(nonempty, 1.0 / (index_sum(ex, rows, R) + _EPS),
                           torch.zeros_like(row_max))
     alpha = ex * row_inv.index_select(0, rows)
     vals = values.index_select(0, idx.long())
-    out = segment_sum(alpha.repeat_interleave(C, dim=1) * vals, rows, R)
+    out = index_sum(alpha.repeat_interleave(C, dim=1) * vals, rows, R)
     return out, row_max, row_inv
 
 

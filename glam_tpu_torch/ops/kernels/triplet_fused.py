@@ -16,6 +16,13 @@ grid and allocations follow the slot arrays' length alone and every batch
 of a loader launches alike (a CUDA graph replays them); on the CPU the
 wrappers cut them before the plain versions, which take the rows' slots.
 
+Kernel B writes each edge's term of d_xp once, and the fixed-order CSR
+sum (``segment_sum_csr``) adds them over the sender CSR, as it adds
+d_pre into d_a_j: every output of the backward is the same on every
+call.  The sender CSR is the batch's (``GraphBatch.snd_rowptr``,
+``snd_eid``), or is built from the receiver CSR on the tensors' device
+(:func:`sender_csr_of`) where the caller has none.
+
 The forward also gives each row's softmax statistics, ``row_max`` [N, H]
 and ``row_inv`` = 1 / (sum of exp + 1e-16) [N, H] (both 0 for an empty
 row).  The backward takes them and the forward's output, whose dot with
@@ -36,8 +43,9 @@ import functools
 
 import torch
 
-from ..segment import csr_rows, segment_sum
+from ..segment import csr_rows, index_sum, segments_of
 from . import build, common
+from .segment_sum_csr import segment_sum_csr, segment_sum_csr_plain
 
 _EPS = 1e-16
 _SMEM_LIMIT = 232448   # shared memory a block can use on Hopper
@@ -76,17 +84,26 @@ def triplet_attention_plain(xp, a_i, a_j, edge_attr, we, wemat,
     nonempty = (csr_rowptr[1:] > csr_rowptr[:-1])[:, None]
     row_max = torch.where(nonempty, row_max, torch.zeros_like(row_max))
     ex = torch.exp(pre - row_max[rcv])
-    row_inv = torch.where(nonempty, 1.0 / (segment_sum(ex, rcv, N) + _EPS),
+    row_inv = torch.where(nonempty, 1.0 / (index_sum(ex, rcv, N) + _EPS),
                           torch.zeros_like(row_max))
     alpha = (ex * row_inv[rcv]).repeat_interleave(C, dim=1)
-    out = segment_sum(alpha * eh * xp[snd], rcv, N)
+    out = index_sum(alpha * eh * xp[snd], rcv, N)
     return out, row_max, row_inv
+
+
+def sender_csr_of(csr_snd, csr_eid, num_nodes: int):
+    """The sender CSR of a receiver CSR's slots, built on their device:
+    (rowptr [N+1], edge ids [slots]) int32, a sender's slots in slot
+    order (a stable sort; no host synchronisation)."""
+    seg = segments_of(csr_snd, num_nodes)
+    return seg.rowptr, csr_eid.index_select(0, seg.perm)
 
 
 def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
                                 csr_rowptr, csr_snd, csr_eid, out, row_max,
                                 row_inv, g, num_heads: int, channels: int,
-                                slope: float = 0.2):
+                                slope: float = 0.2, snd_rowptr=None,
+                                snd_eid=None):
     """The backward kernel's function in plain torch, written out as the
     kernel computes it (not by autograd).
 
@@ -95,7 +112,9 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
     Returns (d_xp [N, H*C], d_eh [E, H*C], d_pre [E, H], d_a_i [N, H]):
     d_eh and d_pre are the cotangents of the edge projection
     eh = edge_attr @ we and of the attention logit before the leaky ReLU,
-    in original edge order, zero for edges outside the CSR (padding)."""
+    in original edge order, zero for edges outside the CSR (padding).
+    d_xp sums each edge's term over the sender CSR ``snd_rowptr``,
+    ``snd_eid`` (:func:`sender_csr_of` of the CSR when None)."""
     H, C = num_heads, channels
     N, E = xp.shape[0], edge_attr.shape[0]
     rcv, snd, eh, pre_raw, pre = _logits(xp, a_i, a_j, edge_attr, we,
@@ -112,13 +131,17 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
     row_d = row_d.to(g.dtype)[rcv]
     dpre = alpha * (dalpha - row_d)
     dpre = dpre * torch.where(pre_raw >= 0, 1.0, slope).to(dpre.dtype)
-    d_xp = segment_sum(dvalues * eh, snd, N)                  # to senders
     eid = csr_eid.long()
+    d_xpe = xp.new_zeros((E, H * C))
+    d_xpe[eid] = dvalues * eh                                 # to senders
+    if snd_rowptr is None:
+        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N)
+    d_xp = segment_sum_csr_plain(d_xpe, snd_rowptr, snd_eid)
     d_eh = xp.new_zeros((E, H * C))
     d_eh[eid] = dvalues * xj + dpre @ wemat.T
     d_pre = xp.new_zeros((E, H))
     d_pre[eid] = dpre
-    return d_xp, d_eh, d_pre, segment_sum(dpre, rcv, N)
+    return d_xp, d_eh, d_pre, index_sum(dpre, rcv, N)
 
 
 @functools.cache
@@ -209,7 +232,7 @@ def _launch_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
 
 def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
                 csr_eid, out, row_max, row_inv, g, num_heads, channels,
-                slope):
+                slope, snd_rowptr=None, snd_eid=None):
     H, C = int(num_heads), int(channels)
     launch, limits = _bind("triplet_fused_bwd", "triplet_bwd",
                            "triplet_bwd", 19, 7)
@@ -221,33 +244,34 @@ def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
     dev, S = xp.device, csr_snd.shape[0]
     E, fe = edge_attr.shape[0], edge_attr.shape[1]
     chunks = -(-S // 32)
-    # d_xp is summed into with atomics: the call's one fill.  The kernel
-    # writes every row of d_eh, d_pre (padded edges' rows too) and d_a_i:
-    # one allocation, d_eh first so that it is 16-byte aligned
-    d_xp = torch.zeros((N, hc), device=dev, dtype=torch.float32)
-    sizes = [common.up4(E * hc), common.up4(E * H), common.up4(N * H),
-             chunks * 2 * 8]
+    # the kernel writes every row of d_xpe and d_eh (padded edges' rows
+    # too), d_pre and d_a_i: one allocation, no fill, d_xpe and d_eh first
+    # so that they are 16-byte aligned
+    sizes = [common.up4(E * hc), common.up4(E * hc), common.up4(E * H),
+             common.up4(N * H), chunks * 2 * 8]
     buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
-    d_eh, d_pre, d_a_i, part = buf.split(sizes)
-    d_eh, d_pre, d_a_i = (d_eh[:E * hc].view(E, hc), d_pre[:E * H].view(E, H),
-                          d_a_i[:N * H].view(N, H))
+    d_xpe, d_eh, d_pre, d_a_i, part = buf.split(sizes)
+    d_xpe, d_eh = d_xpe[:E * hc].view(E, hc), d_eh[:E * hc].view(E, hc)
+    d_pre, d_a_i = d_pre[:E * H].view(E, H), d_a_i[:N * H].view(N, H)
     if N == 0:
         d_eh.zero_()
         d_pre.zero_()
-        return d_xp, d_eh, d_pre, d_a_i
+        return xp.new_zeros((N, hc)), d_eh, d_pre, d_a_i
+    if snd_rowptr is None:
+        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tickets = common.tickets(dev, stream, chunks)
-    vec = int(C % 4 == 0 and common.aligned(xp, g, out, d_xp, buf))
+    vec = int(C % 4 == 0 and common.aligned(xp, g, out, buf))
     common.run(launch, "triplet_bwd", dev, (
         xp.data_ptr(), a_i.data_ptr(), a_j.data_ptr(), edge_attr.data_ptr(),
         we.data_ptr(), wemat.data_ptr(), csr_rowptr.data_ptr(),
         csr_snd.data_ptr(), csr_eid.data_ptr(), out.data_ptr(),
         row_max.data_ptr(), row_inv.data_ptr(), g.data_ptr(),
-        d_xp.data_ptr(), d_eh.data_ptr(), d_pre.data_ptr(),
+        d_xpe.data_ptr(), d_eh.data_ptr(), d_pre.data_ptr(),
         d_a_i.data_ptr(), part.data_ptr(), tickets.data_ptr(), N, S, E, hc,
         H, C, fe, float(slope), vec), stream)
     triplet_attention_bwd.launches += 1
-    return d_xp, d_eh, d_pre, d_a_i
+    return segment_sum_csr(d_xpe, snd_rowptr, snd_eid), d_eh, d_pre, d_a_i
 
 
 def _real_slots(plain):
@@ -286,7 +310,8 @@ def triplet_attention_fwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
 
 def triplet_attention_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                           csr_snd, csr_eid, out, row_max, row_inv, g,
-                          num_heads: int, channels: int, slope: float = 0.2):
+                          num_heads: int, channels: int, slope: float = 0.2,
+                          snd_rowptr=None, snd_eid=None):
     """The backward: CPU tensors run :func:`triplet_attention_bwd_plain`
     over the rows' slots, CUDA tensors kernel B (as kernel A takes them;
     the forward's out, row_max and row_inv and g [N, H*C], float32
@@ -296,12 +321,14 @@ def triplet_attention_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
     real edges come first and ``csr_eid``'s first E_real = csr_rowptr[-1]
     slots are a permutation of [0, E_real), so that it writes every real
     edge's rows of d_eh and d_pre and zeroes the padded edges' rows
-    [E_real, E) itself.  d_xp is summed with float
-    atomics on the card, so its sums run in another order on every call;
-    d_eh, d_pre and d_a_i are the same on every call."""
+    [E_real, E) itself.  d_xp is each edge's term summed over the sender
+    CSR ``snd_rowptr``, ``snd_eid`` (the CSR's own, :func:`sender_csr_of`,
+    when None) by ``segment_sum_csr``: every output is the same on every
+    call."""
     fn = _route(xp, triplet_attention_bwd_plain, _launch_bwd)
     return fn(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-              csr_eid, out, row_max, row_inv, g, num_heads, channels, slope)
+              csr_eid, out, row_max, row_inv, g, num_heads, channels, slope,
+              snd_rowptr, snd_eid)
 
 
 class _TripletAttention(torch.autograd.Function):
@@ -311,28 +338,33 @@ class _TripletAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
-                csr_snd, csr_eid, num_heads, channels, slope):
+                csr_snd, csr_eid, num_heads, channels, slope, snd_rowptr,
+                snd_eid):
         out, row_max, row_inv = triplet_attention_fwd(
             xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
             csr_eid, num_heads, channels, slope)
+        if snd_rowptr is None:
+            snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid,
+                                                xp.shape[0])
         ctx.save_for_backward(xp, a_i, a_j, edge_attr, we, wemat,
                               csr_rowptr, csr_snd, csr_eid, out, row_max,
-                              row_inv)
+                              row_inv, snd_rowptr, snd_eid)
         ctx.widths = (num_heads, channels, slope)
         return out
 
     @staticmethod
     def backward(ctx, g):
         (xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd, csr_eid,
-         out, row_max, row_inv) = ctx.saved_tensors
+         out, row_max, row_inv, snd_rowptr, snd_eid) = ctx.saved_tensors
         need = ctx.needs_input_grad
         d_xp, d_eh, d_pre, d_a_i = triplet_attention_bwd(
             xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
-            csr_eid, out, row_max, row_inv, g.contiguous(), *ctx.widths)
+            csr_eid, out, row_max, row_inv, g.contiguous(), *ctx.widths,
+            snd_rowptr, snd_eid)
         d_a_j = d_edge_attr = d_we = d_wemat = None
         if need[2]:
-            d_a_j = torch.zeros_like(a_j).index_add_(
-                0, csr_snd.long(), d_pre[csr_eid.long()])
+            # d_pre's rows by sender, in the sender CSR's order
+            d_a_j = segment_sum_csr(d_pre, snd_rowptr, snd_eid)
         if need[3]:
             d_edge_attr = d_eh @ we.T
         if need[4]:
@@ -341,21 +373,23 @@ class _TripletAttention(torch.autograd.Function):
             # eh.T @ d_pre with eh = edge_attr @ we, without forming eh
             d_wemat = we.T @ (edge_attr.T @ d_pre)
         return (d_xp, d_a_i, d_a_j, d_edge_attr, d_we, d_wemat,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def triplet_attention(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
                       csr_snd, csr_eid, num_heads: int, channels: int,
-                      slope: float = 0.2):
+                      slope: float = 0.2, snd_rowptr=None, snd_eid=None):
     """Fused TripletMessage attention-aggregation, differentiable in xp,
     a_i, a_j, edge_attr, we and wemat.
 
-    Arguments as for :func:`triplet_attention_plain`; returns out
-    [N, H*C].  CPU tensors run the plain versions; CUDA tensors run
-    kernels A and B or raise."""
+    Arguments as for :func:`triplet_attention_plain`, and the sender CSR
+    of every edge the backward sums d_xp and d_a_j over (the batch's
+    ``snd_rowptr``, ``snd_eid``; built from the receiver CSR when None);
+    returns out [N, H*C].  CPU tensors run the plain versions; CUDA
+    tensors run kernels A and B or raise."""
     return _TripletAttention.apply(xp, a_i, a_j, edge_attr, we, wemat,
                                    csr_rowptr, csr_snd, csr_eid, num_heads,
-                                   channels, slope)
+                                   channels, slope, snd_rowptr, snd_eid)
 
 
 triplet_attention.launches = 0

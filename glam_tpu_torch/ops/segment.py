@@ -1,95 +1,99 @@
-"""Segment (scatter/gather) primitives in plain torch.
+"""Segment (scatter/gather) primitives.
 
 The counterparts of the JAX package's ``ops/segment.py``.  All functions
 assume the GraphBatch padding convention (padded edges point at padding
 nodes), so no masking is needed: padded contributions land in padding
 segments.  Index tensors are int64.
 
-``segment_sum`` is ``index_add_``, except for inference on the card
-(CUDA tensors, gradients off): there ``index_add_``'s float atomics sum
-each segment in the order its entries land, so two forwards of one
-checkpoint on one input differ in the last bits; instead each segment's
-entries are summed in index order (``torch.segment_reduce``), the same
-bits on every call.  Training keeps ``index_add_``, whose backward is a
-gather.
+Every sum runs in one fixed order, as the JAX package's compiled sums do,
+so a training run on the card repeats itself bit for bit: a
+:class:`Segments` is the CSR of a segment-id array (``GraphBatch`` carries
+those of its receivers, senders and node graphs, built on the host), and
+its sums and the backward of its gathers go through the CSR-sum kernel
+(``ops/kernels/segment_sum_csr.py``), never ``index_add_``'s float
+atomics.  ``segment_sum``, ``segment_mean``, ``segment_count`` and
+``segment_softmax`` take bare ids, as the JAX functions do, and build
+their CSR on the ids' device first (a stable sort and a search, no host
+synchronisation).
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+from .kernels.segment_sum_csr import csr_segment_sum, gather_rows
+
+
+class Segments(NamedTuple):
+    """Entries grouped into segments: ``ids`` [n] int64 the segment of
+    each entry, and their CSR, ``rowptr`` [S+1] int32 and ``perm`` [n]
+    int32 the entries in segment order (None: the ids ascend, entry k is
+    slot k).  Every entry lies in a segment."""
+
+    ids: torch.Tensor
+    rowptr: torch.Tensor
+    perm: Optional[torch.Tensor] = None
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        """[S, ...] sums of ``data``'s rows (one per entry) by segment, in
+        CSR order (in float32 for a lower-precision ``data``, rounded
+        once); differentiable."""
+        return csr_segment_sum(data, self.ids, self.rowptr, self.perm)
+
+    def count(self) -> torch.Tensor:
+        """Entries per segment (float32), from the row pointers."""
+        return (self.rowptr[1:] - self.rowptr[:-1]).float()
+
+    def mean(self, data: torch.Tensor) -> torch.Tensor:
+        """Mean with zero for empty segments (torch_scatter 'mean')."""
+        tot = self.sum(data)
+        cnt = self.count().clamp(min=1.0)
+        return tot / cnt.reshape((-1,) + (1,) * (tot.dim() - 1)).to(tot.dtype)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x.index_select(0, ids)``, x [S, ...]; its backward sums each
+        segment's cotangents in CSR order."""
+        return gather_rows(x, self.ids, self.rowptr, self.perm)
+
+
+def segments_of(segment_ids: torch.Tensor, num_segments: int) -> Segments:
+    """The :class:`Segments` of ids in [0, num_segments), built on their
+    device: a stable sort (entries of a segment keep their order) and the
+    row pointers by a search."""
+    srt, order = torch.sort(segment_ids, stable=True)
+    rowptr = torch.searchsorted(srt, torch.arange(
+        num_segments + 1, device=srt.device, dtype=srt.dtype))
+    return Segments(segment_ids, rowptr.to(torch.int32),
+                    order.to(torch.int32))
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int, sorted_ids: bool = False) -> torch.Tensor:
+                num_segments: int) -> torch.Tensor:
     """Sum of ``data``'s rows per segment, in float32 for a
-    lower-precision ``data`` (a bfloat16 or float16 sum rounds at every
-    add, and on the card in another order at every call).  ``sorted_ids``
-    says the ids ascend (node rows grouped by graph, as ``pad_graphs``
-    lays them out): it spares the card's in-order path a sort."""
-    if data.is_cuda and not torch.is_grad_enabled():
-        return segment_sum_in_order(data, segment_ids, num_segments,
-                                    sorted_ids)
-    wide = data.float() if data.dtype in (torch.float16,
-                                          torch.bfloat16) else data
-    out = wide.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add_(0, segment_ids, wide).to(data.dtype)
-
-
-_PIECE = 128
-
-
-def segment_sum_in_order(data: torch.Tensor, segment_ids: torch.Tensor,
-                         num_segments: int,
-                         sorted_ids: bool = False) -> torch.Tensor:
-    """``segment_sum`` with each segment's entries summed in index order
-    (in float32 for a lower-precision ``data``): bitwise the same on
-    every call.  The rows, sorted by segment, are cut into pieces of at
-    most ``_PIECE`` rows of one segment; each piece is summed in order,
-    then each segment's pieces in order (two ``segment_reduce`` calls,
-    whose loops stay short where a segment is long, as the padding
-    graph's and the padding node's are).  No host synchronisation."""
-    n = segment_ids.shape[0]
-    dev = segment_ids.device
-    ids, rows = segment_ids, data
-    if not sorted_ids:
-        ids, order = torch.sort(segment_ids, stable=True)
-        rows = data.index_select(0, order)
-    wide = rows.float() if rows.dtype in (torch.float16,
-                                          torch.bfloat16) else rows
-    # piece starts: a segment's first row, and every _PIECE-th row of it
-    seg = torch.arange(num_segments + 1, device=dev, dtype=ids.dtype)
-    first = torch.searchsorted(ids, seg)               # [S + 1]
-    local = torch.arange(n, device=dev) - first.index_select(0, ids)
-    starts = local % _PIECE == 0
-    piece = torch.cumsum(starts, 0) - 1                # piece of each row
-    most = num_segments + -(-n // _PIECE)              # pieces at most
-    unused = num_segments                              # a dummy segment
-    piece_seg = torch.full((most,), unused, device=dev, dtype=ids.dtype)
-    piece_seg.scatter_(0, piece, ids)
-    pieces = torch.searchsorted(
-        piece, torch.arange(most + 1, device=dev, dtype=piece.dtype))
-    part = torch.segment_reduce(wide, "sum", lengths=pieces[1:] - pieces[:-1],
-                                axis=0, unsafe=True, initial=0)
-    bounds = torch.searchsorted(piece_seg, torch.arange(
-        num_segments + 2, device=dev, dtype=ids.dtype))
-    out = torch.segment_reduce(part, "sum", lengths=bounds[1:] - bounds[:-1],
-                               axis=0, unsafe=True, initial=0)
-    return out[:num_segments].to(data.dtype)
+    lower-precision ``data``, rounded once."""
+    return segments_of(segment_ids, num_segments).sum(data)
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
     """Mean with zero for empty segments (torch_scatter 'mean')."""
-    tot = segment_sum(data, segment_ids, num_segments)
-    cnt = segment_count(segment_ids, num_segments).clamp(min=1.0)
-    return tot / cnt.reshape((-1,) + (1,) * (tot.dim() - 1)).to(tot.dtype)
+    return segments_of(segment_ids, num_segments).mean(data)
 
 
 def segment_count(segment_ids: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """Entries per segment (float32)."""
-    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32,
-                      device=segment_ids.device)
-    return segment_sum(ones, segment_ids, num_segments)
+    return segments_of(segment_ids, num_segments).count()
+
+
+def index_sum(data: torch.Tensor, rows: torch.Tensor,
+              n: int) -> torch.Tensor:
+    """``index_add_`` of ``data``'s rows into ``n`` rows: the sum of the
+    kernels' plain versions, which run on the CPU, where it adds in index
+    order."""
+    return data.new_zeros((n,) + tuple(data.shape[1:])).index_add_(
+        0, rows, data)
 
 
 def csr_rows(rowptr: torch.Tensor, n_slots: int) -> torch.Tensor:
@@ -104,16 +108,18 @@ def csr_rows(rowptr: torch.Tensor, n_slots: int) -> torch.Tensor:
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
     """Softmax within segments with PyG semantics: subtract the segment
-    max (0 for empty segments), divide by the segment sum plus 1e-16."""
+    max (0 for empty segments), divide by the segment sum plus 1e-16.
+    The max is order-free; the sum and the gathers' backward run in CSR
+    order."""
+    segs = segments_of(segment_ids, num_segments)
     seg_max = logits.new_full((num_segments,) + tuple(logits.shape[1:]),
                               -torch.inf)
     seg_max = seg_max.index_reduce_(0, segment_ids, logits, "amax",
                                     include_self=True)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max,
                           torch.zeros_like(seg_max))
-    ex = torch.exp(logits - seg_max[segment_ids])
-    denom = segment_sum(ex, segment_ids, num_segments)
-    return ex / (denom[segment_ids] + 1e-16)
+    ex = torch.exp(logits - segs.gather(seg_max))
+    return ex / (segs.gather(segs.sum(ex)) + 1e-16)
 
 
 def scatter_nodes_to_dense(x: torch.Tensor, node_graph: torch.Tensor,
@@ -123,7 +129,12 @@ def scatter_nodes_to_dense(x: torch.Tensor, node_graph: torch.Tensor,
 
     Positions beyond a graph's node count stay zero.  Nodes with
     ``pos >= max_nodes`` are dropped (they add zero into the last slot
-    of the padding graph, as the JAX scatter does)."""
+    of the padding graph, as the JAX scatter does).
+
+    ``index_add_`` cannot change bits here: every destination takes one
+    row, except the padding graph's last slot, which also takes the
+    dropped nodes' zeros (x + 0 is x in any order); its backward is a
+    gather."""
     C = x.shape[-1]
     ok = node_pos < max_nodes
     g = torch.where(ok, node_graph, num_graphs - 1)
@@ -156,6 +167,8 @@ def segment_topk_by_channel(x: torch.Tensor, segment_ids: torch.Tensor,
                        torch.full_like(dense[..., -1], -torch.inf))
     idx = torch.sort(keys, dim=1, descending=True,
                      stable=True).indices[:, :k]                # [G, k]
+    # torch.gather's backward adds with atomics, but the indices of a
+    # graph's row are distinct (a sort's): each destination takes one value
     rows = torch.gather(dense, 1, idx[..., None].expand(-1, -1, C))
     valid = torch.gather(occupied, 1, idx)
     rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))

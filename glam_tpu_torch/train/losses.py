@@ -27,6 +27,8 @@ def _wmean(x, weight):
 
 def _pick(logp, target):
     """logp[..., target] for integer-valued float targets."""
+    # the gather's backward adds with atomics, one value into each row:
+    # no two land in one place, so the bits are the same on every call
     return torch.gather(logp, -1, target.long()[..., None])[..., 0]
 
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
-from scipy.stats import rankdata
 
 from ..data.datasets import is_regression
 
@@ -34,6 +33,9 @@ def auto_metrics(dataset: str) -> List[str]:
 def roc_auc(y_true, y_score) -> float:
     """Area under the ROC curve of binary labels (both classes present)."""
     y = np.asarray(y_true).reshape(-1) == 1
+    # imported here: scipy.stats takes seconds to import, which every
+    # trainer process (each rank, each AutoML trial) paid at start-up
+    from scipy.stats import rankdata
     ranks = rankdata(np.asarray(y_score, np.float64).reshape(-1))
     n_pos = int(y.sum())
     n_neg = y.size - n_pos

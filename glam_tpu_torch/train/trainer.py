@@ -754,7 +754,12 @@ class Trainer:
     def resume(self, run_dir) -> int:
         """Restore the training state from ``<run_dir>/last_save.pt`` (or
         a direct path) and continue that run's directory.  Returns the
-        next epoch, where ``train()`` continues."""
+        next epoch, where ``train()`` continues.  The run goes on bit for
+        bit as a straight-through run, on the card too: every sum of a
+        step runs in a fixed order (``ops/segment.py``), the optimizer's
+        state, its device-side step counts included, comes back to the
+        parameters' device, and the noise generator's state is restored
+        before the step graphs are captured, whose replays read it."""
         path = Path(run_dir)
         if path.is_dir():
             path = path / "last_save.pt"

@@ -191,24 +191,26 @@ class TestSegmentOps:
     ((60, 5), torch.bfloat16), ((0, 3), torch.float32),
     ((3000, 4), torch.float32)])
 def test_segment_sum_in_order_matches_index_add(shape, dtype):
-    """The card's inference path of ``segment_sum`` (each segment summed
-    in index order, in pieces of at most 128 rows; for sorted ids without
-    its sort) against ``index_add_``, here on the CPU: equal in float32
-    up to summation order (1e-5: sums of up to ~300 unit-variance terms),
-    empty segments 0; a bfloat16 input is summed in float32 and rounded
-    once (1e-2)."""
-    from glam_tpu_torch.ops.segment import segment_sum_in_order
+    """``segment_sum`` (each segment summed in CSR order by the CSR-sum
+    op, here its plain version; for ids that ascend, over row pointers
+    alone, without a permutation) against ``index_add_``, here on the
+    CPU: equal in float32 up to summation order (1e-5: sums of up to ~300
+    unit-variance terms), empty segments 0; a bfloat16 input is summed in
+    float32 and rounded once (1e-2)."""
+    from glam_tpu_torch.ops.segment import Segments, segment_sum
     g = torch.Generator().manual_seed(3)
     data = torch.randn(shape, generator=g)
     ids = torch.randint(0, 11, (shape[0],), generator=g)
     ids[ids == 4] = 7                                  # segment 4 empty
     want = torch.zeros((14,) + shape[1:]).index_add_(0, ids, data)
-    got = segment_sum_in_order(data.to(dtype), ids, 14)
+    got = segment_sum(data.to(dtype), ids, 14)
     assert got.dtype == dtype and got.shape == want.shape
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
     assert (got[4] == 0).all() and (got[11:] == 0).all()
-    # sorted ids (node rows grouped by graph): no sort
+    # sorted ids (node rows grouped by graph): row pointers, no permutation
     ids, order = torch.sort(ids, stable=True)
-    got = segment_sum_in_order(data[order].to(dtype), ids, 14, True)
+    rowptr = torch.zeros(15, dtype=torch.int32)
+    rowptr[1:] = torch.cumsum(torch.bincount(ids, minlength=14), 0)
+    got = Segments(ids, rowptr).sum(data[order].to(dtype))
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
