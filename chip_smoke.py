@@ -204,7 +204,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      (H, C) = (3, 15) and (3, 90) and C both ways at (1, 15), (1, 90)
      and (1, 180), the widths the search draws on the kernels' one-lane
      path, on a 768-molecule physprop batch and the 128-molecule demo
-     batch; then the search at seed ``AUTOML_SEED`` (4 configurations x
+     batch, and the CSR sum at the search's batches (32 and 512
+     molecules) and widths; then the search at seed ``AUTOML_SEED`` (4 configurations x
      1 seed x 1 epoch; its configurations hold a _TripletMessage and
      kernel C users, or it fails), the low-fidelity phase of its first
      one at ``GLAM_TPU_TRIAL_SLOTS=1``, and ``glam.main`` (then the top 2 x 1
@@ -292,6 +293,12 @@ PHYSPROP_CSV = ROOT / "datasets" / "physprop" / "raw" / "physprop_perturb.csv"
 # path (C % 4 != 0; hid = 15 x hid_dim_alpha, alpha in {1, 2, 3, 4, 6})
 AUTOML_TRIPLET_WIDTHS = (15, 90)
 AUTOML_SPMM_WIDTHS = (15, 90, 180)
+# the CSR sum's calls in the search at seed AUTOML_SEED: (batch size, H,
+# hid, kernel B's sums) of its configurations (GATConv + GlobalLAPool hid
+# 45 and GCNConv + Set2Set hid 90 at batch 32, GATConv + Set2Set hid 90
+# and TripletMessage + GlobalPool5 hid 15 at batch 512)
+AUTOML_CSR_CALLS = ((32, 1, 45, False), (32, 1, 90, False),
+                    (512, 1, 90, False), (512, 3, 15, True))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside tensor cores
 
@@ -553,9 +560,10 @@ def check_kernel(which, name, csr, rng, dev, card, H=3, C=60):
         g = torch.from_numpy(rng.randn(N, H * C).astype(np.float32)).to(dev)
         stats = triplet_attention_fwd(*args, H, C)
         plain_stats = triplet_attention_plain(*real, H, C)
-        # the sender CSR of every slot, made once as a batch carries it:
-        # a call is kernel B and the CSR sum of d_xp
-        snd = sender_csr_of(args[7], args[8], N)
+        # the sender CSR of every slot, made once as a batch carries it
+        # (the padded slots last): a call is kernel B and the CSR sum of
+        # d_xp, which ends at the real edges, as the model calls it
+        snd = sender_csr_of(args[7], args[8], N, args[6])
         run = lambda: triplet_attention_bwd(  # noqa: E731
             *args, *stats, g, H, C, 0.2, *snd)
         plain = lambda: triplet_attention_bwd_plain(  # noqa: E731
@@ -700,7 +708,8 @@ def trace_main(path):
             g = torch.ones(args[0].shape[0], H * C, device="cuda")
             fwd = lambda: triplet_attention_fwd(*args, H, C)  # noqa: E731
             stats = fwd()
-            snd = sender_csr_of(args[7], args[8], args[0].shape[0])
+            snd = sender_csr_of(args[7], args[8], args[0].shape[0],
+                                args[6])
             bwd = lambda: triplet_attention_bwd(  # noqa: E731
                 *args, *stats, g, H, C, 0.2, *snd)
         traced.append({w: device_kernels(fn) for w, fn in
@@ -872,6 +881,7 @@ def kernel_phase(dev, demo, card):
             dev, card)
     out["spmm"] = spmm
     csr_random_checks(dev, card)
+    csr_long_checks(dev, card)
     csr_checks("serve", demo_batch(demo), 3, 60, dev, card)
     return out
 
@@ -893,60 +903,89 @@ def csr_bound_ms(x, rowptr, perm):
     return moved / HBM_BYTES_PER_S * 1e3
 
 
-def check_csr_sum(path, name, x, rowptr, perm, card):
-    """The CSR sum's kernel at one call's shapes against its plain
-    version in float64 (:func:`csr_sum_tol`), two calls bitwise equal,
-    its device time beside the plain version's, the bound and the PyTorch calls that compute its
-    identity-permutation case (the listed rows gathered first):
-    ``torch.segment_reduce`` with lengths, and ``index_add_`` with its
-    fill.  Kept under ``CSR_CALLS[path][name]``."""
+def check_csr_sum(path, name, x, rowptr, perm, card, limit=None,
+                  timed=True):
+    """The CSR sum's kernel at one call's shapes (the slots read ending
+    at ``limit`` where given, as kernel B's sums end at the real edges)
+    against its plain version in float64 (:func:`csr_sum_tol`), two calls
+    bitwise equal, its launch's shape (blocks, threads, the cluster, as
+    the wrapper makes it) and the segments that the two calls merged at
+    the global level, as the kernels counted them on the device: one per
+    segment longer than a cluster's span, or it fails; where
+    ``timed``, its device time beside the plain version's, the bound and
+    the PyTorch calls that compute its identity-permutation case (the
+    listed rows gathered first): ``torch.segment_reduce`` with lengths,
+    and ``index_add_`` with its fill.  Kept under
+    ``CSR_CALLS[path][name]``."""
     import torch
     from glam_tpu_torch.ops.kernels.segment_sum_csr import (
-        segment_sum_csr, segment_sum_csr_plain)
-    n, S = int(rowptr[-1]), rowptr.numel() - 1
-    run = lambda: segment_sum_csr(x, rowptr, perm)  # noqa: E731
-    plain = lambda: segment_sum_csr_plain(x, rowptr, perm, n)  # noqa: E731
+        constants, launch_info, segment_sum_csr, segment_sum_csr_plain,
+        ticket_merges)
+    rows_ptr = rowptr if limit is None else rowptr.clamp(max=limit)
+    n, S = int(rows_ptr[-1]), rowptr.numel() - 1
+    run = lambda: segment_sum_csr(x, rowptr, perm, limit)  # noqa: E731
+    plain = lambda: segment_sum_csr_plain(  # noqa: E731
+        x, rowptr, perm, n, limit)
     before = segment_sum_csr.launches
+    ticket_merges(x.device)                        # the count starts at 0
     got, again = run(), run()
-    torch.cuda.synchronize()
+    merged = ticket_merges(x.device)
     if segment_sum_csr.launches != before + 2:
         fail(f"segment_sum_csr [{name}]: "
              f"{segment_sum_csr.launches - before} launches for 2 calls")
     same = torch.equal(got, again)
-    want, tol = csr_sum_tol(x, rowptr, perm, n)
+    want, tol = csr_sum_tol(x, rows_ptr, perm, n)
     max_abs = _errors(got.double(), want)[0]
     ok = bool(((got.double() - want).abs() <= tol).all())
-    rows = (x[:n] if perm is None else
-            x.index_select(0, perm[:n].long())).contiguous()
-    lengths = (rowptr[1:] - rowptr[:-1]).long()
-    ids = torch.repeat_interleave(torch.arange(S, device=x.device), lengths,
-                                  output_size=n)
-    lib = lambda: torch.segment_reduce(  # noqa: E731
-        rows, "sum", lengths=lengths, axis=0, unsafe=True, initial=0)
-    add = lambda: torch.zeros(  # noqa: E731
-        (S,) + tuple(x.shape[1:]), device=x.device,
-        dtype=x.dtype).index_add_(0, ids, rows)
-    k_ms, p_ms = device_ms(run), device_ms(plain, reps=20)
-    lib_ms, add_ms = device_ms(lib), device_ms(add)
-    bound = csr_bound_ms(x, rowptr, perm)
+    lengths = (rows_ptr[1:] - rows_ptr[:-1]).long()
     longest = int(lengths.max()) if S else 0
+    info, span = launch_info(x, rowptr, perm), constants()["span"]
+    past_span = int((lengths > span).sum())
+    if info["max_active_clusters"] < 1:
+        fail(f"segment_sum_csr [{name}]: the card runs no cluster of "
+             f"{info}")
+    if merged != 2 * past_span:
+        fail(f"segment_sum_csr [{name}]: two calls merged {merged} "
+             f"segments at the global level, not 2 x {past_span} (the "
+             f"segments longer than the span {span})")
     line = (f"kernel segment_sum_csr [{name}] S={S} entries={n} "
             f"C={math.prod(x.shape[1:])} {str(x.dtype)[6:]} "
-            f"perm={perm is not None} longest={longest}: max_abs_err="
-            f"{max_abs:.3e} (tol up to {float(tol.max()):.3e}) kernel_ms="
-            f"{k_ms:.4f} plain_ms="
-            f"{p_ms:.4f} segment_reduce_ms={lib_ms:.4f} index_add_ms="
-            f"{add_ms:.4f} bound_ms={bound:.5f} (bytes) share_of_bound="
-            f"{bound / k_ms:.3f} deterministic={same} ({card})")
-    print(line)
+            f"perm={perm is not None} limit={limit is not None} "
+            f"longest={longest}: max_abs_err={max_abs:.3e} (tol up to "
+            f"{float(tol.max()):.3e}) launch: {info['blocks']} blocks of "
+            f"{info['threads']} threads in clusters of {info['cluster']} "
+            f"({info['slot_blocks']} slot blocks, "
+            f"{info['max_active_clusters']} clusters at once, span {span}"
+            f"), ticket_merges={merged // 2} a call (counted on the device;"
+            f" segments past the span: {past_span})")
+    out = {"max_abs_err": max_abs, "deterministic": same,
+           "ticket_merges": merged // 2}
+    if timed:
+        rows = (x[:n] if perm is None else
+                x.index_select(0, perm[:n].long())).contiguous()
+        ids = torch.repeat_interleave(torch.arange(S, device=x.device),
+                                      lengths, output_size=n)
+        lib = lambda: torch.segment_reduce(  # noqa: E731
+            rows, "sum", lengths=lengths, axis=0, unsafe=True, initial=0)
+        add = lambda: torch.zeros(  # noqa: E731
+            (S,) + tuple(x.shape[1:]), device=x.device,
+            dtype=x.dtype).index_add_(0, ids, rows)
+        k_ms, p_ms = device_ms(run), device_ms(plain, reps=20)
+        lib_ms, add_ms = device_ms(lib), device_ms(add)
+        bound = csr_bound_ms(x, rows_ptr, perm)
+        line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                 f"segment_reduce_ms={lib_ms:.4f} index_add_ms="
+                 f"{add_ms:.4f} bound_ms={bound:.5f} (bytes) "
+                 f"share_of_bound={bound / k_ms:.3f}")
+        out.update({"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                    "index_add_ms": add_ms, "bound_ms": bound,
+                    "bound_by": "bytes"})
+    print(f"{line} deterministic={same} ({card})")
     if not ok:
         fail(f"segment_sum_csr disagrees with its plain version on {name}: "
              f"max_abs_err {max_abs}")
     if not same:
         fail(f"segment_sum_csr on {name}: two calls differ")
-    out = {"max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "index_add_ms": add_ms, "bound_ms": bound,
-           "bound_by": "bytes", "deterministic": same}
     CSR_CALLS.setdefault(path, {})[name] = out
     return out
 
@@ -968,26 +1007,86 @@ def csr_sum_tol(x, rowptr, perm, n):
     return want, tol
 
 
-def csr_checks(path, batch, H, C, dev, card, dtype=None):
+def csr_checks(path, batch, H, C, dev, card, dtype=None, b_sums=False,
+               tag=None):
     """The CSR sum at a path's batch, at the calls of its model: over the
     node rows by graph (widths 1 and C: the norms' and readouts' sums,
     the backward of their gathers), the edge slots by sender (H and H*C:
-    kernel B's d_a_j and d_xp, the gathers' backward) and by receiver (1
-    and C), on random rows in ``dtype`` (float32 when None)."""
+    kernel B's d_a_j and d_xp, which end at the real edges where
+    ``b_sums``, or the gathers' backward) and by receiver (1 and C), on
+    random rows in ``dtype`` (float32 when None); each call named
+    ``{tag}_{csr}_c{width}`` (``tag`` the path when None)."""
     import torch
     dtype = dtype or torch.float32
     g = torch.Generator().manual_seed(17)
     b = batch.to(dev)
     N, E = b.num_nodes, b.num_edges
-    cases = {"graph_c1": ((N,), b.graph_rowptr, None),
-             f"graph_c{C}": ((N, C), b.graph_rowptr, None),
-             f"sender_c{H}": ((E, H), b.snd_rowptr, b.snd_eid),
-             f"sender_c{H * C}": ((E, H * C), b.snd_rowptr, b.snd_eid),
-             "receiver_c1": ((E,), b.pad_rowptr, b.csr_eid),
-             f"receiver_c{C}": ((E, C), b.pad_rowptr, b.csr_eid)}
-    for name, (shape, rowptr, perm) in cases.items():
+    real = b.csr_rowptr[N:] if b_sums else None
+    cases = {"graph_c1": ((N,), b.graph_rowptr, None, None),
+             f"graph_c{C}": ((N, C), b.graph_rowptr, None, None),
+             f"sender_c{H}": ((E, H), b.snd_rowptr, b.snd_eid, real),
+             f"sender_c{H * C}": ((E, H * C), b.snd_rowptr, b.snd_eid, real),
+             "receiver_c1": ((E,), b.pad_rowptr, b.csr_eid, None),
+             f"receiver_c{C}": ((E, C), b.pad_rowptr, b.csr_eid, None)}
+    for name, (shape, rowptr, perm, limit) in cases.items():
         x = torch.randn(shape, generator=g).to(dev, dtype)
-        check_csr_sum(path, f"{path}_{name}", x, rowptr, perm, card)
+        check_csr_sum(path, f"{tag or path}_{name}", x, rowptr, perm, card,
+                      limit)
+
+
+def long_segments(rng, span):
+    """A CSR for the CSR sum's cluster and global levels: empty segments
+    at both ends, 300 of 0-40 entries, an empty run, one of 5,000; of 33,
+    64 and 65 (a row warp's most and a cluster's least), ``span`` - 1,
+    ``span`` and ``span`` + 1 (one cluster's most); 30 of 60-130; one of
+    300 that straddles two clusters' windows (it starts 100 slots before
+    a multiple of ``span``) and the serving batch's padding row of 44,096.
+    Returns (rowptr [R+1], idx [S]) int32 (the entries shuffled) and S."""
+    import numpy as np
+    head = np.concatenate([np.zeros(3, int), rng.randint(0, 41, 300),
+                           np.zeros(40, int), [5000],
+                           [33, 64, 65, span - 1, span, span + 1],
+                           rng.randint(60, 131, 30)])
+    fill = -int(head.sum() + 100) % span
+    lens = np.concatenate([head, [fill + span if fill < 70 else fill, 300,
+                                  44096], rng.randint(0, 41, 20),
+                           np.zeros(5, int)])
+    rowptr = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=rowptr[1:])
+    S = int(rowptr[-1])
+    return rowptr, rng.permutation(S).astype(np.int32), S
+
+
+def csr_long_checks(dev, card):
+    """The CSR sum over :func:`long_segments` at the widths 1, 3, 8 (the
+    widest summed with lanes over entries), 9, 15, 60, 90, 180 and 1,024
+    in float32, 1 and 60 in bfloat16 and float16, in order as well as
+    shuffled, and with a limit inside the 44,096 row, at rowptr[-1] and
+    past it; each held against float64 and two calls bitwise, the two
+    widths of the training paths (60, 180) timed too."""
+    import numpy as np
+    import torch
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import constants
+    rng = np.random.RandomState(18)
+    rowptr, idx, S = long_segments(rng, constants()["span"])
+    rp = torch.from_numpy(rowptr).to(dev)
+    perm = torch.from_numpy(idx).to(dev)
+    widths = [(C, "float32") for C in (1, 3, 8, 9, 15, 60, 90, 180, 1024)]
+    widths += [(C, t) for t in ("bfloat16", "float16") for C in (1, 60)]
+    for C, dtype in widths:
+        x = torch.from_numpy(rng.randn(S, C).astype(np.float32)).to(
+            dev, getattr(torch, dtype))
+        check_csr_sum("random_long", f"long_c{C}_{dtype}", x, rp, perm,
+                      card, timed=(C in (60, 180) and dtype == "float32"))
+    x = torch.from_numpy(rng.randn(S, 60).astype(np.float32)).to(dev)
+    check_csr_sum("random_long", "long_c60_float32_in_order", x, rp, None,
+                  card, timed=False)
+    for where, lim in (("in_the_44096_row", S - 20000), ("at_the_end", S),
+                       ("past_the_end", S + 3)):
+        check_csr_sum("random_long", f"long_c60_float32_limit_{where}", x,
+                      rp, perm, card,
+                      limit=torch.tensor([lim], dtype=torch.int32,
+                                         device=dev), timed=False)
 
 
 def csr_random_checks(dev, card):
@@ -1522,9 +1621,12 @@ def run_cli(tmp, flags, label, dataset="demo"):
     ``flags``, on the card; the counts are read around this run alone.
     Returns the trainer, the launches, the optimizer steps and the number
     of forwards (steps, validation each epoch, then validation and test
-    of the best checkpoint)."""
+    of the best checkpoint).  Prints the segments that the run's CSR sums
+    merged at the global level (counted on the device; one per segment
+    longer than a cluster's span)."""
     import torch
     from glam_tpu_torch import run
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import ticket_merges
     if dataset == "demo":
         root = Path(tmp) / "demo"
         if not root.exists():
@@ -1538,11 +1640,14 @@ def run_cli(tmp, flags, label, dataset="demo"):
     print(f"training [{label}]: python -m glam_tpu_torch.run "
           f"{' '.join(argv)}")
     reset_counts()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ticket_merges(dev)                             # the count starts at 0
     t0 = time.perf_counter()
     trainer = run.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    merged = ticket_merges(dev)
     last = (trainer.log_save_dir / "log.txt").read_text().strip() \
         .splitlines()[-1]
     parse_final_line(last)
@@ -1567,7 +1672,8 @@ def run_cli(tmp, flags, label, dataset="demo"):
           f"{cfg.graph_norm} flat={cfg.flat_norm} end={cfg.end_norm} "
           f"hid={cfg.hid_dim} steps={cfg.message_steps} e_dim={cfg.e_dim} "
           f"optimizer steps={steps} forwards={forwards} wall_s={wall:.2f}; "
-          f"launches {json.dumps(launches)}")
+          f"launches {json.dumps(launches)}; CSR-sum segments merged at "
+          f"the global level {merged} (counted on the device)")
     for i, e in enumerate(trainer.epoch_stats):
         print(f"  epoch {i}: {e['steps']} steps, {e['molecules']} "
               f"samples in {e['seconds']:.3f} s = "
@@ -1627,7 +1733,7 @@ def training_phase(dev, card, tmp):
     kern = {w: check_kernel(w, "train_batch", csr, rng, dev, card)
             for w in ("fwd", "bwd")}
     function_on_card_vs_cpu(dev, csr, rng)
-    csr_checks("train", batch, 3, cfg.hid_dim, dev, card)
+    csr_checks("train", batch, 3, cfg.hid_dim, dev, card, b_sums=True)
     grads_card_vs_cpu(trainer, cfg, batch, dev)
     captured_vs_eager("flagship", trainer, card)
     captured_vs_eager("flagship", trainer, card, optim="SGD")
@@ -1831,7 +1937,8 @@ def ddi_phase(dev, card, tmp):
     batch = next(iter(trainer.train_loader))
     kern = check_triplet_towers("ddi", batch, np.random.RandomState(4),
                                 dev, card)
-    csr_checks("train_ddi", batch[0], 3, cfg.hid_dim, dev, card)
+    csr_checks("train_ddi", batch[0], 3, cfg.hid_dim, dev, card,
+               b_sums=True)
     grads_card_vs_cpu(trainer, cfg, batch, dev, train_mode=True)
     captured_vs_eager(label, trainer, card)
     timing = step_timing(trainer, trainer._to_device(batch), card, top=12)
@@ -3017,9 +3124,19 @@ def automl_width_checks(dev, card, demo, ds):
     physprop_perturb batch (the search's largest, at a trainer's budgets)
     and on the 128-molecule demo batch: the widths the search draws, on
     the kernels' one-lane path.  Returns {kernel: [numbers]} (off every
-    path: their errors count, their times go to PERF.md)."""
+    path: their errors count, their times go to PERF.md).  And the CSR
+    sum at the search's calls (the path ``automl_search``): on physprop
+    batches of 32 and 512 molecules, the batch sizes the search draws, at
+    its configurations' widths: hid 45 and 90 (GATConv and GCNConv, one
+    head) at 32, hid 90 (GATConv) and TripletMessage's (3 heads of 15,
+    kernel B's sums ending at the real edges) at 512."""
     import numpy as np
     from glam_tpu_torch.data.batching import GraphLoader
+    for size, H, C, b_sums in AUTOML_CSR_CALLS:
+        csr_checks("automl_search", next(iter(GraphLoader(ds.train, size,
+                                                          1))),
+                   H, C, dev, card, b_sums=b_sums,
+                   tag=f"automl_search_b{size}_h{H}_c{C}")
     rng = np.random.RandomState(8)
     out = {f"{k}_{w}": [] for k in ("triplet_fused", "segment_softmax_spmm")
            for w in ("fwd", "bwd")}
@@ -3705,7 +3822,7 @@ def bf16_training(dev, card, tmp):
                               dev, card) for w in ("fwd", "bwd")}
     import torch
     csr_checks("train_flagship_bf16", batch, 3, 60, dev, card,
-               torch.bfloat16)
+               torch.bfloat16, b_sums=True)
     lib_launches, batch, trainer = bf16_phase(
         dev, card, tmp, "light_set2set_bf16", BF16_LIBRARY_ARGS,
         "light_set2set")
@@ -4239,6 +4356,7 @@ def csr_kernel_entry(launches):
     (:func:`csr_mean`); ``library_ms`` is ``torch.segment_reduce`` with
     lengths, ``index_add_ms`` ``index_add_`` with its fill, both of the
     identity-permutation case."""
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import constants
     timed = {p: c for p, c in CSR_CALLS.items() if p in launches}
     top = max(timed, key=launches.get)
     checked = [r for c in CSR_CALLS.values() for r in c.values()]
@@ -4254,6 +4372,8 @@ def csr_kernel_entry(launches):
         max_abs_err=max(r["max_abs_err"] for r in checked),
         **csr_mean(timed[top]), bound_by="bytes", timed_at=top,
         by_path=by_path, random=CSR_CALLS.get("random", {}),
+        random_long=CSR_CALLS.get("random_long", {}),
+        launch=constants(),
         deterministic=all(r["deterministic"] for r in checked))
 
 

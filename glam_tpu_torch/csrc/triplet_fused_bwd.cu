@@ -25,7 +25,10 @@
 // d_pre are written at the edge's original index (csr_eid).  The caller's
 // edges put the real ones first, the first rowptr[n] = E_real slots of
 // csr_eid a permutation of [0, E_real): the kernel zeroes the padded
-// edges' rows [E_real, E) itself, so none needs a fill.  Slots past
+// edges' rows [E_real, E) of d_eh and d_pre itself, so none needs a fill,
+// and leaves those of d_xpe unwritten: its sum ends at the real edges
+// (segment_sum_csr's limit; the sender CSR lists the padded edges last)
+// and reads none of them.  Slots past
 // rowptr[n] (a CSR padded to the batch's edge budget) belong to no row and
 // are not read.  The caller sums d_xpe and d_pre over the sender CSR
 // (segment_sum_csr.cu) into d_xp and d_a_j; the rest of the gradient
@@ -238,8 +241,8 @@ __device__ __forceinline__ void walk(
   }
 }
 
-// Zeros for the padded edges' rows of d_xpe, d_eh and d_pre: this row
-// block's share of [rowptr[n], edges).
+// Zeros for the padded edges' rows of d_eh and d_pre (not d_xpe, which
+// no sum reads there): this row block's share of [rowptr[n], edges).
 template <int W>
 __device__ __forceinline__ void zero_padded_edges(const Params& q) {
   using T = typename Vec<W>::T;
@@ -253,10 +256,8 @@ __device__ __forceinline__ void zero_padded_edges(const Params& q) {
   const int e1 = real + min(tail, (b + 1) * per);
   const int groups = q.hc / W;
   T* d = reinterpret_cast<T*>(q.d_eh) + (size_t)e0 * groups;
-  T* dx = reinterpret_cast<T*>(q.d_xpe) + (size_t)e0 * groups;
   for (int i = threadIdx.x; i < (e1 - e0) * groups; i += blockDim.x) {
     d[i] = zero<T>();
-    dx[i] = zero<T>();
   }
   for (int i = threadIdx.x; i < (e1 - e0) * q.heads; i += blockDim.x) {
     q.d_pre[(size_t)e0 * q.heads + i] = 0.f;
@@ -445,7 +446,8 @@ long long triplet_bwd_smem_bytes(int hc, int heads, int fe) {
 // Pointers are device pointers; `stream` is a cudaStream_t.  n >= 1,
 // rowptr[n] <= slots <= edges, and eid's first rowptr[n] slots a
 // permutation of [0, rowptr[n]); the slots past rowptr[n] are not read.  The
-// kernel writes every row of d_xpe, d_eh, d_pre and d_a_i.
+// kernel writes every row of d_eh, d_pre and d_a_i, and of d_xpe the real
+// edges' rows [0, rowptr[n]).
 // With chunks = ceil(slots / 32): part holds chunks * 2 * 8 floats and
 // tickets `chunks` ints that are zero (and are zero again when the kernel
 // ends).  vec = 1 allows float4 channel groups: C % 4 == 0 and xp, g, out,

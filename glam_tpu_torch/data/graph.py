@@ -28,7 +28,9 @@ segment-softmax kernel walks, built on the host with the batch
 (``pad_rowptr``, ``loop_rowptr``, ``loop_idx``).  Two more CSRs group
 rows for the fixed-order sums (``ops/segment.py``): ``sender_csr`` every
 edge slot by sender (``snd_rowptr``, ``snd_eid``; the padded edges in
-the last node's row, as ``pad_rowptr`` has them), and ``graph_rowptr``
+the last node's row, as ``pad_rowptr`` has them, and listed last: its
+first E_real slots are the real edges, so kernel B's sums of d_xp and
+d_a_j end at ``csr_rowptr[-1]``), and ``graph_rowptr``
 the node rows by graph (the prefix sums of ``n_node``: ``pad_graphs``
 lays each graph's nodes out contiguously, in graph order).
 ``by_receiver``, ``by_sender`` and ``by_graph`` give them as
@@ -85,7 +87,7 @@ class GraphBatch:
     loop_rowptr: torch.Tensor  # [N + 1] int32 self_loop_csr's row starts
     loop_idx: torch.Tensor     # [E + N] int32 self_loop_csr's entries
     snd_rowptr: torch.Tensor   # [N + 1] int32 sender_csr's row starts
-    snd_eid: torch.Tensor      # [E] int32 edge ids by sender
+    snd_eid: torch.Tensor      # [E] int32 edge ids by sender, pads last
     graph_rowptr: torch.Tensor  # [G + 1] int32 node rows by graph
 
     @property
@@ -191,7 +193,9 @@ def budget_csr(rowptr: np.ndarray, snd: np.ndarray, eid: np.ndarray,
 def sender_csr(senders: np.ndarray, num_nodes: int):
     """Sender-sorted CSR of every edge slot: (rowptr [N+1], eid [E]),
     int32.  Edges of one sender keep their order, so the padded edges
-    (sent by the last node, after the real ones) end its row."""
+    (sent by the last node, after the real ones) end its row and are
+    listed last, past every real edge: the contract the triplet
+    backward's sums, which end at the real edges, rely on."""
     order = np.argsort(senders, kind="stable")
     rowptr = np.zeros((num_nodes + 1,), np.int32)
     np.cumsum(np.bincount(senders, minlength=num_nodes), out=rowptr[1:])

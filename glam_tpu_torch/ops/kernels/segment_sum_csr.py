@@ -2,9 +2,11 @@
 version and the two ``autograd.Function``s that use it.
 
 For a CSR of S segments over a slot array, ``rowptr`` [S+1] and the
-entry of each slot ``perm`` (int32; None for the identity)::
+entry of each slot ``perm`` (int32; None for the identity), and an
+optional ``limit`` (a one-element int32 tensor on the device: every row
+ends there, and no slot at or past it is read)::
 
-    out[s] = sum_{k = rowptr[s]}^{rowptr[s+1]-1} x[perm[k]]        [S, ...]
+    out[s] = sum_{k = rowptr[s]}^{min(rowptr[s+1], limit)-1} x[perm[k]]
 
 The kernel (``glam_tpu_torch/csrc/segment_sum_csr.cu``) replaces no TPU
 kernel: the JAX package's ``jax.ops.segment_sum`` is XLA's, whose order
@@ -12,7 +14,8 @@ is fixed by the compiled program, where ``index_add_`` on the card adds
 with float atomics in another order on every call.  It sums each segment
 in an order fixed by the row pointers, in float32 for bfloat16 and
 float16 rows, and writes every output row (no fill): the same bits on
-every call.  One launch a call.
+every call.  One launch a call: short segments a warp each, long ones
+summed across a thread-block cluster.
 
   csr_segment_sum  the sum, differentiable: kernel forward, gather
                    backward (``index_select`` by each entry's segment)
@@ -36,12 +39,15 @@ from . import build, common
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def segment_sum_csr_plain(x, rowptr, perm=None, n=None):
+def segment_sum_csr_plain(x, rowptr, perm=None, n=None, limit=None):
     """The kernel's function in plain torch: ``index_add_`` of the listed
     rows (the CPU adds them in slot order), in float32 for a bfloat16 or
-    float16 ``x``, rounded once to ``x``'s dtype.  ``n``, the listed
-    slots, is read from ``rowptr[-1]`` when None (a host read, free on
-    the CPU)."""
+    float16 ``x``, rounded once to ``x``'s dtype.  With ``limit`` the row
+    pointers are clamped to it first.  ``n``, the listed slots, is read
+    from the (clamped) ``rowptr[-1]`` when None (a host read, free on the
+    CPU)."""
+    if limit is not None:
+        rowptr = rowptr.clamp(max=limit)
     n = int(rowptr[-1]) if n is None else n
     rows = torch.repeat_interleave(
         torch.arange(rowptr.shape[0] - 1, device=x.device),
@@ -58,12 +64,65 @@ def _bind():
     lib = build.load("segment_sum_csr")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.segment_sum_csr
-    fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
     fn.restype = i32
     return fn
 
 
-def _launch(x, rowptr, perm=None):
+@functools.cache
+def constants():
+    """The kernel's constants: {'cluster': blocks a cluster, 'span': the
+    most slots one cluster sums, 'probe': slots between probes}."""
+    lib = build.load("segment_sum_csr")
+    out = {}
+    for key in ("cluster", "span", "probe"):
+        query = getattr(lib, f"segment_sum_csr_{key}")
+        query.argtypes, query.restype = [], ctypes.c_int
+        out[key] = query()
+    return out
+
+
+def launch_info(x, rowptr, perm=None):
+    """The launch a call on ``x`` makes: {'blocks', 'threads', 'cluster',
+    'slot_blocks', 'smem_bytes', 'max_active_clusters'} (the last from
+    ``cudaOccupancyMaxActiveClusters``: 0 if the card cannot run it)."""
+    lib = build.load("segment_sum_csr")
+    fn = lib.segment_sum_csr_launch_info
+    i32 = ctypes.c_int
+    fn.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    fn.restype = i32
+    got = (i32 * 6)()
+    slots = perm.shape[0] if perm is not None else x.shape[0]
+    C = math.prod(x.shape[1:])
+    vec = int(x.dtype == torch.float32 and C % 4 == 0)
+    with torch.cuda.device(x.device):
+        err = fn(rowptr.shape[0] - 1, slots, C, _DTYPES[x.dtype], vec, got)
+    if err != 0:
+        raise RuntimeError(f"segment_sum_csr launch_info: cudaError {err}")
+    return dict(zip(("blocks", "threads", "cluster", "slot_blocks",
+                     "smem_bytes", "max_active_clusters"), list(got)))
+
+
+def ticket_merges(device) -> int:
+    """The segments that the kernel's launches on CUDA ``device`` merged
+    at the global level (a segment longer than one cluster's span, its
+    pieces' sums added by a ticket's last holder) since the last call, as
+    the kernels counted them on the device; the count starts again at 0.
+    Synchronizes with the device: not during a graph capture."""
+    lib = build.load("segment_sum_csr")
+    fn = lib.segment_sum_csr_ticket_merges
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    got = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = fn(ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"segment_sum_csr ticket_merges: cudaError {err}")
+    return got.value
+
+
+def _launch(x, rowptr, perm=None, limit=None):
     launch = _bind()
     dev = x.device
     if x.dtype not in _DTYPES:
@@ -77,40 +136,46 @@ def _launch(x, rowptr, perm=None):
     if perm is not None:
         slots = perm.shape[0]
         common.check("perm", perm, dev, torch.int32, (slots,))
+    if limit is not None:
+        common.check("limit", limit, dev, torch.int32, (1,))
     C = math.prod(x.shape[1:])
     out = torch.empty((S,) + tuple(x.shape[1:]), device=dev, dtype=x.dtype)
     if S == 0 or C == 0:
         return out
-    chunks = -(-slots // 32)
-    # the long segments' partials and their groups' states, 2 a chunk each
-    part = torch.empty((max(chunks, 1) * 4 * C,), device=dev,
-                       dtype=torch.float32)
+    # a piece's sum of a segment longer than one cluster's span, at most
+    # one a probe, and a ticket a probe
+    probes = slots // constants()["probe"] + 1
+    part = torch.empty((probes * C,), device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = common.tickets(dev, stream, 3 * chunks)
+    tickets = common.tickets(dev, stream, probes)
     vec = int(x.dtype == torch.float32 and C % 4 == 0
               and common.aligned(x, out))
     common.run(launch, "segment_sum_csr", dev, (
         x.data_ptr(), rowptr.data_ptr(),
-        perm.data_ptr() if perm is not None else None, out.data_ptr(),
+        perm.data_ptr() if perm is not None else None,
+        limit.data_ptr() if limit is not None else None, out.data_ptr(),
         part.data_ptr(), tickets.data_ptr(), S, slots, C, _DTYPES[x.dtype],
         vec), stream)
     segment_sum_csr.launches += 1
     return out
 
 
-def segment_sum_csr(x, rowptr, perm=None):
+def segment_sum_csr(x, rowptr, perm=None, limit=None):
     """The sum of ``x``'s rows [n, ...] over each CSR segment, not
     differentiable: [S, ...] in ``x``'s dtype.  ``rowptr`` [S+1] and
     ``perm`` [slots] (or None: slot k is row k) are int32; the slots past
-    ``rowptr[-1]`` are not read.  CPU tensors run
-    :func:`segment_sum_csr_plain`, CUDA tensors the kernel (float32,
-    bfloat16 or float16 ``x``, contiguous) or raise."""
+    ``rowptr[-1]`` are not read, nor those at or past ``limit`` (None, or
+    a one-element int32 tensor on ``x``'s device, e.g. a view
+    ``csr_rowptr[N:]``: read on the device, so a CUDA graph may capture
+    the call).  CPU tensors run :func:`segment_sum_csr_plain`, CUDA
+    tensors the kernel (float32, bfloat16 or float16 ``x``, contiguous)
+    or raise."""
     if x.device.type == "cpu":
-        return segment_sum_csr_plain(x, rowptr, perm)
+        return segment_sum_csr_plain(x, rowptr, perm, limit=limit)
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum_csr runs on cpu or cuda, not "
                          f"{x.device}")
-    return _launch(x, rowptr, perm)
+    return _launch(x, rowptr, perm, limit)
 
 
 segment_sum_csr.launches = 0

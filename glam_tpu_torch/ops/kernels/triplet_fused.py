@@ -21,7 +21,13 @@ sum (``segment_sum_csr``) adds them over the sender CSR, as it adds
 d_pre into d_a_j: every output of the backward is the same on every
 call.  The sender CSR is the batch's (``GraphBatch.snd_rowptr``,
 ``snd_eid``), or is built from the receiver CSR on the tensors' device
-(:func:`sender_csr_of`) where the caller has none.
+(:func:`sender_csr_of`) where the caller has none.  Either lists the
+padded edges last: its first E_real = ``csr_rowptr[-1]`` slots are the
+real edges (a batch's sends them from the last node, after its real
+edges: ``data/graph.py``; :func:`sender_csr_of` puts the slots past
+E_real last whichever node they name).  So both sums end at
+``csr_rowptr[N:]``, a view read on the device, and kernel B leaves
+d_xp's padded rows, which no sum reads, unwritten.
 
 The forward also gives each row's softmax statistics, ``row_max`` [N, H]
 and ``row_inv`` = 1 / (sum of exp + 1e-16) [N, H] (both 0 for an empty
@@ -91,10 +97,17 @@ def triplet_attention_plain(xp, a_i, a_j, edge_attr, we, wemat,
     return out, row_max, row_inv
 
 
-def sender_csr_of(csr_snd, csr_eid, num_nodes: int):
+def sender_csr_of(csr_snd, csr_eid, num_nodes: int, csr_rowptr):
     """The sender CSR of a receiver CSR's slots, built on their device:
     (rowptr [N+1], edge ids [slots]) int32, a sender's slots in slot
-    order (a stable sort; no host synchronisation)."""
+    order (a stable sort; no host synchronisation).  The slots at or past
+    ``csr_rowptr[N]`` (padded edges, in no row) count as the last node's,
+    whichever node they name: they come last, after every real edge, as
+    the backward's sums need."""
+    slot = torch.arange(csr_snd.shape[0], device=csr_snd.device,
+                        dtype=csr_snd.dtype)
+    csr_snd = torch.where(slot < csr_rowptr[num_nodes:], csr_snd,
+                          num_nodes - 1)
     seg = segments_of(csr_snd, num_nodes)
     return seg.rowptr, csr_eid.index_select(0, seg.perm)
 
@@ -114,7 +127,8 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
     eh = edge_attr @ we and of the attention logit before the leaky ReLU,
     in original edge order, zero for edges outside the CSR (padding).
     d_xp sums each edge's term over the sender CSR ``snd_rowptr``,
-    ``snd_eid`` (:func:`sender_csr_of` of the CSR when None)."""
+    ``snd_eid`` (:func:`sender_csr_of` of the CSR when None; the padded
+    edges last), up to the real edges' count ``csr_rowptr[N:]``."""
     H, C = num_heads, channels
     N, E = xp.shape[0], edge_attr.shape[0]
     rcv, snd, eh, pre_raw, pre = _logits(xp, a_i, a_j, edge_attr, we,
@@ -135,8 +149,10 @@ def triplet_attention_bwd_plain(xp, a_i, a_j, edge_attr, we, wemat,
     d_xpe = xp.new_zeros((E, H * C))
     d_xpe[eid] = dvalues * eh                                 # to senders
     if snd_rowptr is None:
-        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N)
-    d_xp = segment_sum_csr_plain(d_xpe, snd_rowptr, snd_eid)
+        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N,
+                                            csr_rowptr)
+    d_xp = segment_sum_csr_plain(d_xpe, snd_rowptr, snd_eid,
+                                 limit=csr_rowptr[N:])
     d_eh = xp.new_zeros((E, H * C))
     d_eh[eid] = dvalues * xj + dpre @ wemat.T
     d_pre = xp.new_zeros((E, H))
@@ -244,9 +260,10 @@ def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
     dev, S = xp.device, csr_snd.shape[0]
     E, fe = edge_attr.shape[0], edge_attr.shape[1]
     chunks = -(-S // 32)
-    # the kernel writes every row of d_xpe and d_eh (padded edges' rows
-    # too), d_pre and d_a_i: one allocation, no fill, d_xpe and d_eh first
-    # so that they are 16-byte aligned
+    # the kernel writes every row of d_eh (padded edges' rows too), d_pre
+    # and d_a_i, and of d_xpe the real edges', all the sum reads: one
+    # allocation, no fill, d_xpe and d_eh first so that they are 16-byte
+    # aligned
     sizes = [common.up4(E * hc), common.up4(E * hc), common.up4(E * H),
              common.up4(N * H), chunks * 2 * 8]
     buf = torch.empty((sum(sizes),), device=dev, dtype=torch.float32)
@@ -258,7 +275,8 @@ def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
         d_pre.zero_()
         return xp.new_zeros((N, hc)), d_eh, d_pre, d_a_i
     if snd_rowptr is None:
-        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N)
+        snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid, N,
+                                            csr_rowptr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tickets = common.tickets(dev, stream, chunks)
     vec = int(C % 4 == 0 and common.aligned(xp, g, out, buf))
@@ -271,7 +289,8 @@ def _launch_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
         d_a_i.data_ptr(), part.data_ptr(), tickets.data_ptr(), N, S, E, hc,
         H, C, fe, float(slope), vec), stream)
     triplet_attention_bwd.launches += 1
-    return segment_sum_csr(d_xpe, snd_rowptr, snd_eid), d_eh, d_pre, d_a_i
+    return (segment_sum_csr(d_xpe, snd_rowptr, snd_eid, csr_rowptr[N:]),
+            d_eh, d_pre, d_a_i)
 
 
 def _real_slots(plain):
@@ -324,7 +343,9 @@ def triplet_attention_bwd(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
     [E_real, E) itself.  d_xp is each edge's term summed over the sender
     CSR ``snd_rowptr``, ``snd_eid`` (the CSR's own, :func:`sender_csr_of`,
     when None) by ``segment_sum_csr``: every output is the same on every
-    call."""
+    call.  The sender CSR lists the padded edges last, so the sum ends at
+    the real edges (``csr_rowptr[N:]``) and d_xp's padded rows go
+    unwritten."""
     fn = _route(xp, triplet_attention_bwd_plain, _launch_bwd)
     return fn(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr, csr_snd,
               csr_eid, out, row_max, row_inv, g, num_heads, channels, slope,
@@ -345,7 +366,7 @@ class _TripletAttention(torch.autograd.Function):
             csr_eid, num_heads, channels, slope)
         if snd_rowptr is None:
             snd_rowptr, snd_eid = sender_csr_of(csr_snd, csr_eid,
-                                                xp.shape[0])
+                                                xp.shape[0], csr_rowptr)
         ctx.save_for_backward(xp, a_i, a_j, edge_attr, we, wemat,
                               csr_rowptr, csr_snd, csr_eid, out, row_max,
                               row_inv, snd_rowptr, snd_eid)
@@ -363,8 +384,10 @@ class _TripletAttention(torch.autograd.Function):
             snd_rowptr, snd_eid)
         d_a_j = d_edge_attr = d_we = d_wemat = None
         if need[2]:
-            # d_pre's rows by sender, in the sender CSR's order
-            d_a_j = segment_sum_csr(d_pre, snd_rowptr, snd_eid)
+            # d_pre's rows by sender, in the sender CSR's order, up to
+            # the real edges (d_pre's padded rows are zero)
+            d_a_j = segment_sum_csr(d_pre, snd_rowptr, snd_eid,
+                                    csr_rowptr[xp.shape[0]:])
         if need[3]:
             d_edge_attr = d_eh @ we.T
         if need[4]:
@@ -384,9 +407,10 @@ def triplet_attention(xp, a_i, a_j, edge_attr, we, wemat, csr_rowptr,
 
     Arguments as for :func:`triplet_attention_plain`, and the sender CSR
     of every edge the backward sums d_xp and d_a_j over (the batch's
-    ``snd_rowptr``, ``snd_eid``; built from the receiver CSR when None);
-    returns out [N, H*C].  CPU tensors run the plain versions; CUDA
-    tensors run kernels A and B or raise."""
+    ``snd_rowptr``, ``snd_eid``, which lists the padded edges last; built
+    from the receiver CSR when None): both sums of the backward end at the
+    real edges.  Returns out [N, H*C].  CPU tensors run the plain
+    versions; CUDA tensors run kernels A and B or raise."""
     return _TripletAttention.apply(xp, a_i, a_j, edge_attr, we, wemat,
                                    csr_rowptr, csr_snd, csr_eid, num_heads,
                                    channels, slope, snd_rowptr, snd_eid)

@@ -21,8 +21,11 @@ CUDA events, as ``chip_smoke.device_ms``), with this checkout's d_xp
 fill (the backward's one fill) timed alone beside them; ``--out`` also
 writes the JSON there.  A checkout's backward is called as its wrapper
 takes it: from the forward's output and statistics, or (before they
-existed) from the inputs alone.  Needs one CUDA card and ``nvcc``;
-imports no JAX.
+existed) from the inputs alone; with the sender CSR made once where it
+takes one, as the model calls it.  Where the backward sums d_xp with
+the CSR sum, ``bwd_kernel`` times it with that sum left out (kernel B
+alone: the wrapper's allocation and its one launch).  Needs one CUDA
+card and ``nvcc``; imports no JAX.
 """
 from __future__ import annotations
 
@@ -79,8 +82,8 @@ def time_checkout(checkout: Path, path: Path) -> dict:
     from glam_tpu_torch.ops.kernels import triplet_fused as k
     if not Path(k.__file__).resolve().is_relative_to(checkout.resolve()):
         raise RuntimeError(f"imported {k.__file__}, not from {checkout}")
-    stats_api = "row_max" in inspect.signature(
-        k.triplet_attention_bwd).parameters
+    params = inspect.signature(k.triplet_attention_bwd).parameters
+    stats_api = "row_max" in params
     data, dev = np.load(path), torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -93,12 +96,28 @@ def time_checkout(checkout: Path, path: Path) -> dict:
         fwd = lambda: k.triplet_attention_fwd(*args, H, C)  # noqa: E731
         if stats_api:
             stats = fwd()
+            # the sender CSR made once, as a batch carries it, and the
+            # sums ending at the real edges where the checkout has them
+            extra = {}
+            if "snd_rowptr" in params:
+                kw = ({"csr_rowptr": args[6]} if "csr_rowptr" in
+                      inspect.signature(k.sender_csr_of).parameters else {})
+                snd = k.sender_csr_of(args[7], args[8], N, **kw)
+                extra = dict(snd_rowptr=snd[0], snd_eid=snd[1])
             bwd = lambda: k.triplet_attention_bwd(  # noqa: E731
-                *args, *stats, g, H, C)
+                *args, *stats, g, H, C, **extra)
         else:
             bwd = lambda: k.triplet_attention_bwd(  # noqa: E731
                 *args, g, H, C)
         out[name] = {"fwd": cs.device_ms(fwd), "bwd": cs.device_ms(bwd)}
+        if hasattr(k, "segment_sum_csr"):
+            # kernel B alone: its wrapper's d_xp sum made the identity
+            summed = k.segment_sum_csr
+            k.segment_sum_csr = lambda x, *rest: x
+            try:
+                out[name]["bwd_kernel"] = cs.device_ms(bwd)
+            finally:
+                k.segment_sum_csr = summed
         if stats_api:
             out[name]["fill"] = cs.device_ms(lambda: torch.zeros(
                 (N, H * C), device=dev))
@@ -139,7 +158,9 @@ def main() -> None:
                          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
             results.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     for name in SHAPES:
-        for w in ("fwd", "bwd"):
+        for w in ("fwd", "bwd", "bwd_kernel"):
+            if not all(w in r[name] for r in results):
+                continue
             ms = [r[name][w] for r in results]
             print(f"{name} {w}: old {ms[0]:.4f} new {ms[1]:.4f} new "
                   f"{ms[2]:.4f} old {ms[3]:.4f} ms; old/new "

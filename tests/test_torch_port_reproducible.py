@@ -411,28 +411,54 @@ def _random_segments(rng, lens, C, dtype, perm=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("C", [1, 3, 60, 180, 1024])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_csr_sum_kernel_matches_plain_and_repeats(cuda, C, dtype):
-    """Segments of 0-40 entries, empty runs, one of 5,000 and one of 33:
-    the kernel against its plain version in float64 within
-    ``chip_smoke.csr_sum_tol`` (1e-6 of the segment's sum of magnitudes;
-    bfloat16: and 2**-8 of the result, its one rounding), two calls
-    bitwise equal, one launch each; without a permutation too."""
+    """Empty segments at both ends, segments of 0-40 entries, empty runs,
+    one of 5,000 and one of 33; of 64 and 65 (a row warp's most and a
+    cluster's least), of the cluster's span less one, the span and one
+    more, runs of 60-130, one that straddles two clusters' windows and
+    the serving batch's 44,096: the kernel against its plain version in
+    float64 within ``chip_smoke.csr_sum_tol`` (1e-6 of the segment's sum
+    of magnitudes; bfloat16 and float16: and 2**-8 of the result, its one
+    rounding), two calls bitwise equal, one launch each, each merging at
+    the global level (counted on the device) the segments longer than the
+    span and no other; without a permutation too, and with a limit below,
+    at and above rowptr[-1]."""
     from chip_smoke import csr_sum_tol
+    from glam_tpu_torch.ops.kernels.segment_sum_csr import (
+        constants, ticket_merges)
+    span = constants()["span"]
     rng = np.random.RandomState(C)
-    lens = np.concatenate([rng.randint(0, 41, 300), np.zeros(40, int),
-                           [5000], rng.randint(0, 9, 50), [33]])
+    head = np.concatenate([np.zeros(3, int), rng.randint(0, 41, 300),
+                           np.zeros(40, int), [5000], rng.randint(0, 9, 50),
+                           [33, 64, 65, span - 1, span, span + 1],
+                           rng.randint(60, 131, 30)])
+    # the next segment starts 100 slots before a window's end
+    fill = -int(head.sum() + 100) % span
+    lens = np.concatenate([head, [fill + span if fill < 70 else fill, 300],
+                           [44096], rng.randint(0, 41, 20),
+                           np.zeros(5, int)])
     for perm in (True, False):
         x, rowptr, p = _random_segments(rng, lens, C, dtype, perm)
-        want, tol = csr_sum_tol(x, rowptr, p, int(rowptr[-1]))
-        xd, rd = x.to(cuda), rowptr.to(cuda)
-        pd = p.to(cuda) if p is not None else None
-        before = segment_sum_csr.launches
-        got = segment_sum_csr(xd, rd, pd)
-        again = segment_sum_csr(xd, rd, pd)
-        assert segment_sum_csr.launches == before + 2
-        assert torch.equal(got, again)
-        assert ((got.cpu().double() - want).abs() <= tol).all()
+        n = int(rowptr[-1])
+        for lim in (None, n - 20000, n, n + 3):      # below: in the 44,096
+            rows = rowptr if lim is None else rowptr.clamp(max=lim)
+            want, tol = csr_sum_tol(x, rows, p, int(rows[-1]))
+            xd, rd = x.to(cuda), rowptr.to(cuda)
+            pd = p.to(cuda) if p is not None else None
+            ld = (torch.tensor([lim], dtype=torch.int32, device=cuda)
+                  if lim is not None else None)
+            before = segment_sum_csr.launches
+            ticket_merges(cuda)
+            got = segment_sum_csr(xd, rd, pd, ld)
+            again = segment_sum_csr(xd, rd, pd, ld)
+            assert segment_sum_csr.launches == before + 2
+            past = int(((rows[1:] - rows[:-1]) > span).sum())
+            assert ticket_merges(cuda) == 2 * past, (perm, lim)
+            assert torch.equal(got, again), (perm, lim)
+            assert ((got.cpu().double() - want).abs() <= tol).all(), \
+                (perm, lim)
 
 
 @pytest.mark.cuda
@@ -440,7 +466,8 @@ def test_kernel_b_d_xp_is_bitwise_across_calls(cuda):
     """Kernel B at a padded batch's CSR with a hub row: d_xp (each edge's
     term summed over the sender CSR) and d_a_j the same on every call,
     and the batch's sender CSR gives d_xp within 1e-5 of the plain
-    version's."""
+    version's (both sums ending at the real edges, d_xp's padded rows
+    unwritten)."""
     b = _batch(7, hub=200)
     rng = np.random.RandomState(9)
     H, C = 3, 60
