@@ -180,7 +180,14 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      TripletMessage molecule tower and the GAT protein tower: launches
      of A, B, C and C's backward exact on each rank, the final line
      once, the checkpoint served by ``PairPredictor`` on the card as on
-     the CPU) and ``sharded_protein`` (the 1,000-residue synthetic
+     the CPU); ``parallel_reproducible``, the JAX trainers' promise on
+     both parallel paths: the ``dp`` and ``sharded_dti`` runs each again,
+     2 epochs straight and 1 epoch + ``--resume`` + 1 (started with
+     ``sharded_ring``; ``sharded_dti`` itself starts with the dp phase's
+     runs), rank 0's ``last_save.pt`` and the final line bitwise equal
+     and every rank's state digest one; the CSR sum
+     at the 1,000-residue shard's gather CSRs (the halo sends, the
+     senders' and receivers' rows); and ``sharded_protein`` (the 1,000-residue synthetic
      protein at full width over 2 shards with a demo molecule, GAT and
      TripletMessage towers, a2a and ring: the sharded pair forward and
      gradients against the dense model on the card, the ranks equal
@@ -189,7 +196,8 @@ checkout; it imports nothing of JAX or of the JAX package.  In order:
      ``overlap``: the same protein's step with ``GLAM_SHARDED_OVERLAP``
      1, 0, 0, 1 (the halo issued before the terms that do not read it,
      each step's fusion statistics deferred; and not), outputs bitwise
-     equal, launches equal, gradients within twice the runs' spread, the
+     equal, launches equal, the runs of one setting's gradients bitwise
+     equal and on against off within 1e-6 of each leaf's scale, the
      eager step's ms in turns; ``giant_protein``:
      ``scripts/giant_protein_demo_torch.py --shards 2 --L 3000 --epochs
      1`` (the GCN protein tower over 3,000 residues, TripletMessage
@@ -2217,7 +2225,7 @@ def start_ranks_cli(tmp, flags, label, dataset="demo", threads=None):
                                  *argv], cwd=ROOT, stdout=out, stderr=err,
                                 env=env)
     return dict(label=label, dataset=dataset, argv=argv, work=work,
-                proc=proc, t0=time.perf_counter())
+                proc=proc, t0=time.perf_counter(), threads=threads)
 
 
 def start_together(tmp, runs):
@@ -2235,9 +2243,10 @@ def run_ranks_cli(tmp, flags, label, dataset="demo", graphs=None,
                             graphs, ranks)
 
 
-def finish_ranks_cli(run, graphs=None, ranks=DP_RANKS):
+def finish_ranks_cli(run, graphs=None, ranks=DP_RANKS, run_dir=None):
     """Wait for a run of :func:`start_ranks_cli` (``ranks`` ranks; nccl
-    ranks, one card each, on a host with as many cards).
+    ranks, one card each, on a host with as many cards; ``run_dir``: the
+    run directory it continues, for a ``--resume`` run).
     Checks the exit code, that the final line is printed once and parses,
     that every rank replayed step graphs in the design ``graphs`` (None:
     none, eagerly), prints each rank's design and graph stats, and
@@ -2267,7 +2276,8 @@ def finish_ranks_cli(run, graphs=None, ranks=DP_RANKS):
               if ln.startswith("{'testloss'")]
     if len(finals) != 1:
         fail(f"{label}: the final line printed {len(finals)} times")
-    runs = [d for d in (work / f"log_{dataset}").iterdir() if d.is_dir()]
+    runs = [run_dir] if run_dir is not None else [
+        d for d in (work / f"log_{dataset}").iterdir() if d.is_dir()]
     if len(runs) != 1:
         fail(f"{label}: {len(runs)} run directories, expected rank 0's one")
     last = (runs[0] / "log.txt").read_text().strip().splitlines()[-1]
@@ -2398,8 +2408,11 @@ def dp_phase(dev, card, tmp):
     parity against one process on the card with each rank's times and
     the gradient all-reduce's, the library model (C both ways per rank)
     and DDI; then the halo steps v1 and v2 (C per rank exact, outputs
-    against the plain reference on the card).  Returns each path's
-    launches and kernel numbers."""
+    against the plain reference on the card).  ``sharded_dti``'s run
+    starts with the three CLI runs (so that the sharded phase's runs that
+    resume it start at once) and is waited for before the timed tasks.
+    Returns each path's launches and kernel numbers, and the ``dp`` and
+    ``sharded_dti`` runs (``first``)."""
     import numpy as np
     import torch
     from glam_tpu_torch.parallel.distributed import (backend_for,
@@ -2412,14 +2425,17 @@ def dp_phase(dev, card, tmp):
           f"time-sliced on one card, not a scaling number ({card})")
     out = {"launches": {}, "kern": {}, "secs": {}}
 
-    # the three runs through the CLI start together (their checks read
-    # counts and results, no time); the ranks' timed tasks run after
+    # the three runs through the CLI and sharded_dti start together
+    # (their checks read counts and results, no time); the ranks' timed
+    # tasks run after
     t0 = time.perf_counter()
     runs = start_together(tmp, [(DP_ARGS, "dp", "demo"),
                                 (DP_LIBRARY_ARGS, "dp_library", "demo"),
-                                (DP_ARGS, "dp_pair", "drugbank_caster")])
-    _, _, by_rank, steps, forwards, _ = finish_ranks_cli(
+                                (DP_ARGS, "dp_pair", "drugbank_caster"),
+                                (SHARDED_ARGS, "sharded_dti", "bindingdb_c")])
+    run_dir, result, by_rank, steps, forwards, _ = finish_ranks_cli(
         runs[0], graphs=backend_design)
+    out["first"] = {"dp": (run_dir, result)}
     check_rank_counts("dp", by_rank, {
         "triplet_fused_fwd": 3 * forwards, "triplet_fused_bwd": 3 * steps,
         "segment_sum_csr": csr_want(cli_cfg(DP_ARGS), steps, forwards)})
@@ -2456,6 +2472,7 @@ def dp_phase(dev, card, tmp):
                                      seed=1234, n_devices=DP_RANKS, rank=0)))
     out["kern"]["train_dp_ddi"] = check_triplet_towers(
         "dp_ddi", pair, np.random.RandomState(14), dev, card)
+    out["first"]["sharded_dti"] = finish_ranks_cli(runs[3])
     out["secs"]["dp_runs"] = time.perf_counter() - t0
 
     # the one-step parity, the ranks' times, and the halo steps, by
@@ -2510,8 +2527,8 @@ def dp_phase(dev, card, tmp):
         runs = r["runs"]
         noise = "noise" in name
         optim = DP_GRAPH_CONFIGS[name]["optim"]
-        hold_runs(f"dp {name} rank 0", optim, noise,
-                  worker.GRAPH_PLAN, runs, card)
+        hold_bitwise(f"dp {name} rank 0", optim, noise,
+                     worker.GRAPH_PLAN, runs, card)
         n = len(runs["captured"][1])
         check_counts(f"dp graphs {name} rank 0", runs["captured"][2],
                      {"triplet_fused_fwd": 3 * n, "triplet_fused_bwd": 3 * n,
@@ -2685,11 +2702,14 @@ def shard_kernel_inputs(case, rank=0):
         [g], DP_RANKS))], DP_RANKS)
 
 
-def sharded_phase(dev, card, tmp):
+def sharded_phase(dev, card, tmp, first):
     """The node-sharded protein tower over 2 gloo ranks on the one card:
-    ``sharded_dti`` and ``sharded_ring`` through ``run --pro_shards 2``
-    (launches of A, B, C and C's backward exact on each rank, the final
-    line once, the checkpoint served on the card as on the CPU), then
+    ``sharded_dti`` (run by the dp phase, ``first``) and ``sharded_ring``
+    through ``run --pro_shards 2`` (launches of A, B, C and C's backward
+    exact on each rank, the final line once, the checkpoint served on the
+    card as on the CPU); ``parallel_reproducible``,
+    :func:`hold_reproducible` of the ``dp`` and ``sharded_dti`` runs,
+    their runs started with ``sharded_ring``; then
     ``sharded_protein``: the 1,000-residue protein's sharded pair forward
     and gradients against the dense model on the card (GAT and
     TripletMessage towers, a2a and ring), one Adam step leaving the ranks
@@ -2703,7 +2723,7 @@ def sharded_phase(dev, card, tmp):
     from glam_tpu_torch.data.pair_datasets import BindingDBDataset
     from glam_tpu_torch.parallel import sharded_model as sm
     from glam_tpu_torch.parallel.distributed import (
-        backend_for, sharded_step_graphs_for)
+        backend_for, sharded_step_graphs_for, step_graphs_for)
     out = {"launches": {}, "kern": {}}
     backend = backend_for("cuda", DP_RANKS, torch.cuda.device_count())[0]
     design, why = sharded_step_graphs_for(backend)
@@ -2717,14 +2737,34 @@ def sharded_phase(dev, card, tmp):
     ds = BindingDBDataset(str(ROOT / "datasets" / PAIR_ROOTS["bindingdb_c"]))
     test_pairs = [(g1.smi, g2.smi) for g1, g2 in ds.test]
     rng = np.random.RandomState(21)
-    # both runs start together (their checks read counts and results)
+    # sharded_ring starts together with parallel_reproducible's runs
+    # (every check reads counts and results, and the kernels are timed
+    # after them): the dp job's three and sharded_dti's, which resume
+    # the earlier runs
     t0 = time.perf_counter()
     sharded = (("sharded_dti", SHARDED_ARGS, "train_sharded_dti", 2),
                ("sharded_ring", SHARDED_RING_ARGS, "train_sharded_ring", 4))
-    runs = start_together(tmp, [(flags, label, "bindingdb_c")
-                                for label, flags, _, _ in sharded])
-    for run, (label, flags, path, B) in zip(runs, sharded):
-        run_dir, result, by_rank, steps, forwards, _ = finish_ranks_cli(run)
+    dp_first, sharded_first = first["dp"], first["sharded_dti"]
+    dp_end = saved_state(dp_first[0])
+    sharded_end = saved_state(sharded_first[0])
+    # resumed from a copy, so that the run's checks read its own files
+    resume_dir = Path(tmp) / "sharded_resume" / sharded_first[0].name
+    shutil.copytree(sharded_first[0], resume_dir)
+    repro = reproducible_specs("dp", DP_ARGS, "demo", dp_first[0]) \
+        + reproducible_specs("sharded_dti", SHARDED_ARGS, "bindingdb_c",
+                             resume_dir)
+    runs = start_together(tmp, [(SHARDED_RING_ARGS, "sharded_ring",
+                                 "bindingdb_c")] + repro)
+    ended = [sharded_first, finish_ranks_cli(runs[0])]
+    hold_reproducible(tmp, "dp", dp_first, dp_end, runs[1:4], DP_ARGS,
+                      step_graphs_for(backend)[0], card)
+    hold_reproducible(tmp, "sharded_dti", (resume_dir, sharded_first[1]),
+                      sharded_end, runs[4:], SHARDED_ARGS, None, card)
+    print(f"phase parallel_reproducible: {len(repro)} runs started with "
+          f"sharded_ring, all ended and held "
+          f"{time.perf_counter() - t0:.2f} s after the start")
+    for got, (label, flags, path, B) in zip(ended, sharded):
+        run_dir, result, by_rank, steps, forwards, _ = got
         check_rank_counts(label, by_rank, {
             "triplet_fused_fwd": 3 * forwards,
             "triplet_fused_bwd": 3 * steps,
@@ -2756,7 +2796,8 @@ def sharded_phase(dev, card, tmp):
             shard.edges.shape[0] + B * shard.n_local, 1, 60, dev), dev,
             card)
         out["kern"][path] = kern
-    print(f"phase sharded_dti and sharded_ring, started together: "
+    print(f"phase sharded_ring, started together with "
+          f"parallel_reproducible's runs, and both runs' checks: "
           f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -2836,6 +2877,21 @@ def sharded_phase(dev, card, tmp):
         rng, gshard.loop_rowptr.numpy(), gshard.loop_idx.numpy(),
         gshard.edges.shape[0] + gshard.n_local, 1, 60, dev), dev, card)
     out["kern"]["sharded_protein"] = kern
+    # the CSR sums of the gathers' backward at rank 0's shard: the halo
+    # send's rows (TripletMessage's xp, H*C = 180; GAT's, C = 60), the
+    # table's rows by sender (GAT's logits, C = 1, and values, C = 60)
+    # and the local rows by receiver (a_dst, C = 1)
+    g = torch.Generator().manual_seed(23)
+    for tag, seg, C in (
+            ("send_c180", shard.send_segments()[0], 180),
+            ("send_c60", gshard.send_segments()[0], 60),
+            ("sender_c1", gshard.sender_segments, 1),
+            ("sender_c60", gshard.sender_segments, 60),
+            ("receiver_c1", gshard.receiver_segments, 1)):
+        n = seg.ids.shape[0]
+        x = torch.randn((n, C) if C > 1 else (n,), generator=g).to(dev)
+        check_csr_sum("sharded_protein", f"protein1000_{tag}", x,
+                      seg.rowptr.to(dev), seg.perm.to(dev), card)
     print(f"phase sharded_protein: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     out["launches"]["giant_protein"], out["kern"]["giant_protein"] = \
@@ -2856,10 +2912,10 @@ def sharded_phase(dev, card, tmp):
 def hold_overlap(runs_by_case, note):
     """The worker's ``sharded_overlap`` runs (``GLAM_SHARDED_OVERLAP`` 1,
     0, 0, 1 of each case and plan): fail unless the no-grad outputs are
-    bitwise equal, the launches equal, and each gradient of an overlapped
-    run within twice the spread of the runs of one setting (plus 1e-6 of
-    its scale) of the run beside it without the overlap; print the eager
-    step's ms in turns."""
+    bitwise equal, the launches equal, the two runs of one setting's
+    gradients bitwise equal (every sum in a fixed order) and each
+    gradient of an overlapped run within 1e-6 of its scale of the run
+    beside it without the overlap; print the eager step's ms in turns."""
     import torch
     for key, runs in runs_by_case.items():
         first = runs[0]
@@ -2872,27 +2928,25 @@ def hold_overlap(runs_by_case, note):
             if r["launches"] != first["launches"]:
                 fail(f"overlap [{key}]: launches {r['launches']} against "
                      f"{first['launches']}")
-        worst, widest = 0.0, 0.0
+        worst, same = 0.0, True
         for k, g in first["grads"].items():
             gs = [r["grads"][k] for r in runs]
+            if not (torch.equal(gs[0], gs[3]) and torch.equal(gs[1], gs[2])):
+                fail(f"overlap [{key}]: gradient {k} differs between two "
+                     "runs of one setting")
             scale = max(float(gs[0].abs().max()), 1.0)
-            spread = max(float((gs[0] - gs[3]).abs().max()),
-                         float((gs[1] - gs[2]).abs().max()))
-            err = max(float((gs[0] - gs[1]).abs().max()),
-                      float((gs[3] - gs[2]).abs().max()))
-            worst, widest = max(worst, err / scale), max(widest,
-                                                         spread / scale)
-            if err > 2 * spread + 1e-6 * scale:
+            err = float((gs[0] - gs[1]).abs().max())
+            worst, same = max(worst, err / scale), same and err == 0.0
+            if err > 1e-6 * scale:
                 fail(f"overlap [{key}]: gradient {k} on and off differ by "
-                     f"{err:.3e}, beyond twice the runs' spread {spread:.3e}"
-                     f" + 1e-6 x its scale {scale:.3e}")
+                     f"{err:.3e}, beyond 1e-6 x its scale {scale:.3e}")
         turns = ", ".join(f"{r['flag']}: {r['step_ms']:.4f}" for r in runs)
         print(f"overlap [{key}]: GLAM_SHARDED_OVERLAP 1, 0, 0, 1 eagerly: "
               f"outputs bitwise equal, launches equal "
-              f"{json.dumps(first['launches'])}; gradients on against off "
-              f"within {worst:.3e} of each leaf's scale (the runs of one "
-              f"setting {widest:.3e} apart); an Adam step's host ms in "
-              f"turns {turns} ({note})")
+              f"{json.dumps(first['launches'])}; the runs of one setting's "
+              f"{len(first['grads'])} gradients bitwise equal; on against "
+              f"off within {worst:.3e} of each leaf's scale (bitwise: "
+              f"{same}); an Adam step's host ms in turns {turns} ({note})")
 
 
 def giant_protein_run(tmp, rng, dev, card):
@@ -3052,19 +3106,32 @@ CSR_CONV = {"_TripletMessage": (0, 2), "_TripletMessageLight": (0, 3),
 CSR_NORM = {"_PairNorm": 2, "_LayerNorm": 2}
 CSR_READOUT = {"GlobalPool5": (1, 0), "Set2Set": (0, 3),
                "GlobalLAPool": (0, 0)}
-# a node-sharded protein tower's own (parallel/sharded_model.py): NNConv's
-# two sums and GCNConv's one over receivers a step, kernel B's two a
-# step's backward; its norms and readouts are dense
-CSR_SHARDED = {"_TripletMessage": (0, 2), "_NNConv": (2, 0),
-               "_GCNConv": (1, 0)}
+# a node-sharded protein tower's own (parallel/sharded_model.py), a
+# message step with one halo send (a2a, or a ring of 2): NNConv's two
+# sums and GCNConv's one over receivers a forward; a backward: the halo
+# send's gather's, kernel B's two, and the gathers' of the table by
+# sender (TripletMessageLight's and GAT's logits and values, NNConv's
+# and GCNConv's rows) and of the local rows by receiver (a_i, a_dst);
+# its norms and readouts sum no CSR
+CSR_SHARDED = {"_TripletMessage": (0, 3), "_TripletMessageLight": (0, 4),
+               "_GATConv": (0, 4), "_NNConv": (2, 2), "_GCNConv": (1, 2)}
 
 
-def csr_sums(cfg, hetero=None, sharded_protein=False):
+def sharded_csr_sums(block, steps, sends=1):
+    """(launches of the CSR sum in a sharded tower's forward, more in its
+    backward) over ``steps`` message steps of ``block``, each with
+    ``sends`` halo sends (a ring plan: one a nonempty distance), each
+    send's gather summing its backward."""
+    f, b = CSR_SHARDED[block.strip()]
+    return steps * f, steps * (b + sends - 1)
+
+
+def csr_sums(cfg, hetero=None, sharded_protein=False, sends=1):
     """(launches of the CSR sum in a forward, more in a training step's
     backward) of a config (a dict or a ModelConfig): one tower (hetero
     None), DDI's two molecule towers (False) or DTI's molecule and
     protein towers (True; ``sharded_protein``: the protein's a
-    node-sharded tower)."""
+    node-sharded tower, its halo ``sends`` a message step)."""
     from glam_tpu_torch.nn.model import ModelConfig
     c = {**dataclasses.asdict(ModelConfig()),
          **(cfg if isinstance(cfg, dict) else dataclasses.asdict(cfg))}
@@ -3077,8 +3144,8 @@ def csr_sums(cfg, hetero=None, sharded_protein=False):
     fwd = bwd = 0
     for i, (block, readout) in enumerate(towers):
         if i == 1 and sharded_protein:
-            f, b = CSR_SHARDED.get(block.strip(), (0, 0))
-            fwd, bwd = fwd + steps * f, bwd + steps * b
+            f, b = sharded_csr_sums(block, steps, sends)
+            fwd, bwd = fwd + f, bwd + b
             continue
         cf, cb = CSR_CONV[block.strip()]
         rf, rb = CSR_READOUT[readout.strip()]
@@ -3989,7 +4056,6 @@ def build_model(trainer, cfg):
 # N_sma threshold and first Lookahead sync) and 10-13 (the second))
 PLAN_19 = [(0, 8, True), (8, 16, True), "lr", (16, 19, False)]
 PLAN_RANGER = [(0, 1, False), (1, 5, True), (5, 9, True), (9, 13, True)]
-GRAPH_RTOL, GRAPH_ATOL = 1e-4, 1e-6
 
 
 def captured_vs_eager(label, trainer, card, optim="Adam", noise=False,
@@ -4090,79 +4156,6 @@ def hold_bitwise(label, optim, noise, plan, runs, card):
           f"{gs['captures']} captures {gs['capture_s']:.3f} s, pool "
           f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card})")
     return {"max_rel_err": 0.0, "bitwise": True, "same_draws": True}
-
-
-def hold_runs(label, optim, noise, plan, runs, card):
-    """Hold a captured run against three eager runs from one state
-    (``runs``: {eager, captured, eager_2, eager_3: (state, losses,
-    launches, graph stats, learning rate)}), where a path still sums with
-    atomics (the gloo data-parallel ranks' collectives): each tensor of
-    the captured run within rtol GRAPH_RTOL + GRAPH_ATOL x its largest
-    entry of the first eager run's, or, as a share of its largest entry,
-    within GRAPH_RTOL beyond twice the largest such share between two
-    eager runs; the losses alike.  Prints the line and returns its
-    numbers."""
-    import torch
-    eager, got = runs["eager"][0], runs["captured"][0]
-    others = [runs["eager"][0], runs["eager_2"][0], runs["eager_3"][0]]
-    floats = [k for k, v in eager.items()
-              if v.is_floating_point() and v.numel()]
-    scale = {k: max(float(eager[k].abs().max()), 1e-30) for k in floats}
-    err = {k: float((got[k] - eager[k]).abs().max()) / scale[k]
-           for k in floats}
-    # the eager runs' own spread: the largest distance between two of the
-    # three, over the tensors, each as a share of its largest entry
-    spread = max(float((b[k] - a[k]).abs().max()) / scale[k]
-                 for i, a in enumerate(others) for b in others[i + 1:]
-                 for k in floats)
-    for k in floats:
-        if not (torch.allclose(got[k], eager[k], rtol=GRAPH_RTOL,
-                               atol=GRAPH_ATOL * scale[k])
-                or err[k] <= 2 * spread + GRAPH_RTOL):
-            fail(f"captured vs eager [{label}, {optim}]: {k} differs by "
-                 f"{err[k]:.3e} of its largest entry {scale[k]:.3e}; two "
-                 f"eager runs lie up to {spread:.3e} apart (tol "
-                 f"{GRAPH_RTOL} + 2 x that)")
-    worst_name = max(err, key=err.get)
-    worst = err[worst_name]
-    if runs["captured"][2] != runs["eager"][2]:
-        fail(f"captured vs eager [{label}]: launches {runs['captured'][2]} "
-             f"against {runs['eager'][2]} eagerly")
-
-    def loss_apart(a, b):
-        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
-
-    la, le = runs["captured"][1], runs["eager"][1]
-    loss_gap = loss_apart(la, le)
-    losses = [runs[r][1] for r in ("eager", "eager_2", "eager_3")]
-    loss_spread = max(loss_apart(a, b) for i, a in enumerate(losses)
-                      for b in losses[i + 1:])
-    # another draw moves a step's loss by far more than rounding: the
-    # losses, as the state, within GRAPH_RTOL beyond twice the eager
-    # runs' own spread
-    same_draws = loss_gap <= GRAPH_RTOL + 2 * loss_spread
-    if not same_draws:
-        fail(f"captured vs eager [{label}]: the losses lie {loss_gap:.3e} "
-             f"apart, the eager runs' up to {loss_spread:.3e}: the replays "
-             "did not take the eager steps")
-    gs = runs["captured"][3]
-    print(f"captured vs eager [{label}, {optim}, "
-          f"{'RReLU + Dropout' if noise else 'no noise'}]: {len(la)} steps "
-          f"({', '.join(str(p) for p in plan)}), {len(eager)} state "
-          f"tensors (parameters, BatchNorm statistics, optimizer state): "
-          f"max error {worst:.3e} of the tensor's largest entry "
-          f"({worst_name}; tol rtol {GRAPH_RTOL} + atol {GRAPH_ATOL} x "
-          f"largest, or within {GRAPH_RTOL} + 2 x the eager runs' spread "
-          f"{spread:.3e}); losses max rel diff {loss_gap:.3e}, eager runs' "
-          f"{loss_spread:.3e} (draws equal: {same_draws}); lr after the "
-          f"plateau {runs['captured'][4]:.3e} = eager "
-          f"{runs['eager'][4]:.3e}; "
-          f"launches equal {json.dumps(runs['captured'][2])}; "
-          f"{gs['captures']} captures {gs['capture_s']:.3f} s, pool "
-          f"{gs['pool_bytes'] / 2**20:.1f} MiB ({card})")
-    return {"max_rel_err": worst, "worst": worst_name,
-            "eager_spread": spread, "loss_gap": loss_gap,
-            "same_draws": same_draws}
 
 
 def host_step_ms(fn, reps=20, per=1):
@@ -4302,6 +4295,95 @@ def same_state(label, a, b):
         fail(f"reproducible [{label}]: final lines differ: {a[2]!r} and "
              f"{b[2]!r}")
     return len(a[0]) + len(a[1])
+
+
+def with_epochs(flags, n):
+    """``flags`` with ``--epochs n``."""
+    i = flags.index("--epochs")
+    return flags[:i + 1] + [str(n)] + flags[i + 2:]
+
+
+def saved_state(run_dir):
+    """A ranks run's end as rank 0 saved it, in :func:`run_state`'s form:
+    ``last_save.pt``'s weights (BatchNorm statistics included; the best
+    epoch's too, where the trainer keeps them), its optimizer state and
+    noise generators' states, and the log's final line."""
+    import torch
+    ck = torch.load(Path(run_dir) / "last_save.pt", map_location="cpu",
+                    weights_only=True)
+    state = dict(ck["state_dict"])
+    state.update({f"best.{k}": v for k, v in ck.get("best_state",
+                                                     {}).items()})
+    opt = {f"{i}.{k}": v for i, st in ck["optimizer"]["state"].items()
+           for k, v in st.items() if torch.is_tensor(v)}
+    opt.update({g: ck[g] for g in ("generator", "pro_generator")
+                if g in ck})
+    last = (Path(run_dir) / "log.txt").read_text().strip().splitlines()[-1]
+    return state, opt, last
+
+
+def reproducible_specs(label, flags, dataset, first_dir=None):
+    """The runs that :func:`hold_reproducible` holds against a 1-epoch
+    ranks run of ``flags``: ``[(flags, label, dataset), ...]`` of that run
+    again and of 2 epochs straight, and, where the first run's directory
+    is given, of 1 epoch more of it through ``--resume``."""
+    two = with_epochs(flags, 2)
+    specs = [(flags, f"{label}_second", dataset),
+             (two, f"{label}_straight", dataset)]
+    if first_dir is not None:
+        specs.append((two + ["--resume", str(first_dir)],
+                      f"{label}_resumed", dataset))
+    return specs
+
+
+def hold_reproducible(tmp, label, first, first_end, runs, flags, graphs,
+                      card, ranks=DP_RANKS):
+    """The JAX trainers' promise on a parallel path: ``runs``, the
+    :func:`reproducible_specs` runs of a 1-epoch ranks run ``first`` (its
+    run dir and result.json; ``first_end`` its :func:`saved_state`, read
+    before the resumed run wrote on), each started (or a spec, started
+    here), are waited for; fail unless the two 1-epoch runs and the
+    straight and resumed ones end bitwise equal (:func:`same_state`) and
+    every rank's ``state_digest`` of a pair is one.  Returns the tensor
+    count."""
+    first_dir, first_result = first
+    ends, results = [first_end], [first_result]
+    for i, run in enumerate(runs):
+        if isinstance(run, tuple):
+            run = start_ranks_cli(tmp, *run)
+        run_dir, result = finish_ranks_cli(
+            run, graphs, ranks, run_dir=first_dir if i == 2 else None)[:2]
+        ends.append(saved_state(run_dir))
+        results.append(result)
+    n = same_state(f"{label}, two runs", ends[0], ends[1])
+    same_state(f"{label}, resumed", ends[2], ends[3])
+    digests = []
+    for what, a, b in (("two runs", 0, 1), ("resumed", 2, 3)):
+        every = (results[a]["state_digest_by_rank"]
+                 + results[b]["state_digest_by_rank"])
+        if len(every) != 2 * ranks or len(set(every)) != 1:
+            fail(f"reproducible [{label}, {what}]: the ranks' state "
+                 f"digests differ: {every}")
+        digests.append(every[0][:12])
+    print(f"parallel_reproducible [{label}]: {ranks} ranks, python -m "
+          f"glam_tpu_torch.run {' '.join(flags)}: two runs of 1 epoch "
+          f"from the CLI's seed, and 2 epochs straight against 1 epoch + "
+          f"--resume + 1: {n} tensors of rank 0's last_save.pt (weights, "
+          f"BatchNorm statistics, optimizer state, noise generators) and "
+          f"the final line bitwise equal; every rank's state digest "
+          f"(weights, statistics, optimizer state at the end) one in each "
+          f"pair: {digests[0]}..., {digests[1]}... ({card})")
+    return n
+
+
+def reproducible_ranks(tmp, label, first, flags, dataset, graphs, card,
+                       ranks=DP_RANKS):
+    """:func:`hold_reproducible` of ``first`` with its runs one after
+    another (ranks with a card each: a run's ranks take every card)."""
+    return hold_reproducible(
+        tmp, label, first, saved_state(first[0]),
+        reproducible_specs(label, flags, dataset, first[0]), flags, graphs,
+        card, ranks)
 
 
 REPRODUCIBLE = (("flagship", TRAIN_ARGS, "demo", True),
@@ -4470,10 +4552,11 @@ def main() -> None:
                                      card, demo)
         scr_trained, kern_scr = phase("screening", screening_phase, dev,
                                       card, tmp)
-        par = phase("dp, halo, dp_library, dp_pair", dp_phase, dev, card,
-                    tmp)
-        shd = phase("sharded_dti, sharded_ring, sharded_protein, overlap, "
-                    "giant_protein", sharded_phase, dev, card, tmp)
+        par = phase("dp, halo, dp_library, dp_pair (sharded_dti's run)",
+                    dp_phase, dev, card, tmp)
+        shd = phase("sharded_dti, sharded_ring, parallel_reproducible, "
+                    "sharded_protein, overlap, giant_protein", sharded_phase,
+                    dev, card, tmp, par["first"])
         automl = phase("automl", automl_phase, dev, card, demo, tmp)
     phase("traced kernel checks", report_traced)
 

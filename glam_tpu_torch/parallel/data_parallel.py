@@ -13,8 +13,10 @@ denominator is its weight w (``weight_fn``: the loss's mask sum;
 ``data_parallel.py:72-80``).  A rank's backward takes the gradient of
 w_k loss_k, and one flat buffer in parameter order carries w_k grad
 loss_k, BatchNorm's running statistics, w_k, w_k loss_k and one flag a
-parameter (whether the rank has its gradient) through one
-``all_reduce`` (SUM).  After it, with W the sum of w over the ranks,
+parameter (whether the rank has its gradient) through one sum over the
+ranks (``distributed.all_reduce_sum``: one ``all_gather``, the ranks'
+buffers added in rank order, the same bits on every rank and in every
+run).  After it, with W the sum of w over the ranks,
 the gradients divided by max(W, 1e-12) are the single-process gradient
 of the global batch (all-padding sub-batches, w = 0, included: the JAX
 trainer's weighted ``psum``, ``glam_tpu/train/trainer.py:368-398``), the
@@ -126,8 +128,8 @@ class DPTrainStep:
             + [torch.stack([w, loss.detach() * w]), flags])
 
     def reduce(self, flat: torch.Tensor) -> None:
-        """The step's one collective: ``flat`` summed over the ranks, in
-        place."""
+        """The step's one collective: ``flat`` summed over the ranks in
+        rank order, in place."""
         distributed.all_reduce_sum(flat, self.group)
 
     def apply(self, flat: torch.Tensor, had: Sequence[bool]

@@ -101,6 +101,12 @@ what its result feeds.  The rule (Megatron's f and g):
   * :func:`all_reduce_max` takes no gradient (the softmax shifts cancel;
     the fusion max routes its gradient through the owner shard).
 
+Every SUM above, and the data-parallel step's, is :func:`all_reduce_sum`:
+an ``all_gather``, then the ranks' terms added in rank order on every
+rank, so that a step's bits depend on neither the backend nor NCCL's
+choice of algorithm (the JAX package's compiled ``psum`` has one order
+too), and a parallel run repeats and resumes bit for bit.
+
 With them, every rank's backward yields the whole gradient of every
 parameter, replicated or not, and no replicated parameter's gradient is
 summed twice.  :func:`broadcast_` sends rank 0's tensor to the others.
@@ -366,11 +372,16 @@ def wait_ranks(procs: Sequence[subprocess.Popen],
 
 
 # ---------------------------------------------------------- collectives
-def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
-    """[ranks, *t.shape]: every rank's ``t`` in rank order."""
+def _gathered(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """Every rank's ``t``, in rank order (one ``all_gather``)."""
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t.contiguous(), group=group)
-    return torch.stack(parts)
+    return parts
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[ranks, *t.shape]: every rank's ``t`` in rank order."""
+    return torch.stack(_gathered(t, group))
 
 
 def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -383,9 +394,19 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """``t`` summed over the ranks, in place."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    return t
+    """``t`` summed over the ranks in rank order, in place: one
+    ``all_gather`` of every rank's ``t``, then ((r0 + r1) + r2) + ...,
+    left to right, on every rank.  Every rank computes the same bits,
+    whatever the backend, its algorithm or its channel count (an
+    ``all_reduce``'s order of terms is NCCL's tuner's choice past 2
+    ranks); at 2 ranks it is ``all_reduce``'s r0 + r1.  Every SUM
+    reduction of the parallel layer goes through it; a graph under nccl
+    may capture it."""
+    parts = _gathered(t, group)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return t.copy_(total)
 
 
 def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -405,9 +426,7 @@ def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 class _ReduceToReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return all_reduce_sum(t.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -418,15 +437,11 @@ class _ReduceToLocal(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
-        out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-        return out
+        return all_reduce_sum(t.clone(), group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        return all_reduce_sum(g.contiguous().clone(), ctx.group), None
 
 
 class _EnterLocal(torch.autograd.Function):
@@ -441,8 +456,7 @@ class _EnterLocal(torch.autograd.Function):
         parts = [g.reshape(-1) if g is not None else
                  torch.zeros(shape.numel(), dtype=dtype, device=device)
                  for g, (shape, dtype, device) in zip(gs, ctx.shapes)]
-        flat = torch.cat(parts)
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.group)
+        flat = all_reduce_sum(torch.cat(parts), ctx.group)
         out, at = [], 0
         for shape, _, _ in ctx.shapes:
             out.append(flat[at:at + shape.numel()].view(shape))
@@ -485,8 +499,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         g = g.contiguous()
         if ctx.local:
-            g = g.clone()
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+            g = all_reduce_sum(g.clone(), ctx.group)
         return g[dist.get_rank(ctx.group)], None, None
 
 

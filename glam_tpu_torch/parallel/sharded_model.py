@@ -32,7 +32,11 @@ readouts and the pair model's fusion statistics reduce across the ranks.
     rows empty CSR rows, the first rows of the output kept),
     ``_TripletMessageLight`` and ``_GATConv`` kernel C both ways (GAT's
     self-loops over the local rows, loop first); ``_GCNConv`` and
-    ``_NNConv`` plain torch.
+    ``_NNConv`` plain torch.  Every gather (the halo sends, the senders'
+    and receivers' rows) is a ``Segments.gather``, whose backward sums
+    each row's cotangents with the CSR-sum kernel in slot order, and
+    NNConv's and GCN's sums over receivers are ``Segments.sum``: no
+    ``index_add_`` atomics.
   * :func:`make_sharded_forward` / :func:`make_sharded_train_step` over
     a dense ``Architecture``, :func:`make_sharded_pair_forward` /
     :func:`make_sharded_pair_train_step` over a dense
@@ -41,9 +45,12 @@ readouts and the pair model's fusion statistics reduce across the ranks.
 
 Gradients come from each rank's own backward through the collectives of
 ``parallel/distributed.py`` (f, g and their transposes): every rank ends
-with the whole gradient of every parameter.  The dense model's
-``state_dict`` is the checkpoint, so a sharded-trained model serves
-unchanged.
+with the whole gradient of every parameter.  Every sum runs in a fixed
+order, the all-reduces' in rank order, so a step's bits do not depend on
+the run, and a run repeats and resumes bit for bit, as the JAX trainer
+promises (``glam_tpu/train/sharded_pair_trainer.py:733-757``).  The
+dense model's ``state_dict`` is the checkpoint, so a sharded-trained
+model serves unchanged.
 
 The halo exchange overlaps the work that does not read it, as the JAX
 package's ``run_tower`` lets XLA's scheduler overlap it
@@ -61,9 +68,8 @@ built, turns both off (each exchange waited for where it is issued, each
 step's statistics taken after it).  The autograd graph is the same
 either way, its nodes made in the same order (the statistics read each
 step's output through an alias made right after it), so that autograd
-adds every gradient's terms in one order: on the CPU the outputs and
-gradients are bitwise equal either way; on the card the sums' atomics
-vary the gradients' last bits between any two runs.
+adds every gradient's terms in one order: the outputs and gradients are
+bitwise equal either way.
 """
 from __future__ import annotations
 
@@ -75,14 +81,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.graph import GraphBatch, receiver_csr
+from ..data.graph import GraphBatch, receiver_csr, sender_csr
 from ..nn.activations import (RRELU_LOWER, RRELU_UPPER, Activation,
                               activation_key, celu)
 from ..nn.cells import gru_cell, lstm_cell
 from ..nn.convs import NO_GRU_CONVS
 from ..ops.kernels.segment_softmax_spmm import segment_softmax_spmm
 from ..ops.kernels.triplet_fused import triplet_attention
-from ..ops.segment import scatter_nodes_to_dense, segment_sum
+from ..ops.segment import Segments, scatter_nodes_to_dense
 from . import distributed as dd
 from .graph_partition import (build_halo_exchange, build_halo_exchange_ring,
                               split_large_graph)
@@ -232,7 +238,10 @@ class Shard:
     budgets (a CUDA graph of a step takes every protein of a corpus):
     the CSRs' slots are padded to E, the pads past ``csr_rowptr[-1]``
     (kernels A and B read E_real there) and, for kernel C, in an extra
-    row R whose output is dropped."""
+    row R whose output is dropped.  The gathers' CSRs list every slot,
+    pads included, in the row its id names, slot order within a row
+    (:attr:`sender_segments`, :attr:`receiver_segments`,
+    :meth:`send_segments`)."""
 
     nodes: torch.Tensor        # [R, F]
     edges: torch.Tensor        # [E, Fe]
@@ -252,6 +261,12 @@ class Shard:
     loop_rowptr: torch.Tensor  # [R + 2] int32, GAT's: a loop, then edges;
     #                            the last row R the pads
     loop_idx: torch.Tensor     # [E + R] int32; E + r is row r's loop
+    snd_rowptr: torch.Tensor   # [T + 1] int32, every slot by sender
+    snd_perm: torch.Tensor     # [E] int32, the slots in that order
+    rcv_rowptr: torch.Tensor   # [R + 1] int32, every slot by receiver
+    rcv_perm: torch.Tensor     # [E] int32
+    send_rowptr: Tuple[torch.Tensor, ...]  # [R + 1] int32 the sent rows':
+    send_perm: Tuple[torch.Tensor, ...]    # a2a one, ring one a distance
     graph_nodes: torch.Tensor  # [B] float32, each graph's real nodes
     n_pairs: int
     n_local: int
@@ -267,6 +282,32 @@ class Shard:
         return dataclasses.replace(self, **{
             f.name: move(getattr(self, f.name))
             for f in dataclasses.fields(self)})
+
+    @property
+    def sender_segments(self) -> Segments:
+        """Every edge slot by its sender's row of the [local ; halo]
+        table."""
+        return Segments(self.senders, self.snd_rowptr, self.snd_perm)
+
+    @property
+    def receiver_segments(self) -> Segments:
+        """Every edge slot by its receiver's local row."""
+        return Segments(self.receivers, self.rcv_rowptr, self.rcv_perm)
+
+    def send_segments(self) -> List[Segments]:
+        """The halo sends' local rows (a2a: ``send_idx`` flat; ring: one
+        a distance), each by the row it reads."""
+        ids = [self.send_idx.reshape(-1)] if self.ring is None \
+            else list(self.ring)
+        return [Segments(i, r, p) for i, r, p in
+                zip(ids, self.send_rowptr, self.send_perm)]
+
+    @property
+    def halo_sends(self) -> int:
+        """The sends of a message step's halo exchange: a2a's one, or the
+        ring's nonempty distances."""
+        return 1 if self.ring is None else sum(
+            int(idx.numel() > 0) for idx in self.ring)
 
     @property
     def halo_rows(self) -> int:
@@ -353,10 +394,16 @@ def pack_shards(per_graph: Sequence[tuple], n_parts: int) -> Shard:
             torch.from_numpy(np.concatenate(
                 [send[b][k].astype(np.int64) + b * Nl for b in range(B)]))
             for k in range(n_parts - 1))
+        sent = [r.numpy() for r in ring_t]
     else:
         send_t = torch.from_numpy(np.concatenate(
             [send[b].astype(np.int64) + b * Nl for b in range(B)], 1))
         ring_t = None
+        sent = [send_t.numpy().reshape(-1)]
+    # the gathers' CSRs: a stable sort keeps a row's slots in slot order
+    snd_rowptr, snd_perm = sender_csr(snd_p, T)
+    rcv_rowptr, rcv_perm = sender_csr(rcv_p, R)
+    send_csrs = [sender_csr(ids, R) for ids in sent]
     t = torch.from_numpy
     return Shard(
         nodes=t(np.concatenate(nodes).astype(np.float32)),
@@ -368,7 +415,11 @@ def pack_shards(per_graph: Sequence[tuple], n_parts: int) -> Shard:
         send_idx=send_t, ring=ring_t, csr_rowptr=t(rowptr),
         csr_snd=t(csr_snd), csr_eid=t(csr_eid), pad_rowptr=t(pad_rowptr),
         loop_rowptr=t(loop_ptr),
-        loop_idx=t(loop_idx),
+        loop_idx=t(loop_idx), snd_rowptr=t(snd_rowptr),
+        snd_perm=t(snd_perm), rcv_rowptr=t(rcv_rowptr),
+        rcv_perm=t(rcv_perm),
+        send_rowptr=tuple(t(r) for r, _ in send_csrs),
+        send_perm=tuple(t(p) for _, p in send_csrs),
         graph_nodes=torch.tensor(counts, dtype=torch.float32), n_pairs=B,
         n_local=Nl, table_rows=T)
 
@@ -425,13 +476,13 @@ class ShardedTower:
         shards read; returns ``finish()`` -> the [T, ...] table, ``z``
         then the rows they send.  Without the overlap the exchange is
         waited for here."""
+        segs = s.send_segments()
         if s.ring is None:
             D = s.send_idx.shape[0]
-            sends, ks = [z.index_select(0, s.send_idx.reshape(-1)).view(
-                D, -1, *z.shape[1:])], None
+            sends, ks = [segs[0].gather(z).view(D, -1, *z.shape[1:])], None
         else:
             ks = [k for k, idx in enumerate(s.ring, start=1) if idx.numel()]
-            sends = [z.index_select(0, s.ring[k - 1]) for k in ks]
+            sends = [segs[k - 1].gather(z) for k in ks]
         started = dd.exchange_start(sends, ks, self.group,
                                     blocking=not self.overlap) \
             if sends else None
@@ -536,15 +587,16 @@ class ShardedTower:
         xp = x_in @ lp["conv.conv.weight_node"]                # [R, C]
         w_i, w_e, w_j = lp["conv.conv.weight_triplet_att"].split([C, Fe, C])
         finish = self.halo_start(xp, s)
-        local = (xp @ w_i).index_select(0, s.receivers) + s.edges @ w_e
+        snd, rcv = s.sender_segments, s.receiver_segments
+        local = rcv.gather(xp @ w_i) + s.edges @ w_e
         between()
         table = finish()
-        logits = local + (table @ w_j).index_select(0, s.senders)
+        logits = local + snd.gather(table @ w_j)
         logits = torch.where(logits >= 0, logits,
                              conv.negative_slope * logits)
         aggr = segment_softmax_spmm(logits[:, None].contiguous(),
-                                    table.index_select(0, s.senders),
-                                    s.pad_rowptr, s.csr_eid)[:R]
+                                    snd.gather(table), s.pad_rowptr,
+                                    s.csr_eid)[:R]
         return aggr + lp["conv.conv.bias"]
 
     def _gat(self, lp, x_in, s, between):
@@ -558,18 +610,19 @@ class ShardedTower:
         between()
         table = finish()
         slope = conv.negative_slope
-        logits = torch.cat([(table @ att_src).index_select(0, s.senders)
-                            + a_dst.index_select(0, s.receivers),
+        snd = s.sender_segments
+        logits = torch.cat([snd.gather(table @ att_src)
+                            + s.receiver_segments.gather(a_dst),
                             loops])                            # [E + R]
         logits = torch.where(logits >= 0, logits, slope * logits)
-        values = torch.cat([table.index_select(0, s.senders), xp])
+        values = torch.cat([snd.gather(table), xp])
         out = segment_softmax_spmm(logits[:, None].contiguous(), values,
                                    s.loop_rowptr, s.loop_idx)[:xp.shape[0]]
         return out + lp["conv.conv.bias"]
 
     def _nnconv(self, lp, x_in, s, between):
         conv = self.conv
-        ci, co, R = conv.in_channels, conv.out_channels, x_in.shape[0]
+        ci, co = conv.in_channels, conv.out_channels
         finish = self.halo_start(x_in, s)
         h1 = F.relu(F.linear(s.edges, lp["conv.conv.edge_mlp_0.weight"],
                              lp["conv.conv.edge_mlp_0.bias"]))
@@ -578,23 +631,23 @@ class ShardedTower:
         root = x_in @ lp["conv.conv.root"]
         between()
         table = finish()
-        msg = torch.bmm(table.index_select(0, s.senders)[:, None, :],
+        msg = torch.bmm(s.sender_segments.gather(table)[:, None, :],
                         wmat)[:, 0]
         em = s.edge_mask[:, None].to(msg.dtype)
-        tot = segment_sum(msg * em, s.receivers, R)
-        cnt = segment_sum(em[:, 0], s.receivers, R).clamp(min=1.0)
+        rcv = s.receiver_segments
+        tot = rcv.sum(msg * em)
+        cnt = rcv.sum(em[:, 0]).clamp(min=1.0)
         return tot / cnt[:, None] + root + lp["conv.conv.bias"]
 
     def _gcn(self, lp, x_in, s, between):
-        R = x_in.shape[0]
         xp = F.linear(x_in, lp["conv.conv.weight"])
         finish = self.halo_start(xp, s)
         loops = s.self_norm[:, None] * xp
         w = torch.where(s.edge_mask, s.edge_norm, 0.0)
         between()
         table = finish()
-        out = segment_sum(w[:, None] * table.index_select(0, s.senders),
-                          s.receivers, R)
+        out = s.receiver_segments.sum(
+            w[:, None] * s.sender_segments.gather(table))
         return out + loops + lp["conv.conv.bias"]
 
     _CONVS = {"_TripletMessage": _triplet, "_TripletMessageLight": _light,
@@ -813,9 +866,9 @@ def make_sharded_pair_forward(model, group=None):
 
 def sync_grads(model: torch.nn.Module, group=None) -> None:
     """Every rank takes rank 0's gradients (one broadcast of them all):
-    each rank's backward already holds the whole gradient, but the
-    replicated towers' float sums (the card's atomics) may differ in the
-    last bits between ranks, and the replicas must stay equal.  A
+    each rank's backward already holds the whole gradient, its sums in a
+    fixed order, and the broadcast keeps the replicas equal whatever the
+    ranks' devices compute.  A
     parameter without a gradient keeps none (every rank runs the same
     graph, so they agree on which; a captured step fixes the set at its
     capture).  Each gradient becomes a view of the one broadcast buffer,

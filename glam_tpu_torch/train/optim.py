@@ -20,6 +20,7 @@ those are centered over the axes after the first.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -158,6 +159,25 @@ def load_optimizer_state(opt: torch.optim.Optimizer, state: Dict) -> None:
         for key in ("lr", "step"):
             if isinstance(group.get(key), torch.Tensor):
                 group[key] = group[key].to(device)
+
+
+def state_digest(model: torch.nn.Module,
+                 opt: torch.optim.Optimizer) -> str:
+    """A SHA-256 of the training state's bits: every tensor of
+    ``model.state_dict()`` (BatchNorm's statistics included) and of the
+    optimizer's state, by name, shape, dtype and bytes.  Two states have
+    one digest only where every tensor is bitwise equal: a parallel
+    run's result.json holds every rank's, so that ranks and runs can be
+    held against each other without their weights."""
+    h = hashlib.sha256()
+    tensors = list(model.state_dict().items()) + [
+        (f"opt.{i}.{k}", v) for i, st in enumerate(opt.state.values())
+        for k, v in st.items() if isinstance(v, torch.Tensor)]
+    for name, t in tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{name}:{tuple(t.shape)}:{t.dtype};".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 class ReduceLROnPlateau:

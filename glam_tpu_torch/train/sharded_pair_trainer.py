@@ -76,7 +76,8 @@ from ..parallel.sharded_model import (corpus_budgets, local_noise,
 from ..serve import resolve_device, save_checkpoint
 from .metrics import binary_metrics, regression_metrics, screening_metrics
 from .optim import (ReduceLROnPlateau, get_learning_rate,
-                    load_optimizer_state, make_optimizer, set_learning_rate)
+                    load_optimizer_state, make_optimizer, set_learning_rate,
+                    state_digest)
 from .pair_trainer import _set_pair_max_nodes
 from .step_graph import StepGraphs
 from .trainer import _new_run_dir
@@ -443,7 +444,8 @@ class ShardedPairTrainer:
                             if self.step_graphs else None)}
         torch.distributed.all_gather_object(
             by_rank, {"launches": launch_counts(), "steps": self.steps,
-                      "forwards": self.forwards, "graphs": graphs})
+                      "forwards": self.forwards, "graphs": graphs,
+                      "digest": state_digest(self.model, self.optimizer)})
         if self.is_main:
             record = {
                 "run_id": self.run_id, "loss": loss_info,
@@ -459,7 +461,10 @@ class ShardedPairTrainer:
                 "step_graphs": self.step_graphs is not None,
                 "step_graphs_reason": self.step_graphs_reason,
                 "step_graph_stats": graphs["stats"],
-                "step_graphs_by_rank": [r["graphs"] for r in by_rank]}
+                "step_graphs_by_rank": [r["graphs"] for r in by_rank],
+                # each rank's weights, statistics and optimizer state at
+                # the end (optim.state_digest): equal where the bits are
+                "state_digest_by_rank": [r["digest"] for r in by_rank]}
             with open(self.log_save_dir / "result.json", "w") as f:
                 json.dump(record, f, indent=1)
         return loss_info, test_result, val_new

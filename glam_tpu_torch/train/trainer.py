@@ -94,7 +94,8 @@ from ..serve import resolve_device, save_checkpoint
 from .losses import get_loss
 from .metrics import binary_metrics_multi_target_nan, regression_metrics
 from .optim import (ReduceLROnPlateau, get_learning_rate,
-                    load_optimizer_state, make_optimizer, set_learning_rate)
+                    load_optimizer_state, make_optimizer, set_learning_rate,
+                    state_digest)
 from .step_graph import RankStepGraphs, StepGraphs, stackable
 
 # a trial has diverged when its loss or outputs are non-finite or absurdly
@@ -580,7 +581,8 @@ class Trainer:
         loss_info = {"testloss": float(test_loss), "valloss": float(val_loss)}
         val_new = {"val" + k: v for k, v in val_result.items()}
         self.log(f"{loss_info}|{test_result}|{val_new}")
-        mine = (launch_counts(), self._graphs_record())
+        mine = (launch_counts(), self._graphs_record(),
+                state_digest(self.model, self.optimizer))
         by_rank = [mine]
         if self.n_devices > 1:
             by_rank = [None] * self.n_devices
@@ -588,7 +590,7 @@ class Trainer:
         if self.is_main:
             self._write_structured_result(
                 loss_info, test_result, val_new, [r[0] for r in by_rank],
-                [r[1] for r in by_rank])
+                [r[1] for r in by_rank], [r[2] for r in by_rank])
         return loss_info, test_result, val_new
 
     def _graphs_record(self) -> Dict:
@@ -600,11 +602,13 @@ class Trainer:
                           if self.step_graphs else None)}
 
     def _write_structured_result(self, loss_info, test_result, val_new,
-                                 launches_by_rank, graphs_by_rank):
+                                 launches_by_rank, graphs_by_rank,
+                                 digests_by_rank):
         """result.json in the run dir and a record appended to
         <work_dir>/results.jsonl: the config, the results, the epochs
-        and optimizer steps trained, the seconds, and the kernels'
-        launches (this process's, and every rank's)."""
+        and optimizer steps trained, the seconds, the kernels' launches
+        (this process's, and every rank's) and every rank's
+        ``state_digest`` at the end."""
         record = {
             "run_id": self.run_id,
             "dataset": self.args.get("dataset"),
@@ -641,6 +645,9 @@ class Trainer:
             "step_graphs_by_rank": graphs_by_rank,
             "scan_steps": self.scan_steps,
             "kernel_launches_by_rank": launches_by_rank,
+            # each rank's weights, statistics and optimizer state at the
+            # end, as optim.state_digest: equal where the bits are
+            "state_digest_by_rank": digests_by_rank,
         }
         try:
             with open(self.log_save_dir / "result.json", "w") as f:

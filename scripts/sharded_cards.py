@@ -10,7 +10,11 @@ then, in order (``--parts`` picks some of them):
            corpus (the flagship, one epoch, batch 64): the exit code, the
            final line, every rank's step graphs (the "whole" design: one
            graph a step or group, its all-reduce inside) and launches (A
-           3 a forward, B 3 a step), and the wall seconds;
+           3 a forward, B 3 a step), and the wall seconds; then the run
+           again, 2 epochs straight and 1 epoch more of the first
+           through ``--resume``: the two 1-epoch runs and the straight
+           and resumed ones bitwise equal, every rank's state digest one
+           (``chip_smoke.reproducible_ranks``);
   time     the worker's dp ``time`` task (``tests/torch_port_dp_worker.py``;
            the smoke's full-width flagship, batch 64 over the ranks, SGD):
            each rank's step eager and replayed in turns with its busy ms,
@@ -20,14 +24,15 @@ then, in order (``--parts`` picks some of them):
            (one epoch, a TripletMessage molecule tower and a GAT protein
            tower), with a2a and with ``--halo ring --pair_batch 4``: the
            same checks, launches A and C 3 a forward, B and C's backward
-           3 a step;
+           3 a step; the a2a run twice and resumed, bitwise, as ``dp``;
   protein  the 1,000-residue synthetic protein of ``chip_smoke.py`` and
            the giant demo's 3,000-residue one at full width over N shards
            (worker tasks ``sharded``, ``sharded_time`` and
            ``sharded_graphs``; the 3,000-residue one captured only): the
            eager and the captured step's output
            and gradients against the dense model on cuda:0 (rtol/atol
-           1e-4; rtol 2e-4 + atol 5e-5 x each leaf's scale), the launches
+           1e-4; rtol 2e-4 + atol 5e-5 x each leaf's scale), the captured
+           step's against its eager warm-up's bitwise, the launches
            of a replay, the ranks' parameters after Adam steps (eager;
            replayed), each rank's step, halo and collective times, the
            step's host ms eager and replayed in turns with its busy ms
@@ -98,18 +103,23 @@ def main():
         if "dp" in parts:
             flags = [a if a != str(cs.DP_RANKS) else str(n)
                      for a in cs.DP_ARGS]
-            _, _, by_rank, steps, forwards, wall = cs.run_ranks_cli(
-                tmp, flags, "dp_cards", graphs=design, ranks=n)
+            run_dir, result, by_rank, steps, forwards, wall = \
+                cs.run_ranks_cli(tmp, flags, "dp_cards", graphs=design,
+                                 ranks=n)
             cs.check_rank_counts("dp_cards", by_rank, {
                 "triplet_fused_fwd": 3 * forwards,
-                "triplet_fused_bwd": 3 * steps})
+                "triplet_fused_bwd": 3 * steps,
+                "segment_sum_csr": cs.csr_want(cs.cli_cfg(flags), steps,
+                                               forwards)})
             print(f"run --n_devices {n}: launches exact on each of {n} "
-                  f"ranks (A 3 x {forwards} forwards, B 3 x {steps} steps),"
-                  f" wall_s={wall:.2f}")
+                  f"ranks (A 3 x {forwards} forwards, B 3 x {steps} steps, "
+                  f"the CSR sum's), wall_s={wall:.2f}")
+            cs.reproducible_ranks(tmp, "dp_cards", (run_dir, result), flags,
+                                  "demo", design, card, ranks=n)
         if "time" in parts:
             dp_time(tmp, n, card, cs, worker, torch)
         if "cli" in parts:
-            sharded_cli(tmp, n, sharded_design, cs)
+            sharded_cli(tmp, n, sharded_design, cs, card)
         if "protein" in parts:
             protein(tmp, n, dev, card, cs, worker, torch)
     if "giant" in parts:
@@ -173,22 +183,40 @@ def dp_time(tmp, n, card, cs, worker, torch):
               f"medians of 20 ({card})")
 
 
-def sharded_cli(tmp, n, sharded_design, cs):
-    """``run --pro_shards n`` on dti_demo, a2a and ring."""
+def sharded_cli(tmp, n, sharded_design, cs, card):
+    """``run --pro_shards n`` on dti_demo, a2a and ring; the a2a run
+    again, and 1 epoch more through ``--resume`` against 2 straight:
+    bitwise (``chip_smoke.reproducible_ranks``)."""
+    from glam_tpu_torch.data.pair_datasets import BindingDBDataset
+    from glam_tpu_torch.parallel import sharded_model as sm
+    ds = BindingDBDataset(str(ROOT / "datasets" /
+                              cs.PAIR_ROOTS["bindingdb_c"]))
+    # the ring's sends a message step: its nonempty distances at the
+    # corpus budgets the trainer plans
+    ring = sm.corpus_budgets([p[1] for p in ds.train + ds.val + ds.test], n,
+                             "ring")[3]
     for label, extra in (("a2a", []), ("ring", ["--halo", "ring",
                                                 "--pair_batch", "4"])):
         flags = ["--epochs", "1", "--mol_block", "_TripletMessage",
                  "--pro_block", "_GATConv", "--pro_shards", str(n)] + extra
-        _, _, by_rank, s, f, wall = cs.run_ranks_cli(
+        run_dir, result, by_rank, s, f, wall = cs.run_ranks_cli(
             tmp, flags, f"sharded_{label}", "bindingdb_c",
             graphs=sharded_design, ranks=n)
+        sends = 1 if label == "a2a" else sum(b > 0 for b in ring)
         cs.check_rank_counts(f"sharded_{label}", by_rank, {
             "triplet_fused_fwd": 3 * f, "triplet_fused_bwd": 3 * s,
             "segment_softmax_spmm_fwd": 3 * f,
-            "segment_softmax_spmm_bwd": 3 * s})
+            "segment_softmax_spmm_bwd": 3 * s,
+            "segment_sum_csr": cs.csr_want(
+                cs.cli_cfg(flags), s, f, hetero=True, sharded_protein=True,
+                sends=sends)})
         print(f"run --pro_shards {n} [{label}]: {s} steps, {f} forwards "
               f"a rank, launches exact on each of {n} ranks, "
               f"wall_s={wall:.2f}")
+        if label == "a2a":
+            cs.reproducible_ranks(tmp, f"sharded_{label}_cards",
+                                  (run_dir, result), flags, "bindingdb_c",
+                                  sharded_design, card, ranks=n)
 
 
 def protein(tmp, n, dev, card, cs, worker, torch):
@@ -247,20 +275,28 @@ def protein(tmp, n, dev, card, cs, worker, torch):
 
 def hold_captured(by_rank, cases, dense, n, card, cs, torch):
     """The captured sharded steps of every rank: rank 0's replayed output
-    and gradients against the dense model, every rank's launches at
-    replay, the ranks' parameters after the replayed Adam steps, and the
-    host and busy ms in turns."""
+    and gradients against the dense model and, bitwise, against its
+    eager step's, every rank's launches at replay, the ranks' parameters
+    after the replayed Adam steps, and the host and busy ms in turns."""
     for key, r0 in by_rank[0].items():
         name = next(c for c in cases if key.startswith(c))
         out_err, grad_err = cs.hold_sharded(f"captured {key}", r0,
                                             *dense[name])
+        differ = [k for k, g in r0["grads"].items()
+                  if not torch.equal(g, r0["eager_grads"][k])]
+        if differ or not torch.equal(r0["out"], r0["eager_out"]):
+            cs.fail(f"captured {key}: the replay's output or gradients "
+                    f"differ from the eager step's ({differ[:3]})")
         a = 6 if name.endswith("_TripletMessage") else 3
         c = 3 if name.endswith("_GATConv") else 0
         for k, r in enumerate(by_rank):
             cs.check_counts(f"captured {key} rank {k}", r[key]["launches"], {
                 "triplet_fused_fwd": a, "triplet_fused_bwd": a,
                 "segment_softmax_spmm_fwd": c,
-                "segment_softmax_spmm_bwd": c})
+                "segment_softmax_spmm_bwd": c,
+                "segment_sum_csr": cs.csr_want(
+                    cases[name]["cfg"], 1, 1, hetero=True,
+                    sharded_protein=True, sends=r[key]["sends"])})
         states = r0["params"]
         if not all(torch.equal(states[0][k], st[k]) for st in states
                    for k in states[0]):
@@ -269,6 +305,8 @@ def hold_captured(by_rank, cases, dense, n, card, cs, torch):
         print(f"protein [{key}] over {n} shards, captured whole (nccl "
               f"collectives inside): output within {out_err:.3e} of dense, "
               f"gradients within {grad_err:.3e} of each leaf's scale; "
+              f"the output and {len(r0['grads'])} gradients bitwise equal "
+              f"to the eager step's; "
               f"launches at replay exact on each rank (A {a}, B {a}, C "
               f"{c}, C's backward {c}); the ranks' {len(states[0])} "
               f"tensors bitwise equal after the replayed Adam steps")

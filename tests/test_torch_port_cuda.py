@@ -925,13 +925,14 @@ def test_dp_step_graphs_with_two_ranks_on_one_card(cuda, tmp_path):
     their step graphs (the segmented design: two graphs a step around
     one eager all-reduce) against the same steps eagerly, 19 steps from
     one state with the learning rate cut between (``chip_smoke.
-    hold_runs``): SGD without noise, and Adam with RReLU and Dropout,
-    whose losses say that each replay draws its eager step's masks from
-    the reseeded generator; launches equal; the ranks bitwise equal."""
+    hold_bitwise``, bitwise): SGD without noise, and Adam with RReLU and
+    Dropout, whose losses say that each replay draws its eager step's
+    masks from the reseeded generator; launches equal; the ranks bitwise
+    equal."""
     import json
     import shutil
 
-    from chip_smoke import DEMO_CSV, DP_GRAPH_CONFIGS, hold_runs
+    from chip_smoke import DEMO_CSV, DP_GRAPH_CONFIGS, hold_bitwise
     from torch_port_dp_worker import GRAPH_PLAN, spawn_ranks, wait_ranks
     shutil.copytree(DEMO_CSV.parent, tmp_path / "demo" / "raw")
     small = {"e_dim": 128, "hid_dim_alpha": 2}
@@ -943,8 +944,8 @@ def test_dp_step_graphs_with_two_ranks_on_one_card(cuda, tmp_path):
                      timeout=600)["graphs"]
     for name, r in got.items():
         runs = r["runs"]
-        res = hold_runs(f"dp {name}", DP_GRAPH_CONFIGS[name]["optim"],
-                        "noise" in name, GRAPH_PLAN, runs, "test")
+        res = hold_bitwise(f"dp {name}", DP_GRAPH_CONFIGS[name]["optim"],
+                           "noise" in name, GRAPH_PLAN, runs, "test")
         assert res["same_draws"]
         assert runs["captured"][3]["replays"] > 0
         states = r["captured_by_rank"]

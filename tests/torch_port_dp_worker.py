@@ -32,9 +32,9 @@ computed to ``<work dir>/rank0.pt``:
   graphs   on the card, per config of ``graphs`` ({name: the CLI's
            args}): 19 steps from one state through the trainer's
            ``RankStepGraphs`` (8 + 8 + 3, the learning rate cut between)
-           and the same steps eagerly, three times: rank 0's state,
-           losses, launches and graph stats of each run, and every
-           rank's state after the captured run;
+           and the same steps eagerly: rank 0's state, losses,
+           launches and graph stats of each run, and every rank's state
+           after the captured run;
   ddi      a 1-epoch DDI pair trainer's per-epoch losses;
   dist     process_shard, global_mesh, the rank count and the backend;
   measure  bench_scaling.measure(ranks, graphs_per_device=8, n_iter=2);
@@ -61,7 +61,14 @@ computed to ``<work dir>/rank0.pt``:
            (:func:`task_sharded_overlap`);
   strainer the sharded DTI trainer (``train/sharded_pair_trainer.py``)
            on the runs of ``strainer.pt`` (:func:`task_strainer`), one
-           of them through static slots (``slots``).
+           of them through static slots (``slots``);
+  rank_sum the rank-ordered sum (``distributed.all_reduce_sum``) over
+           the first n ranks, n = 2 .. all (:func:`task_rank_sum`);
+  sharded_autograd  for each case of ``sharded.pt``, a2a and ring: the
+           autograd nodes of the sharded forward's loss and the CSR
+           sums its forward and backward call (:func:`task_sharded_autograd`);
+  sharded_twice  each case of ``sharded.pt``'s loss backward twice from
+           its state, eagerly: both runs' outputs and gradients.
 """
 from __future__ import annotations
 
@@ -368,7 +375,7 @@ def task_graphs(work, plan, dev):
     for name, args in plan["graphs"].items():
         runs = {run: _graph_run(name, args, work, dev, plan,
                                 run == "captured")
-                for run in ("eager", "captured", "eager_2", "eager_3")}
+                for run in ("eager", "captured")}
         out[name] = {"runs": runs,
                      "captured_by_rank": _by_rank(runs["captured"][0])}
     return {"graphs": out}
@@ -727,10 +734,11 @@ def task_sharded_graphs(work, plan, dev):
     whole, its collectives inside.  First a graph of the forward, the
     loss's backward and the gradients' broadcast: one replay's output,
     gradients and launches (rank 0's against the dense model by the
-    caller).  Then a graph of the whole Adam step: its host ms replayed
-    and eager in turns (medians of 10), the profiles' busy ms after a
-    barrier (with and without the collectives' kernels), and every
-    rank's parameters after the replays."""
+    caller), and its eager warm-up's output and gradients, which the
+    replay's must equal bitwise.  Then a graph of the whole Adam step:
+    its host ms replayed and eager in turns (medians of 10), the
+    profiles' busy ms after a barrier (with and without the collectives'
+    kernels), and every rank's parameters after the replays."""
     from glam_tpu_torch.cuda_graphs import CapturedCalls
     from glam_tpu_torch.parallel import sharded_model as sm
     from glam_tpu_torch.train.optim import make_optimizer
@@ -767,7 +775,8 @@ def task_sharded_graphs(work, plan, dev):
                 grads()
                 opt.step()
 
-            calls.warm_up(grads)          # NCCL's communicators, eagerly
+            # NCCL's communicators, eagerly: the eager step's result
+            eager = [t.cpu().clone() for t in calls.warm_up(grads)]
             graph = calls.capture(grads)
             before = launch_counts()
             res = calls.replay(graph)
@@ -775,7 +784,9 @@ def task_sharded_graphs(work, plan, dev):
             got = {"out": res[0].cpu().clone(),
                    "grads": {n: g.cpu().clone()
                              for n, g in zip(names, res[1:])},
-                   "launches": launches}
+                   "eager_out": eager[0],
+                   "eager_grads": dict(zip(names, eager[1:])),
+                   "launches": launches, "sends": shard.halo_sends}
             calls.warm_up(step)           # Adam's state, eagerly
             whole = calls.capture(step)
             replay = lambda: calls.replay(whole)  # noqa: E731
@@ -793,7 +804,8 @@ def task_sharded_graphs(work, plan, dev):
             if rank == 0:
                 got["params"] = params
             else:
-                got.pop("out"), got.pop("grads")
+                for k in ("out", "grads", "eager_out", "eager_grads"):
+                    got.pop(k)
             if case.get("overlap_ab"):
                 got["ab"] = _overlap_ab(case, dev, halo, backend,
                                         f"{name} {halo}")
@@ -1051,6 +1063,106 @@ def task_strainer(work, plan, dev):
     return {"strainer": out}
 
 
+def rank_terms(rank: int) -> torch.Tensor:
+    """Rank ``rank``'s term of the rank-ordered sum's check: [64, 64]
+    float32 of magnitudes 1e-4 to 1e4, so that the order of the adds
+    shows in the bits."""
+    rng = np.random.RandomState(100 + rank)
+    return torch.from_numpy((rng.randn(64, 64) * 10.0 ** rng.uniform(
+        -4, 4, (64, 64))).astype(np.float32))
+
+
+def task_rank_sum(work, plan, dev):
+    """For n = 2 .. the rank count, over a group of the first n ranks:
+    each member's :func:`rank_terms` summed by ``all_reduce_sum``, and at
+    n = 2 by ``torch.distributed.all_reduce`` too; every rank's result."""
+    rank, ranks = distributed.world()
+    out = {}
+    for n in range(2, ranks + 1):
+        group = torch.distributed.new_group(list(range(n)))
+        mine = None
+        if rank < n:
+            t = rank_terms(rank).to(dev)
+            mine = {"sum": distributed.all_reduce_sum(t.clone(),
+                                                      group).cpu()}
+            if n == 2:
+                ref = t.clone()
+                torch.distributed.all_reduce(ref, group=group)
+                mine["all_reduce"] = ref.cpu()
+        out[n] = _by_rank(mine)
+    return {"rank_sum": out}
+
+
+def _autograd_nodes(root):
+    """The names of every node of the autograd graph under ``root``."""
+    seen, todo, names = set(), [root], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        todo.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def task_sharded_autograd(work, plan, dev):
+    """Each case of ``sharded.pt``, a2a and ring, on this rank's shard:
+    the names of the autograd nodes under the loss of the sharded
+    forward, and the CSR sums (calls of the plain version, a kernel
+    launch each on the card) of its forward and of its backward."""
+    from glam_tpu_torch.ops.kernels import segment_sum_csr as csr_mod
+    from glam_tpu_torch.ops.kernels import triplet_fused
+    calls = [0]
+    plain = csr_mod.segment_sum_csr_plain
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    csr_mod.segment_sum_csr_plain = counted
+    triplet_fused.segment_sum_csr_plain = counted
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    out = {}
+    try:
+        for name, case in cases.items():
+            for halo in ("a2a", "ring"):
+                calls[0] = 0
+                loss, shard = _sharded_loss(case, dev, halo)
+                fwd = calls[0]
+                names = _autograd_nodes(loss.grad_fn)
+                loss.backward()
+                out[f"{name}_{halo}"] = {
+                    "nodes": sorted(names), "csr": (fwd, calls[0] - fwd),
+                    "sends": shard.halo_sends}
+    finally:
+        csr_mod.segment_sum_csr_plain = plain
+        triplet_fused.segment_sum_csr_plain = plain
+    return {"sharded_autograd": out}
+
+
+def _sharded_loss(case, dev, halo):
+    """(the worker's loss of a single-graph case's sharded forward on its
+    first graph, this rank's shard), the backward not taken."""
+    from glam_tpu_torch.parallel import sharded_model as sm
+    rank, D = distributed.world()
+    g = GraphArrays(*case["graphs"][0], y=np.zeros(1, np.float32))
+    shard = sm.pack_shards([sm.shard_at(
+        g, D, rank, sm.corpus_budgets([g], D, halo))], D).to(dev)
+    out = sm.make_sharded_forward(_sharded_model(case, dev))(shard)
+    return ((out - 0.3) ** 2).mean(), shard
+
+
+def task_sharded_twice(work, plan, dev):
+    """Each case of ``sharded.pt``: :func:`sharded_case` twice (a2a,
+    eagerly, from the case's state); both runs' outputs and gradients."""
+    cases = torch.load(work / "sharded.pt", weights_only=False)
+    return {"sharded_twice": {
+        name: [{k: r[k] for k in ("out", "grads")} for r in
+               (sharded_case(case, dev), sharded_case(case, dev))]
+        for name, case in cases.items()}}
+
+
 TASKS = {"step": task_step, "time": task_time, "graphs": task_graphs,
          "ddi": task_ddi,
          "dist": task_dist, "measure": task_measure,
@@ -1058,7 +1170,9 @@ TASKS = {"step": task_step, "time": task_time, "graphs": task_graphs,
          "sharded": task_sharded, "sharded_time": task_sharded_time,
          "sharded_graphs": task_sharded_graphs,
          "sharded_overlap": task_sharded_overlap,
-         "strainer": task_strainer}
+         "strainer": task_strainer, "rank_sum": task_rank_sum,
+         "sharded_autograd": task_sharded_autograd,
+         "sharded_twice": task_sharded_twice}
 
 
 # --------------------------------------------------- started by the callers
